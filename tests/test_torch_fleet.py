@@ -86,6 +86,28 @@ def test_fleet_cold_start_matches_jax(frames):
                                   t.deconv.state["current"].numpy())
 
 
+def test_convert_scan_path_checkpoint(frames):
+    """A checkpoint of the JAX receiver's scan demod path (use_pallas=
+    False: state as a dict of [C] arrays) converts to the same [19, C]
+    planes the Pallas layout would hold, with the trellis planes
+    stripped of their lane padding."""
+    from leansdr_tpu.dsp import receiver_pallas as rp
+    jax.clear_caches()
+    j = JaxRx(JaxRxConfig(**CFG), C, use_pallas=False, chunk_samples=CHUNK)
+    j.collect(j.dispatch(frames[:, :CHUNK]))
+    t = MultiDvbsReceiver(RxConfig(**CFG), C, chunk_samples=CHUNK,
+                          device="cpu")
+    t.load_state(from_jax_checkpoint(j.save_state()))
+    want = np.asarray(rp.pack_state(j.state)).reshape(19, -1)[:, :C]
+    np.testing.assert_array_equal(t._planes.numpy(), want)
+    for k in ("buf", "cost", "fill", "current"):
+        np.testing.assert_array_equal(t.deconv.state[k].numpy(),
+                                      np.asarray(j.deconv.state[k]))
+    assert t.deconv.state["metric"].shape == (64, C * 4)
+    assert t.deconv.track == j.deconv.track
+    assert t._chunk_count == 1
+
+
 def test_port_checkpoint_and_pipelined_streaming(frames):
     """The port's own save_state/load_state round trip, and the
     pipelined submit/flush path (fetch and byte backend on threads) give
