@@ -5,10 +5,12 @@
 
 Builds the CUDA kernels from leansdr_tpu_torch/csrc (nvcc, sm_90a), holds
 each kernel against its plain PyTorch version on the card, then drives
-the fleet receiver's main path at full width — 64 QPSK rate-1/2 carriers
-at 2 Msym/s sampled at 4 Msps, chunk_samples = 2**18, Viterbi on — from
-DVB-S stimulus the port modulates itself, and checks that every carrier
-locks and decodes the TS packets that were sent.
+the fleet receiver's main path at full width — 64 QPSK carriers at
+2 Msym/s sampled at 4 Msps, chunk_samples = 2**18, Viterbi on — at code
+rate 1/2 (the rate-1/2 ACS kernel) and at the punctured rates 3/4 and 7/8
+(the banked ACS kernel), from DVB-S stimulus the port modulates itself,
+and checks that every carrier locks and decodes the TS packets that were
+sent.
 
 Phases (any failure exits non-zero):
   1. card name and power limit, versions, kernel build time;
@@ -18,13 +20,18 @@ Phases (any failure exits non-zero):
      every valid sample, float state within max(1e-3, 1e-4*|v|) (the CPU
      tests' bar; the kernel and its plain version round alike, so 0 is
      expected);
-  3. ACS kernel == viterbi_acs_ref bit for bit (N=256 lanes, T=2048,
-     ties forced, with and without cheap_q);
+  3. ACS kernel == viterbi_acs_ref bit for bit (T=2048, ties forced, the
+     main path's N=256 ACQUIRE lanes with and without cheap_q, its N=64
+     TRACK lanes with cheap_q); banked ACS kernel ==
+     viterbi_acs_banked_ref bit for bit at 4/6, 3/4, 5/6 and 7/8 (T=1024,
+     ties forced, from zero and from a live state, at each rate's
+     main-path ACQUIRE lanes, at TRACK's 64 and at N=200);
   4. the main path through MultiDvbsReceiver.process, with the kernels'
      launch counters zeroed just before and read just after, and
-     per-stage times from CUDA events; then the same stream through the
-     pipelined submit()/flush() path (device->host copy and byte backend
-     on threads), held to the same TS gate;
+     per-stage times from CUDA events; at rate 1/2 then the same stream
+     through the pipelined submit()/flush() path (device->host copy and
+     byte backend on threads), held to the same TS gate; then 64
+     carriers at 3/4 and at 7/8, each run with its own zeroed counters;
   5. kernel times at the main path's shapes, bounds, one `kernels` line;
   6. last line: {"ok": true, "device": {...}}.
 
@@ -45,6 +52,13 @@ CHUNK_SAMPLES = 1 << 18
 NCHUNKS = 6
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 VECTOR_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+# Integer work (the ACS kernels) is priced at the INT32 issue rate: a
+# Hopper SM has 64 INT32 lanes, so 64 integer operations per SM per
+# clock, times the SMs (132 on the H100 SXM) and the max SM clock that
+# nvidia-smi reports (1980 MHz there): ~16.7e12/s. The 67e12 above is the
+# FP32 FMA rate counting each FMA as two operations, 4x the INT32 rate.
+INT32_OPS_PER_SM_CLOCK = 64
+PUNCTURED = ("3/4", "7/8")       # main-path rates of the banked ACS
 STATE_KEYS = {"mu": 0, "freqw": 2, "agc_gain": 3, "est_insp": 4}
 # The demod's serial bound: dependent operations per sample along
 # demod.cu's loop-carried path (phase -> u16 wrap 7, sinf/cosf ~25,
@@ -75,10 +89,15 @@ def cuda_time(fn, reps: int, warmup: int = 1) -> float:
     return s.elapsed_time(e) / reps
 
 
-def bound_ms(nbytes: float, nops: float):
+def bound_ms(nbytes: float, nops: float, ops_per_s: float = VECTOR_OPS_PER_S):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = nops / VECTOR_OPS_PER_S * 1e3
+    to = nops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def int32_ops_per_s(clock_hz: float) -> float:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return INT32_OPS_PER_SM_CLOCK * sms * clock_hz
 
 
 # ---------------------------------------------------------------- phase 2
@@ -149,10 +168,11 @@ def check_demod(predef, rate, nsym, C, nsamp, dev, gen):
 
 def check_acs(dev, gen):
     from leansdr_tpu_torch.fec import viterbi_device as vd
-    N, T = 256, 2048
-    z = torch.zeros((64, N), dtype=torch.int32, device=dev)
+    T = 2048
     out = []
-    for cheap_q in (False, True):
+    for N, cheap_q in ((NCHAN * vd.NSYNCS, False), (NCHAN * vd.NSYNCS, True),
+                       (NCHAN, True)):
+        z = torch.zeros((64, N), dtype=torch.int32, device=dev)
         m0, p0 = z, z
         for rnd in range(2):      # second round starts from a live state
             cs = torch.randint(0, 4, (T, N), device=dev, dtype=torch.int32,
@@ -167,7 +187,7 @@ def check_acs(dev, gen):
             plain_ms = (time.perf_counter() - t0) * 1e3
             for name, a, b in zip(("metric", "path", "us", "q"), k, r):
                 if not torch.equal(a, b):
-                    fail(f"ACS cheap_q={cheap_q} round {rnd}: {name} "
+                    fail(f"ACS N={N} cheap_q={cheap_q} round {rnd}: {name} "
                          f"differs in {int((a != b).sum())} entries")
             err = max(float((a.to(torch.int64) - b.to(torch.int64)).abs()
                             .max()) for a, b in zip(k, r))
@@ -178,18 +198,79 @@ def check_acs(dev, gen):
     return max(e for e, _ in out), out[0][1]
 
 
+def fleet_plan(rate, dev):
+    """The ACQUIRE ViterbiPlan of the 64-carrier main path at `rate`."""
+    from leansdr_tpu_torch.dsp.cstln import Predef, make_dvbs2_constellation
+    from leansdr_tpu_torch.fec import viterbi_device as vd
+    return vd.MultiViterbiSync(make_dvbs2_constellation(Predef.QPSK, rate),
+                               rate, NCHAN, CHUNK_SAMPLES, 2.0,
+                               device=dev).plan
+
+
+def check_acs_banked(dev, gen):
+    """acs_banked == viterbi_acs_banked_ref bit for bit at every fleet
+    punctured rate, T=1024, coarse costs forcing metric ties, at the main
+    path's lane counts (the rate's ACQUIRE lanes, 64 carriers x nsyncs,
+    and TRACK's 64) and at N=200 (not a multiple of 32); round 0 from
+    zero planes, round 1 from the kernel's end state. Returns (max |diff|,
+    plain ms at 3/4 ACQUIRE round 0, its N)."""
+    from leansdr_tpu_torch.fec import viterbi_banked as vb
+    from leansdr_tpu_torch.fec.viterbi import make_trellis
+    T = 1024
+    err, plain = 0.0, None
+    for rate in vb.FLEET_RATES:
+        ncs = make_trellis(rate).ncs
+        n_acq = fleet_plan(rate, dev).n_lanes
+        for N in (n_acq, NCHAN, 200):
+            z = torch.zeros((64, N), dtype=torch.int32, device=dev)
+            planes = (z, z, z)
+            for rnd in range(2):
+                cs = torch.randint(0, ncs, (T, N), device=dev,
+                                   dtype=torch.int32, generator=gen)
+                cost = -3 * torch.randint(0, 4, (T, N), device=dev,
+                                          dtype=torch.int32, generator=gen)
+                k = vb.viterbi_acs_banked(rate, *planes, cs, cost)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = vb.viterbi_acs_banked_ref(rate, *planes, cs, cost)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t0) * 1e3
+                for name, a, b in zip(("metric", "hi", "lo", "us", "q"), k,
+                                      r):
+                    if not torch.equal(a, b):
+                        fail(f"acs_banked {rate} N={N} round {rnd}: {name} "
+                             f"differs in {int((a != b).sum())} entries")
+                err = max(err, max(float((a.to(torch.int64)
+                                          - b.to(torch.int64)).abs().max())
+                                   for a, b in zip(k, r)))
+                print(f"acs_banked {rate} N={N} T={T} round {rnd}: "
+                      f"bit-equal, plain {plain_ms:.0f} ms")
+                if rate == "3/4" and N == n_acq and rnd == 0:
+                    plain = (plain_ms, N)
+                planes = k[:3]
+    return err, plain[0], plain[1]
+
+
 # ---------------------------------------------------------------- phase 4
 
-def fleet_stimulus(dev, gen, nsamp):
+def fleet_stimulus(dev, gen, nsamp, rate="1/2"):
     """[64, nsamp, 2] float32 on dev: channel c carries the port's
-    modulation of TS packets numbered from 1000*c, with its own
-    fractional delay, carrier offset and AWGN (Es/N0 ~ 12 dB)."""
+    modulation at code rate `rate` of TS packets numbered from 1000*c,
+    with its own fractional delay, carrier offset and AWGN (Es/N0
+    ~ 12 dB)."""
+    from leansdr_tpu_torch.fec.convenc import FEC_SPECS
+    from leansdr_tpu_torch.fec.viterbi_banked import fleet_rate
     from leansdr_tpu_torch.pipelines import dvbs_tx, tsgen
-    npkt = nsamp // 3264 + 16          # 3264 samples per RS packet
+    bits_in, bits_out = FEC_SPECS[fleet_rate(rate)]
+    # A TS packet takes at least 188*8 * bits_out/bits_in samples (2
+    # samples per symbol, 2 coded bits per symbol), so these cover nsamp.
+    npkt = nsamp * bits_in // (1504 * bits_out) + 16
     rows = []
     for c in range(NCHAN):
         q = dvbs_tx.modulate(tsgen.generate(npkt, start=1000 * c),
-                             dvbs_tx.TxConfig(rate="1/2", interp=2))
+                             dvbs_tx.TxConfig(rate=rate, interp=2))
+        if len(q) < nsamp + 1:
+            fail(f"stimulus: {len(q)} samples < {nsamp + 1}")
         rows.append(torch.from_numpy(q[:nsamp + 1]))
     x = torch.stack(rows).to(dev)                       # [C, nsamp+1, 2]
     d = torch.rand((NCHAN, 1, 1), device=dev, generator=gen)
@@ -224,24 +305,29 @@ def check_packets(c, pkts):
     return len(pkts) - first, sum(ok[first:]), span
 
 
-def main_path(dev, gen):
+def main_path(dev, gen, code_rate="1/2"):
+    """The fleet at `code_rate`: NCHUNKS chunks through process() with
+    every kernel's launch count zeroed just before and read just after;
+    at rate 1/2 also the pipelined submit() path."""
     from leansdr_tpu_torch.dsp import mf_prefilter, receiver_kernel as rk
+    from leansdr_tpu_torch.fec import viterbi_banked as vb
     from leansdr_tpu_torch.fec import viterbi_device as vd
     from leansdr_tpu_torch.pipelines import multi_rx
     from leansdr_tpu_torch.pipelines.dvbs_rx import RxConfig
 
-    cfg = RxConfig(Fs=4e6, Fm=2e6, rate="1/2", fastlock=True,
+    cfg = RxConfig(Fs=4e6, Fm=2e6, rate=code_rate, fastlock=True,
                    float_scale=75, exact_lut=False, viterbi=True,
                    sampler="rrc")
     rx = multi_rx.MultiDvbsReceiver(cfg, NCHAN, chunk_samples=CHUNK_SAMPLES,
                                     device=dev)
     ra = rx.readahead
     t0 = time.perf_counter()
-    frames = fleet_stimulus(dev, gen, NCHUNKS * CHUNK_SAMPLES + ra)
+    frames = fleet_stimulus(dev, gen, NCHUNKS * CHUNK_SAMPLES + ra,
+                            code_rate)
     frames = frames * cfg.float_scale       # the device path's contract
     torch.cuda.synchronize()
-    print(f"stimulus: {NCHAN} x {frames.shape[1]} samples in "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[rate {code_rate}] stimulus: {NCHAN} x {frames.shape[1]} "
+          f"samples in {time.perf_counter() - t0:.1f} s")
 
     # Per-stage CUDA events (host clocks for the host stages) around the
     # main path's own calls, tagged with the chunk they belong to.
@@ -270,14 +356,16 @@ def main_path(dev, gen):
             return out
         return wrapper
 
-    demod_fn, acs_fn = rk.demod, vd.viterbi_acs
+    demod_fn, acs_fn, banked_fn = rk.demod, vd.viterbi_acs, \
+        vb.viterbi_acs_banked
     patches = [(mf_prefilter, "mf_prefilter", timed("mf", mf_prefilter.
                                                    mf_prefilter)),
                (rk, "demod", timed("demod", rk.demod)),
                (multi_rx, "deconv_append", timed("append",
                                                  multi_rx.deconv_append)),
-               (multi_rx, "viterbi_decode", timed("decode",
-                                                  multi_rx.viterbi_decode)),
+               (vd, "viterbi_decode", timed("decode", vd.viterbi_decode)),
+               (vd, "viterbi_decode_banked", timed(
+                   "decode", vd.viterbi_decode_banked)),
                (multi_rx, "_pack_fetch", timed("pack", multi_rx._pack_fetch)),
                (multi_rx, "_to_host", hosttimed("fetch", multi_rx._to_host,
                                                 sync=True)),
@@ -290,6 +378,7 @@ def main_path(dev, gen):
     wall = []
     demod_fn.launches = 0
     acs_fn.launches = 0
+    banked_fn.launches = 0
     try:
         for k in range(NCHUNKS):
             chunk[0] = k
@@ -301,18 +390,22 @@ def main_path(dev, gen):
             for c in range(NCHAN):
                 pkts[c] += list(out[c])
     finally:
-        launches = {"demod": demod_fn.launches, "acs": acs_fn.launches}
+        launches = {"demod": demod_fn.launches, "acs": acs_fn.launches,
+                    "acs_banked": banked_fn.launches}
         for obj, name, fn in saved:
             setattr(obj, name, fn)
     torch.cuda.synchronize()
 
-    print(f"main path: {NCHUNKS} chunks of {NCHAN} x {CHUNK_SAMPLES}; "
-          f"launches {launches}; TRACK={rx.deconv.track}")
-    if launches["demod"] < NCHUNKS or launches["acs"] < 1:
-        fail(f"main path did not run through the kernels: {launches}")
+    acs_key = "acs" if code_rate == "1/2" else "acs_banked"
+    print(f"[rate {code_rate}] main path: {NCHUNKS} chunks of {NCHAN} x "
+          f"{CHUNK_SAMPLES}; launches {launches}; TRACK={rx.deconv.track}")
+    if launches["demod"] < NCHUNKS or launches[acs_key] < 1:
+        fail(f"main path at rate {code_rate} did not run through the "
+             f"kernels: {launches}")
     locks = rx.locks
     if not all(locks):
-        fail(f"channels not locked: {[c for c, l in enumerate(locks) if not l]}")
+        fail(f"rate {code_rate}: channels not locked: "
+             f"{[c for c, l in enumerate(locks) if not l]}")
     worst = 1.0
     total_good = 0
     for c in range(NCHAN):
@@ -322,10 +415,10 @@ def main_path(dev, gen):
         worst = min(worst, frac_ok, frac_span)
         total_good += n_good
         if n_good < 100 or frac_ok < 0.9 or frac_span < 0.9:
-            fail(f"channel {c}: {n_good} sent packets decoded of {n_after} "
-                 f"after lock, span {span}")
-    print(f"TS: {total_good} sent packets decoded over {NCHAN} channels; "
-          f"worst channel fraction {worst:.4f}")
+            fail(f"rate {code_rate} channel {c}: {n_good} sent packets "
+                 f"decoded of {n_after} after lock, span {span}")
+    print(f"[rate {code_rate}] TS: {total_good} sent packets decoded over "
+          f"{NCHAN} channels; worst channel fraction {worst:.4f}")
 
     # Steady state: chunks 1.. (chunk 0 includes first-call costs).
     steady = slice(1, NCHUNKS)
@@ -341,10 +434,14 @@ def main_path(dev, gen):
             stages[name] += ms / nsteady
     chunk_s = sum(wall[steady]) / len(wall[steady])
     rate = NCHAN * CHUNK_SAMPLES / chunk_s / 1e6
-    print(f"per-stage ms per chunk (steady state, chunks 1..{NCHUNKS - 1}): "
+    print(f"[rate {code_rate}] per-stage ms per chunk (steady state, chunks "
+          f"1..{NCHUNKS - 1}): "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-    print(f"chain: {chunk_s * 1e3:.1f} ms per chunk, {rate:.1f} Msamples/s "
-          f"({NCHAN} x 2 Msym/s carriers need {NCHAN * 4.0:.0f})")
+    print(f"[rate {code_rate}] chain: {chunk_s * 1e3:.1f} ms per chunk, "
+          f"{rate:.1f} Msamples/s ({NCHAN} x 2 Msym/s carriers need "
+          f"{NCHAN * 4.0:.0f})")
+    if code_rate != "1/2":
+        return rx, frames, launches, stages, rate, None
 
     # The same stream through the pipelined path.
     rp = multi_rx.MultiDvbsReceiver(cfg, NCHAN, chunk_samples=CHUNK_SAMPLES,
@@ -431,7 +528,8 @@ def kernel_times(rx, frames, dev, gen):
                                               cheap_q=cheap_q), reps=3)
         a_bytes = T * N * 16 + 4 * 64 * N * 4
         a_ops = T * N * 64 * 16.0        # ~16 integer ops per state
-        out[key] = dict(ms=ms, bound=bound_ms(a_bytes, a_ops),
+        out[key] = dict(ms=ms, bound=bound_ms(a_bytes, a_ops,
+                                              int32_ops_per_s(clock)),
                         shape=f"N={N} T={T} cheap_q={cheap_q}")
     for k, v in out.items():
         chain = (f", serial chain bound {v['chain_bound_ms']:.3f} ms"
@@ -441,6 +539,60 @@ def kernel_times(rx, frames, dev, gen):
     print(f"demod rate: {C * n / out['demod']['ms'] / 1e3:.1f} Msamples/s "
           f"at C={C}, {Cw * nw / out['demod_wide']['ms'] / 1e3:.1f} "
           f"Msamples/s at C={Cw} (max SM clock {clock / 1e6:.0f} MHz)")
+    return out
+
+
+def banked_ops(rate: str, T: int, N: int) -> float:
+    """Integer operations the banked ACS function needs for T blocks over
+    N lanes, per block and lane (what the function computes, not the
+    kernel's own instruction mix):
+      * 2 for the block: the rank ncs-1-cs of its coded symbol and its
+        cost << RB;
+      * 3 per predecessor state (64): its key base m << RB and its
+        provided-branch key (base + cost << RB) | ncs, shared by every
+        row it feeds;
+      * 4 per branch candidate (64 rows x K slots; 7/8 has two coded
+        symbols per slot, 8): the plain key base | rank, the test of its
+        coded symbol against the block's, the select of the provided
+        key, the running min;
+      * 11 per row (16 at 7/8): the winner's path shift (hi: shift,
+        shift, or; lo: shift, or), its metric key >> RB, the best-state
+        key (shift, or), one step each of the best and second-best
+        64-way mins, the normalisation; at 7/8 the choice of the uncoded
+        symbol of the winning branch (mask, two tests, two selects)."""
+    from leansdr_tpu_torch.fec.viterbi_banked import bank_geometry
+    geo = bank_geometry(rate)
+    per_slot, per_row = (8, 16) if geo.B == 7 else (4, 11)
+    return float(T) * N * (2 + 64 * 3 + 64 * geo.K * per_slot
+                           + 64 * per_row)
+
+
+def banked_times(dev, gen):
+    """acs_banked at the main path's shapes (64 carriers, chunk 2^18):
+    ACQUIRE (64 x nsyncs lanes) and TRACK (64 lanes), at every fleet
+    punctured rate, with bounds at the INT32 issue rate."""
+    from leansdr_tpu_torch.fec import viterbi_banked as vb
+    clock = max_sm_clock_hz()
+    out = []
+    for rate in ("3/4", "7/8", "5/6", "4/6"):
+        plan = fleet_plan(rate, dev)
+        T = plan.nblocks
+        ncs = vb.bank_geometry(rate).ncs
+        for mode, N in (("acquire", plan.n_lanes), ("track", NCHAN)):
+            cs = torch.randint(0, ncs, (T, N), device=dev,
+                               dtype=torch.int32, generator=gen)
+            cost = -torch.randint(0, 80, (T, N), device=dev,
+                                  dtype=torch.int32, generator=gen)
+            z = torch.zeros((64, N), dtype=torch.int32, device=dev)
+            ms = cuda_time(lambda: vb.viterbi_acs_banked(rate, z, z, z, cs,
+                                                         cost), reps=2)
+            b, by = bound_ms(T * N * 16 + 6 * 64 * N * 4,
+                             banked_ops(rate, T, N), int32_ops_per_s(clock))
+            out.append(dict(rate=rate, mode=mode, N=N, T=T, ms=ms,
+                            bound_ms=b, bound_by=by))
+            print(f"kernel acs_banked {rate} {mode:7s} N={N:4d} T={T}: "
+                  f"{ms:.3f} ms, bound {b:.4f} ms ({by}), "
+                  f"{T / ms / 1e3:.2f} Mblocks/s per lane")
     return out
 
 
@@ -487,9 +639,19 @@ def main() -> int:
         if d_plain is None:
             d_plain = p
     a_err, a_plain = check_acs(dev, gen)
+    b_err, b_plain, b_plain_n = check_acs_banked(dev, gen)
 
     rx, frames, launches, stages, rate, piped_rate = main_path(dev, gen)
     times = kernel_times(rx, frames, dev, gen)
+    del rx, frames
+    punctured = {}
+    for code_rate in PUNCTURED:
+        _, _, p_launches, p_stages, p_rate, _ = main_path(dev, gen,
+                                                          code_rate)
+        punctured[code_rate] = dict(launches=p_launches, stages_ms=p_stages,
+                                    chain_msamples_per_s=p_rate)
+    btimes = banked_times(dev, gen)
+    b0 = btimes[0]                      # 3/4 ACQUIRE: the headline shape
 
     kernels = [
         {"name": "demod", "route": "cuda",
@@ -515,10 +677,23 @@ def main() -> int:
          "track_ms": times["acs_track"]["ms"],
          "track_shape": times["acs_track"]["shape"],
          "plain_shape": "N=256 T=2048 cheap_q=False"},
+        {"name": "acs_banked", "route": "cuda",
+         "source": "leansdr_tpu_torch/csrc/acs_banked.cu",
+         "replaces": "leansdr_tpu/fec/viterbi_banked.py:361",
+         "launches": sum(p["launches"]["acs_banked"]
+                         for p in punctured.values()),
+         "launches_by_rate": {r: p["launches"]["acs_banked"]
+                              for r, p in punctured.items()},
+         "max_abs_err": b_err, "ms": b0["ms"], "plain_ms": b_plain,
+         "bound_ms": b0["bound_ms"], "bound_by": b0["bound_by"],
+         "library_ms": None,
+         "shape": f"rate {b0['rate']} N={b0['N']} T={b0['T']}",
+         "shapes": btimes,
+         "plain_shape": f"rate 3/4 N={b_plain_n} T=1024"},
     ]
     print(json.dumps({"stages_ms": stages, "chain_msamples_per_s": rate,
                       "pipelined_msamples_per_s": piped_rate,
-                      "card": card}))
+                      "punctured": punctured, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,13 @@ Python scalars and bytes, so loading it needs no JAX.
 
   * demod state: the Pallas kernel's [19, nsub, 128] planes
     (use_pallas=True) or the scan path's state dict, to [19, C];
-  * trellis planes [64, n_lanes] lose their 128-lane padding: C*4 lanes
-    in ACQUIRE, C in TRACK;
+  * trellis planes lose their 128-lane padding: C*nsyncs lanes in
+    ACQUIRE, C in TRACK (nsyncs = 4 at rate 1/2, 4*nshifts at the
+    punctured rates). At a punctured rate the JAX fleet holds them in one
+    of two layouts: the TPU banked path's [64, n_lanes] i32 in stored-row
+    order, or the CPU XLA-scan path's [C*nsyncs, 64] u32 in natural state
+    order (leansdr_tpu/fec/viterbi_device.py:784-789), which is
+    transposed, permuted to stored rows and cast to i32;
   * the ring, host policy fields, byte backend blob, sample backlog and
     chunk count carry over as they are.
 """
@@ -19,9 +24,11 @@ import pickle
 
 import numpy as np
 
+from .dsp.cstln import Predef, make_dvbs2_constellation
 from .dsp.receiver_kernel import NSTATE
+from .fec.viterbi import make_sync_maps
+from .fec.viterbi_banked import bank_geometry, fleet_rate
 from .pipelines.multi_rx import CHECKPOINT_FORMAT
-from .fec.viterbi_device import NSYNCS
 
 
 def _planes_from_scan_state(st: dict) -> np.ndarray:
@@ -35,26 +42,46 @@ def _planes_from_scan_state(st: dict) -> np.ndarray:
     return np.stack([np.asarray(r, np.float32) for r in rows])
 
 
-def from_jax_checkpoint(blob: bytes) -> bytes:
-    """JAX MultiDvbsReceiver.save_state() pickle -> port checkpoint."""
+def _nsyncs(rate: str) -> int:
+    """Sync replicas per channel of the QPSK fleet at `rate`."""
+    cstln = make_dvbs2_constellation(Predef.QPSK, rate)
+    _, nconj, nrot, nshifts = make_sync_maps(cstln, rate)
+    return nconj * nrot * nshifts
+
+
+def from_jax_checkpoint(blob: bytes, rate: str = "1/2") -> bytes:
+    """JAX MultiDvbsReceiver.save_state() pickle -> port checkpoint.
+
+    `rate` is the receiver's code rate (RxConfig.rate): the JAX pickle
+    does not record it, and a punctured rate's planes need it."""
     d = pickle.loads(blob)
     if d.get("seg_state") is not None:
         raise NotImplementedError(
             "segmented-demod checkpoints are ROADMAP queue 1 item 8")
     dstate = {k: np.asarray(v) for k, v in d["deconv_state"].items()}
-    if "path" not in dstate:
+    if "metric" not in dstate:
         raise NotImplementedError(
-            "only rate-1/2 Viterbi fleet checkpoints are ported "
-            "(ROADMAP queue 1 items 7 and 9)")
+            "only Viterbi fleet checkpoints are ported (the hard-decision "
+            "fleet is ROADMAP queue 1 item 7)")
+    rate = fleet_rate(rate)
+    if ("path" in dstate) != (rate == "1/2"):
+        raise ValueError(f"checkpoint trellis state {sorted(dstate)} is "
+                         f"not that of rate {rate}: pass its rate=")
     C = dstate["fill"].shape[0]
     if d["use_pallas"]:
         planes = np.asarray(d["dev"], np.float32).reshape(NSTATE, -1)[:, :C]
     else:
         planes = _planes_from_scan_state(d["dev"])
     host = dict(d["deconv_host"])
-    lanes = C if host.get("track") else C * NSYNCS
-    for k in ("metric", "path"):
-        dstate[k] = np.ascontiguousarray(dstate[k][:, :lanes], np.int32)
+    lanes = C if host.get("track") else C * _nsyncs(rate)
+    keys = ("metric", "path") if rate == "1/2" else ("metric", "path_hi",
+                                                      "path_lo")
+    xla = rate != "1/2" and dstate["path_hi"].dtype == np.uint32
+    for k in keys:
+        v = dstate[k]
+        if xla:                        # [S, 64] natural -> [64, S] stored
+            v = v.view(np.int32).T[bank_geometry(rate).orig]
+        dstate[k] = np.ascontiguousarray(v[:, :lanes], np.int32)
     return pickle.dumps({
         "format": CHECKPOINT_FORMAT,
         "dev": np.ascontiguousarray(planes),

@@ -42,6 +42,7 @@ BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 KERNEL_FLAGS = {
     "demod": ["--fmad=false"],
     "acs": [],
+    "acs_banked": [],
 }
 
 

@@ -7,8 +7,12 @@ Chain per chunk, all on the device until one packed fetch:
   matched filter (dsp/mf_prefilter.py)
     -> demod kernel (csrc/demod.cu: PLL + M&M timing + soft demap)
     -> symbol ring append (fec/deconv_device.py: cumsum + scatter)
-    -> rate-1/2 soft Viterbi over 4 sync replicas with election
-       (csrc/acs.cu inside fec/viterbi_device.viterbi_decode)
+    -> soft Viterbi over the sync replicas with election:
+       rate 1/2, 4 replicas: csrc/acs.cu inside
+         fec/viterbi_device.viterbi_decode;
+       rates 2/3 (run as "4/6"), 3/4, 5/6, 7/8, 4 x nshifts replicas:
+         punctured block inputs -> csrc/acs_banked.cu inside
+         fec/viterbi_device.viterbi_decode_banked
     -> ONE packed u8 buffer per chunk (bytes | discriminants | underflow
        per decode, then the ring fill)
   host: the C++ byte backend (native/): MPEG framing, deinterleave,
@@ -28,11 +32,13 @@ from ..dsp import mf_prefilter, receiver
 from ..dsp import receiver_kernel as rk
 from ..dsp.cstln import Predef, make_dvbs2_constellation
 from ..fec.deconv_device import deconv_append
-from ..fec.viterbi_device import MultiViterbiSync, viterbi_decode
+from ..fec.viterbi_banked import fleet_rate
+from ..fec.viterbi_device import MultiViterbiSync, decoder
 from ..native import NativeByteBackend
 from .dvbs_rx import RxConfig, TS_SIZE
 
 CHECKPOINT_FORMAT = "leansdr_tpu_torch.multi_rx/1"
+RATES = ("1/2", "2/3", "3/4", "5/6", "7/8")     # the DVB-S code rates
 
 
 def _pack_fetch(fill: torch.Tensor, flat: list) -> torch.Tensor:
@@ -62,12 +68,13 @@ def _extract_sym_valid(packed: torch.Tensor):
     return sym, valid, cost
 
 
-def _fused_chunk(params, sym_consts, mf_taps, plan, plan_dec, maps,
+def _fused_chunk(params, sym_consts, mf_taps, kind, plan, plan_dec, maps,
                  schedule, planes, dstate, x):
     """One chunk of device work: matched filter -> demod kernel ->
-    sym/valid/cost extraction -> ring append(s) -> `schedule` decodes ->
-    the packed fetch buffer. Plain eager PyTorch around the two kernels.
-    Returns (planes, dstate, packed_out)."""
+    sym/valid/cost extraction -> ring append(s) -> `schedule` decodes
+    (the decoder of `kind`) -> the packed fetch buffer. Plain eager
+    PyTorch around the kernels. Returns (planes, dstate, packed_out)."""
+    decode = decoder(kind)
     x = mf_prefilter.mf_prefilter(mf_taps, planes[2], x)
     planes, packed = rk.demod(params, sym_consts, planes, x)
     sym, valid, cost = _extract_sym_valid(packed)
@@ -79,22 +86,22 @@ def _fused_chunk(params, sym_consts, mf_taps, plan, plan_dec, maps,
         dstate = deconv_append(plan, dstate, sym[o:o + m], valid[o:o + m],
                                cost[o:o + m])
         for _ in range(schedule[i]):
-            dstate, by, errs, under = viterbi_decode(plan_dec, dstate, maps)
+            dstate, by, errs, under = decode(plan_dec, dstate, maps)
             flat += [by, errs, under]
     return planes, dstate, _pack_fetch(dstate["fill"], flat)
 
 
 def _unsupported(what: str, item: str):
     raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1 item {item}); this "
-        "slice runs QPSK rate 1/2 with viterbi=True, exact_lut=False, "
-        "sampler='rrc', segments=1")
+        f"{what} is not ported yet (ROADMAP queue 1 item {item}); the "
+        f"port runs QPSK at rates {', '.join(RATES)} with viterbi=True, "
+        "exact_lut=False, sampler='rrc', segments=1")
 
 
 def _check_config(cfg: RxConfig, use_pallas, native, segments):
-    if cfg.constellation != Predef.QPSK or cfg.rate != "1/2":
+    if cfg.constellation != Predef.QPSK or cfg.rate not in RATES:
         _unsupported(f"{Predef(cfg.constellation).name} rate {cfg.rate}",
-                     "9")
+                     "20")
     if not cfg.viterbi:
         _unsupported("the hard-decision fleet path (viterbi=False)", "7")
     if cfg.exact_lut is None:
@@ -132,19 +139,21 @@ class MultiDvbsReceiver:
         # Matched filter at input rate, then the linear-sampler demod.
         self.mf_taps = mf_prefilter.make_mf_taps(cfg.Fs, cfg.Fm, cfg.rolloff,
                                                  cfg.rrc_rej)
+        # Built as the JAX fleet builds it: the fleet never sets
+        # allow_drift, so freqw is always clamped to the frequency limits
+        # (leansdr_tpu/pipelines/multi_rx.py:717-726, ROADMAP queue 3).
         self.params = receiver.ReceiverParams(
             omega=cfg.Fs / cfg.Fm,
             sampler="linear",
             nsymbols=cstln.nsymbols,
             freq0=cfg.Ftune / cfg.Fs,
-            allow_drift=cfg.allow_drift,
             exact_lut=False,
             pll_adjustment=1.0 / 6,
         )
         self._sym_consts = rk.sym_constants(cstln)
         self._planes = rk.pack_state(
             receiver.init_state(self.params, nchan, self.device))
-        self.rate = cfg.rate
+        self.rate = fleet_rate(cfg.rate)
         self.omega = cfg.Fs / cfg.Fm
         nominal = chunk_samples or (1 << 16)
         self.deconv = MultiViterbiSync(cstln, self.rate, nchan, nominal,
@@ -215,8 +224,9 @@ class MultiDvbsReceiver:
             self.deconv.note_production(max(0, int(m / self.omega) - 8))
             schedule.append(self.deconv.schedule_decode())
         self._planes, self.deconv.state, packed_out = _fused_chunk(
-            self.params, self._sym_consts, self.mf_taps, self.deconv.plan,
-            plan_dec, self.deconv.maps, schedule, self._planes,
+            self.params, self._sym_consts, self.mf_taps, self.deconv.kind,
+            self.deconv.plan, plan_dec, self.deconv.maps, schedule,
+            self._planes,
             self.deconv.state, x)
         self._chunk_count += 1
         shapes = [(plan_dec.nbytes, plan_dec.E + 1)] * sum(schedule)
@@ -348,6 +358,10 @@ class MultiDvbsReceiver:
             raise ValueError(f"checkpoint demod state {tuple(planes.shape)}"
                              f" != {(rk.NSTATE, self.nchan)}")
         self._planes = planes.to(dev).contiguous()
+        if set(d["deconv_state"]) != set(self.deconv.state):
+            raise ValueError(
+                f"checkpoint trellis state {sorted(d['deconv_state'])} != "
+                f"{sorted(self.deconv.state)} (another code rate?)")
         self.deconv.state = {k: torch.from_numpy(np.array(v)).to(dev)
                              for k, v in d["deconv_state"].items()}
         for k, v in d["deconv_host"].items():

@@ -169,3 +169,38 @@ def test_fleet_warm_start_from_jax_checkpoint(frames):
         assert len(good) >= 3 and good == list(range(good[0],
                                                       good[0] + len(good))), \
             f"channel {c}: packet indices {hits}"
+
+
+def test_fleet_allow_drift_clamps_like_jax():
+    """RxConfig(allow_drift=True), the flag `--drift` sets: the JAX fleet
+    builds its demod without it, so freqw is clamped back to the middle
+    of [min_freqw, max_freqw] whenever the carrier loop leaves that
+    range; the port's fleet must do the same. The stimulus is a carrier
+    whose frequency ramps at 0.2 freqw units per sample from sample 1024
+    on, which the loop tracks past max_freqw (4096 here) in chunk 5.
+    Packed buffers are byte-equal chunk by chunk."""
+    cfg = dict(CFG, allow_drift=True)
+    iqs = []
+    for c, d in enumerate(DELAYS):
+        q = dvbs_tx.modulate(tsgen.generate(24, start=500 * c),
+                             dvbs_tx.TxConfig(rate="1/2", interp=2))
+        q = (1 - d) * q[:-1] + d * q[1:]
+        n = np.maximum(np.arange(len(q), dtype=np.float64) - 1024, 0)
+        z = (q[:, 0] + 1j * q[:, 1]) * np.exp(1j * np.pi * 0.2 / 65536
+                                              * n * n)
+        iqs.append(np.stack([z.real, z.imag], -1))
+    n = min(map(len, iqs))
+    frames = np.stack([q[:n] for q in iqs]).astype(np.float32)
+    jax.clear_caches()
+    j = JaxRx(JaxRxConfig(**cfg), C, use_pallas=True, chunk_samples=CHUNK)
+    t = MultiDvbsReceiver(RxConfig(**cfg), C, chunk_samples=CHUNK,
+                          device="cpu")
+    lo, hi = t.params.freq_limits
+    freqw = []
+    for k in range(7):
+        _step_both(j, t, frames[:, k * CHUNK:(k + 1) * CHUNK], k)
+        freqw.append(t._planes[2].numpy().copy())
+    freqw = np.array(freqw)                               # [chunk, C]
+    # The loop came near the limit, then was put back to the middle.
+    assert (freqw[:6].max(axis=0) > 0.9 * hi).all(), freqw
+    assert (np.abs(freqw[-1] - (lo + hi) / 2) < 0.5 * hi).all(), freqw

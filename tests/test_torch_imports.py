@@ -68,16 +68,19 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA"):
         MultiDvbsReceiver(cfg, 2)
     with pytest.raises(RuntimeError, match="CUDA"):
+        MultiDvbsReceiver(RxConfig(**(cfg.__dict__ | dict(rate="3/4"))), 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
 
 
 def test_unported_settings_raise():
+    from leansdr_tpu_torch.dsp.cstln import Predef
     from leansdr_tpu_torch.pipelines.dvbs_rx import RxConfig
     from leansdr_tpu_torch.pipelines.multi_rx import MultiDvbsReceiver
     base = dict(Fs=4e6, Fm=2e6, rate="1/2", fastlock=True, float_scale=75,
                 exact_lut=False, viterbi=True, sampler="rrc")
-    for change, item in ((dict(rate="3/4"), "item 9"),
+    for change, item in ((dict(constellation=Predef.PSK8), "item 20"),
                          (dict(viterbi=False), "item 7"),
                          (dict(exact_lut=True), "item 10"),
                          (dict(sampler="linear"), "item 10"),
