@@ -8,7 +8,9 @@ each kernel against its plain PyTorch version on the card, then drives
 the fleet receiver's main path at full width — 64 QPSK carriers at
 2 Msym/s sampled at 4 Msps, chunk_samples = 2**18, Viterbi on — at code
 rate 1/2 (the rate-1/2 ACS kernel) and at the punctured rates 3/4 and 7/8
-(the banked ACS kernel), from DVB-S stimulus the port modulates itself,
+(the banked ACS kernel), and the single-carrier receiver of leandvb on
+four streams (the CLI defaults, --resample on the complex FIR kernel,
+--hq at 1/2 and 3/4), from DVB-S stimulus the port modulates itself,
 and checks that every carrier locks and decodes the TS packets that were
 sent.
 
@@ -26,13 +28,23 @@ Phases (any failure exits non-zero):
      viterbi_acs_banked_ref bit for bit at 4/6, 3/4, 5/6 and 7/8 (T=1024,
      ties forced, from zero and from a live state, at each rate's
      main-path ACQUIRE lanes, at TRACK's 64 and at N=200);
+     cfir == cfir_ref and fir == fir_ref bit for bit (nt 21, 79, 2048;
+     lengths off the tile; from a zero head and mid-stream);
   4. the main path through MultiDvbsReceiver.process, with the kernels'
      launch counters zeroed just before and read just after, and
      per-stage times from CUDA events; at rate 1/2 then the same stream
      through the pipelined submit()/flush() path (device->host copy and
      byte backend on threads), held to the same TS gate; then 64
      carriers at 3/4 and at 7/8, each run with its own zeroed counters;
-  5. kernel times at the main path's shapes, bounds, one `kernels` line;
+     then the single-carrier receiver (leandvb's DvbsReceiver, in its
+     2^17-sample reads) on four streams, each with its own zeroed
+     counters: rtl_sdr u8 at 2.4 Msps with a birdie (the CLI defaults:
+     notch, hard decisions), a 10 Msps s16 333 ksym/s carrier through
+     --resample (cfir), and --hq at 1/2 and 3/4 on 4 Msps f32 (the ACS
+     kernels); each must lock and decode >= 90% of the packets sent
+     after lock; per-stage times, input Msamples/s and x real time;
+  5. kernel times at the main path's shapes, bounds, one `kernels` line
+     (cfir/fir beside one conv1d computing the same FIR, TF32 off);
   6. last line: {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when no CUDA device is present.
@@ -249,6 +261,47 @@ def check_acs_banked(dev, gen):
                     plain = (plain_ms, N)
                 planes = k[:3]
     return err, plain[0], plain[1]
+
+
+def check_fir(dev, gen):
+    """cfir == cfir_ref and fir == fir_ref bit for bit (both built with
+    --fmad=false) at nt in {21, 79, 2048}, at lengths that are not
+    multiples of the kernel's 256-sample tile, from a stream head (zeros
+    before it) and from mid-stream; fir on 128 rows. Returns (max |diff|,
+    plain cfir ms and plain fir ms at nt=79, n=2^17+85, the --resample
+    path's shape)."""
+    from leansdr_tpu_torch.dsp import fir_kernel as fk
+    err, plain = 0.0, {}
+    for nt, n in ((21, 50001), (79, (1 << 17) + 85), (2048, 9000)):
+        for head in (True, False):
+            x = 40 * torch.randn((2, n), device=dev, generator=gen)
+            if head:
+                x[:, :nt] = 0
+            w = torch.randn((2, nt), device=dev, generator=gen) / nt ** 0.5
+            k = fk.cfir(x, w[0].contiguous(), w[1].contiguous())
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fk.cfir_ref(x, w[0], w[1])
+            torch.cuda.synchronize()
+            plain["cfir", nt] = (time.perf_counter() - t0) * 1e3
+            if not torch.equal(k, r):
+                fail(f"cfir nt={nt} n={n} head={head}: "
+                     f"{int((k != r).sum())} outputs differ")
+            err = max(err, float((k - r).abs().max()))
+        xr = 40 * torch.randn((128, n), device=dev, generator=gen)
+        tr = torch.randn(nt, device=dev, generator=gen) / nt ** 0.5
+        k = fk.fir(xr, tr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fk.fir_ref(xr, tr)
+        torch.cuda.synchronize()
+        plain["fir", nt] = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(k, r):
+            fail(f"fir nt={nt} n={n}: {int((k != r).sum())} outputs differ")
+        err = max(err, float((k - r).abs().max()))
+        print(f"cfir/fir nt={nt} n={n}: bit-equal (head and mid-stream), "
+              f"plain {plain['cfir', nt]:.0f} / {plain['fir', nt]:.0f} ms")
+    return err, plain["cfir", 79], plain["fir", 79]
 
 
 # ---------------------------------------------------------------- phase 4
@@ -480,6 +533,192 @@ def main_path(dev, gen, code_rate="1/2"):
     return rx, frames, launches, stages, rate, piped_rate
 
 
+# The single-carrier paths (leandvb's receiver): name, RxConfig fields as
+# the CLI's flags set them, input format, seconds of signal, the
+# stimulus's resampling of the modulator's 2 samples per symbol (up,
+# down, pick), carrier offset (Hz), Es/N0 (dB) and a birdie tone (Hz, or
+# None). pick=True upsamples by `up` and keeps every `down`-th sample
+# from the 3rd (a 0.3-sample delay at 2.4 Msps): a front end whose
+# filter passes the DVB-S excess band, which folds back in-band. A
+# brick-wall filter at 1.2 MHz (resample_poly(6, 5)) cuts that band
+# instead, and the linear sampler at 1.2 samples per symbol then sees
+# ISI: MER ~10 dB on a clean carrier, too low for hard decisions, in the
+# JAX receiver as in the port.
+SC_PATHS = (
+    # rtl_sdr u8 at 2.4 Msps, 2 Msym/s, rate 1/2: the CLI's defaults
+    # (anf=1, linear sampler, hard decisions); 2^23 samples.
+    ("canonical", dict(Fs=2.4e6, Fm=2e6, rate="1/2"), "u8", 2 ** 23 / 2.4e6,
+     (6, 10, True), 20e3, 20.0, 150e3),
+    # PlutoSDR-style s16 at 10 Msps of a 333 ksym/s QO-100 DATV carrier:
+    # --s16 -f 10e6 --sr 333e3 --resample (decim 7, 79 taps).
+    ("resample", dict(Fs=10e6, Fm=333e3, rate="1/2", resample=True), "s16",
+     2.0, (3003, 200, False), 15e3, 16.0, None),
+    # --hq at 4 Msps f32 (--float-scale 75), rates 1/2 and 3/4.
+    ("hq 1/2", dict(Fs=4e6, Fm=2e6, rate="1/2", fastlock=True, viterbi=True,
+                    sampler="rrc", float_scale=75.0), "f32", 1.0,
+     (3, 3, True), 20e3, 10.0, None),
+    ("hq 3/4", dict(Fs=4e6, Fm=2e6, rate="3/4", fastlock=True, viterbi=True,
+                    sampler="rrc", float_scale=75.0), "f32", 1.0,
+     (3, 3, True), 20e3, 12.0, None),
+)
+
+
+def sc_stimulus(rate, fs, seconds, updown, f_off, esn0_db, birdie, fmt,
+                rng):
+    """Wire bytes of `seconds` of one DVB-S carrier at rate `rate`: the
+    port's modulation of numbered TS packets resampled from 2 samples per
+    symbol to fs (see SC_PATHS for `pick`), shifted by f_off Hz, with
+    AWGN at Es/N0, an optional CW birdie 20 dB below the carrier's power
+    (16 dB above the carrier in its 4096-point FFT bin), quantized to fmt
+    (u8 ~ 30 LSB rms, s16 ~ 3000 LSB rms, f32 unit rms for
+    --float-scale 75). Returns (bytes, packets sent)."""
+    from scipy.signal import resample_poly
+    from leansdr_tpu_torch.fec.convenc import FEC_SPECS
+    from leansdr_tpu_torch.fec.viterbi_banked import fleet_rate
+    from leansdr_tpu_torch.pipelines import dvbs_tx, tsgen
+    up, down, pick = updown
+    n = int(round(seconds * fs))
+    bits_in, bits_out = FEC_SPECS[fleet_rate(rate)]
+    nsym = n * down / (2 * up)
+    npkt = int(nsym * 2 * bits_in / bits_out / 1632) + 16
+    iq = dvbs_tx.modulate(tsgen.generate(npkt),
+                          dvbs_tx.TxConfig(rate=rate, interp=2))
+    z = iq[:, 0] + 1j * iq[:, 1]
+    z = (resample_poly(z, up, 1)[3::down] if pick
+         else resample_poly(z, up, down))
+    if len(z) < n:
+        fail(f"stimulus: {len(z)} samples < {n}")
+    z = z[:n]
+    t = np.arange(n)
+    ps = float(np.mean(np.abs(z) ** 2))
+    # Es/N0 = ps * (samples per symbol) / (complex noise power per sample)
+    sigma = np.sqrt(ps * (2 * up / down) / 10 ** (esn0_db / 10) / 2)
+    z = z * np.exp(2j * np.pi * f_off / fs * t)
+    z = z + sigma * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    if birdie is not None:
+        z = z + np.sqrt(0.01 * ps) * np.exp(2j * np.pi * birdie / fs * t)
+    rms = float(np.sqrt(np.mean(np.abs(z) ** 2) / 2))
+    x = np.stack([z.real, z.imag], -1).reshape(-1)
+    if fmt == "u8":
+        return np.clip(np.round(x * (30 / rms) + 128), 0, 255).astype(
+            np.uint8).tobytes(), npkt
+    if fmt == "s16":
+        return np.clip(np.round(x * (3000 / rms)), -32768, 32767).astype(
+            np.int16).tobytes(), npkt
+    return (x / rms).astype(np.float32).tobytes(), npkt
+
+
+def single_carrier(dev, rng, name, fields, fmt, seconds, updown, f_off,
+                   esn0_db, birdie):
+    """One single-carrier path: the wire stream through DvbsReceiver in
+    leandvb's 2^17-sample reads (read_iq -> process), with every kernel's
+    launch count zeroed just before and read just after, device stages
+    timed with CUDA events and host stages with the host clock."""
+    from leansdr_tpu_torch.dsp import fir_kernel as fk
+    from leansdr_tpu_torch.dsp import mf_prefilter, receiver_kernel as rk
+    from leansdr_tpu_torch.fec import viterbi_banked as vb
+    from leansdr_tpu_torch.fec import viterbi_device as vd
+    from leansdr_tpu_torch.pipelines.dvbs_rx import DvbsReceiver, RxConfig
+    from leansdr_tpu_torch.util.iofmt import read_iq
+
+    cfg = RxConfig(anf=1, exact_lut=False, **fields)   # leandvb's defaults
+    t0 = time.perf_counter()
+    raw, npkt = sc_stimulus(cfg.rate, cfg.Fs, seconds, updown, f_off,
+                            esn0_db, birdie, fmt, rng)
+    print(f"[{name}] stimulus: {len(raw)} bytes {fmt} at {cfg.Fs / 1e6:g} "
+          f"Msps ({seconds:.3f} s of signal) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rx = DvbsReceiver(cfg, device=dev)
+
+    events, host = [], {}
+
+    def timed(key, fn):
+        def wrapper(*a, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            events.append((key, s, e))
+            return out
+        return wrapper
+
+    def hosttimed(key, fn):
+        def wrapper(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            host[key] = host.get(key, 0.0) + (time.perf_counter() - t) * 1e3
+            return out
+        return wrapper
+
+    kernels = {"demod": (rk, "demod"), "acs": (vd, "viterbi_acs"),
+               "acs_banked": (vb, "viterbi_acs_banked"),
+               "cfir": (fk, "cfir"), "fir": (fk, "fir")}
+    # The wrappers (their counters) before the timing patches.
+    counted = {k: getattr(m, a) for k, (m, a) in kernels.items()}
+    patches = [(mf_prefilter, "mf_prefilter",
+                timed("mf", mf_prefilter.mf_prefilter))]
+    patches += [(m, a, timed(k, getattr(m, a))) for k, (m, a) in
+                kernels.items() if k != "fir"]
+    for attr in ("notch", "resampler", "deconv"):
+        blk = getattr(rx, attr)
+        if blk is not None:
+            patches.append((blk, "process", hosttimed(attr, blk.process)))
+    patches.append((rx, "_byte_stages", hosttimed("bytes", rx._byte_stages)))
+    saved = [(obj, a, getattr(obj, a)) for obj, a, _ in patches]
+    for obj, a, fn in patches:
+        setattr(obj, a, fn)
+    itemsize = {"u8": 2, "s16": 4, "f32": 8}[fmt]
+    step = (1 << 17) * itemsize
+    ts = []
+    for fn in counted.values():
+        fn.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for o in range(0, len(raw), step):
+            t = time.perf_counter()
+            iq = read_iq(raw[o:o + step], fmt)
+            host["read"] = host.get("read", 0.0) + \
+                (time.perf_counter() - t) * 1e3
+            ts.append(rx.process(iq))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        launches = {k: fn.launches for k, fn in counted.items()}
+        for obj, a, fn in saved:
+            setattr(obj, a, fn)
+    device = {}
+    for key, s, e in events:
+        device[key] = device.get(key, 0.0) + s.elapsed_time(e)
+    pkts = np.concatenate(ts) if ts else np.empty((0, 188), np.uint8)
+    n_after, n_good, span = check_packets(0, list(pkts))
+    need = ["demod"] + (["cfir"] if cfg.resample else []) + (
+        ["acs" if cfg.rate == "1/2" else "acs_banked"] if cfg.viterbi
+        else [])
+    print(f"[{name}] launches {launches}; lock {rx.lock}, locktime "
+          f"{rx.locktime}, VBER {rx.vber:.2e}, notch slots "
+          f"{rx.notch.b.slot_i.tolist()}; {n_good} sent packets of "
+          f"{n_after} after lock (span {span}; {npkt} sent)")
+    if any(launches[k] < 1 for k in need):
+        fail(f"{name}: the path did not run through {need}: {launches}")
+    if not rx.lock or n_good < 100 or n_good < 0.9 * max(n_after, span):
+        fail(f"{name}: {n_good} sent packets decoded of {n_after} after "
+             f"lock, span {span}, lock {rx.lock}")
+    nsamp = len(raw) // itemsize
+    xrt = nsamp / cfg.Fs / wall
+    print(f"[{name}] wall {wall:.3f} s for {nsamp} samples: "
+          f"{nsamp / wall / 1e6:.3f} Msamples/s in, {xrt:.3f} x real time; "
+          "device ms: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                    device.items()) +
+          "; host ms: " + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
+    return dict(path=name, fmt=fmt, fs=cfg.Fs, samples=nsamp, wall_s=wall,
+                msamples_per_s=nsamp / wall / 1e6, x_real_time=xrt,
+                device_ms=device, host_ms=host, launches=launches,
+                packets_good=int(n_good), packets_after_lock=int(n_after),
+                slots=rx.notch.b.slot_i.tolist())
+
+
 # ---------------------------------------------------------------- phase 5
 
 def max_sm_clock_hz() -> float:
@@ -596,6 +835,52 @@ def banked_times(dev, gen):
     return out
 
 
+def fir_times(dev, gen):
+    """cfir at the --resample path's shape (one 2^17-sample read plus the
+    filter history, 79 taps) and fir at the bench baseline's shape (64
+    channels' re/im rows, 2^18 samples, 65 RRC taps,
+    tools/bench_kernels.py:82-107), with bounds (bytes: input and output
+    once; operations: 4 multiplies and 4 adds per complex tap, 1 and 1
+    per real tap) and the library yardstick: one conv1d computing the
+    same FIR (TF32 off), zero-padded for causality."""
+    import torch.nn.functional as F
+    from leansdr_tpu_torch.dsp import fir_kernel as fk
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    nt, n = 79, (1 << 17) + 85
+    x = 40 * torch.randn((2, n), device=dev, generator=gen)
+    tr, ti = (torch.randn(nt, device=dev, generator=gen) for _ in range(2))
+    ms = cuda_time(lambda: fk.cfir(x, tr, ti), reps=50)
+    # conv1d is a cross-correlation: flip the taps. Output channel 0 =
+    # re (tr*xr - ti*xi), 1 = im (ti*xr + tr*xi).
+    w = torch.stack([torch.stack([tr, -ti]), torch.stack([ti, tr])]).flip(-1)
+    xp = F.pad(x, (nt - 1, 0))[None]
+    lib = F.conv1d(xp, w)[0]
+    ref = fk.cfir(x, tr, ti)
+    lib_err = float((lib - ref).abs().max())
+    lib_ms = cuda_time(lambda: F.conv1d(xp, w), reps=50)
+    out["cfir"] = dict(ms=ms, library_ms=lib_ms, lib_err=lib_err,
+                       bound=bound_ms(4 * n * 4 + 2 * nt * 4, 8.0 * nt * n),
+                       shape=f"n={n} nt={nt}")
+    R, n, nt = 128, 1 << 18, 65
+    x = torch.randn((R, n), device=dev, generator=gen)
+    taps = torch.randn(nt, device=dev, generator=gen)
+    ms = cuda_time(lambda: fk.fir(x, taps), reps=20)
+    xp = F.pad(x, (nt - 1, 0))[:, None]
+    wf = taps.flip(0).view(1, 1, -1)
+    lib_err = float((F.conv1d(xp, wf)[:, 0] - fk.fir(x, taps)).abs().max())
+    lib_ms = cuda_time(lambda: F.conv1d(xp, wf), reps=20)
+    out["fir"] = dict(ms=ms, library_ms=lib_ms, lib_err=lib_err,
+                      bound=bound_ms(2 * R * n * 4 + nt * 4, 2.0 * nt * R * n),
+                      shape=f"R={R} n={n} nt={nt}")
+    for k, v in out.items():
+        print(f"kernel {k:10s} {v['shape']}: {v['ms']:.4f} ms, bound "
+              f"{v['bound'][0]:.4f} ms ({v['bound'][1]}); conv1d "
+              f"{v['library_ms']:.4f} ms (max |diff| {v['lib_err']:.3g})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -640,6 +925,7 @@ def main() -> int:
             d_plain = p
     a_err, a_plain = check_acs(dev, gen)
     b_err, b_plain, b_plain_n = check_acs_banked(dev, gen)
+    f_err, f_plain_c, f_plain_r = check_fir(dev, gen)
 
     rx, frames, launches, stages, rate, piped_rate = main_path(dev, gen)
     times = kernel_times(rx, frames, dev, gen)
@@ -652,6 +938,11 @@ def main() -> int:
                                     chain_msamples_per_s=p_rate)
     btimes = banked_times(dev, gen)
     b0 = btimes[0]                      # 3/4 ACQUIRE: the headline shape
+    rng = np.random.default_rng(SEED)
+    single = [single_carrier(dev, rng, *p) for p in SC_PATHS]
+    sc_launches = {k: sum(r["launches"][k] for r in single)
+                   for k in single[0]["launches"]}
+    ftimes = fir_times(dev, gen)
 
     kernels = [
         {"name": "demod", "route": "cuda",
@@ -690,10 +981,33 @@ def main() -> int:
          "shape": f"rate {b0['rate']} N={b0['N']} T={b0['T']}",
          "shapes": btimes,
          "plain_shape": f"rate 3/4 N={b_plain_n} T=1024"},
+        {"name": "cfir", "route": "cuda",
+         "source": "leansdr_tpu_torch/csrc/fir.cu",
+         "replaces": "leansdr_tpu/dsp/fir_pallas.py:62",
+         "launches": sc_launches["cfir"], "max_abs_err": f_err,
+         "ms": ftimes["cfir"]["ms"], "plain_ms": f_plain_c,
+         "bound_ms": ftimes["cfir"]["bound"][0],
+         "bound_by": ftimes["cfir"]["bound"][1],
+         "library_ms": ftimes["cfir"]["library_ms"],
+         "shape": ftimes["cfir"]["shape"],
+         "plain_shape": "n=131157 nt=79"},
+        {"name": "fir", "route": "cuda",
+         "source": "leansdr_tpu_torch/csrc/fir.cu",
+         "replaces": "leansdr_tpu/dsp/fir_pallas.py:25",
+         "launches": sc_launches["fir"], "max_abs_err": f_err,
+         "ms": ftimes["fir"]["ms"], "plain_ms": f_plain_r,
+         "bound_ms": ftimes["fir"]["bound"][0],
+         "bound_by": ftimes["fir"]["bound"][1],
+         "library_ms": ftimes["fir"]["library_ms"],
+         "shape": ftimes["fir"]["shape"],
+         "plain_shape": "R=128 n=131157 nt=79"},
     ]
+    for k in kernels[:3]:
+        k["launches_single_carrier"] = sc_launches[k["name"]]
     print(json.dumps({"stages_ms": stages, "chain_msamples_per_s": rate,
                       "pipelined_msamples_per_s": piped_rate,
-                      "punctured": punctured, "card": card}))
+                      "punctured": punctured, "single_carrier": single,
+                      "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
-"""leansdr_tpu_torch — the DVB-S fleet receiver in PyTorch, with
-hand-written CUDA kernels for an NVIDIA H100 (sm_90a).
+"""leansdr_tpu_torch — the DVB-S fleet receiver and the single-carrier
+receiver with its CLI leandvb in PyTorch, with hand-written CUDA kernels
+for an NVIDIA H100 (sm_90a).
 
 A port of `leansdr_tpu` (JAX + Pallas for the TPU), which stays beside it
 as the reference the port is tested against. This package imports
@@ -12,15 +13,24 @@ name:
   device.py  device selection (CUDA by default, never a silent CPU
              fallback) and the nvcc build of the kernels in csrc/
   csrc/      CUDA C++ kernels: demod.cu (carrier PLL + M&M timing + soft
-             demap), acs.cu (rate-1/2 Viterbi add-compare-select)
+             demap), acs.cu (rate-1/2 Viterbi add-compare-select),
+             acs_banked.cu (the punctured rates' ACS), fir.cu (causal FIR
+             with runtime complex or real taps)
   dsp/       constellations, filter design, matched filter, the demod
-             kernel's wrapper and its plain PyTorch version
-  fec/       convolutional code tables, the symbol ring, the fleet
-             Viterbi around the ACS kernel, TX-side RS/PRBS/interleaver
-  native/    the C++ host byte backend (MPEG framing, deinterleave,
-             RS decode, derandomize), loaded with ctypes
-  pipelines/ the multi-carrier receiver `multi_rx.MultiDvbsReceiver`,
-             RxConfig, and the stimulus generators tsgen / dvbs_tx
+             kernel's wrapper, the FIR kernel's wrapper and the streaming
+             --resample filter, the device auto-notch, host blocks
+  fec/       convolutional code tables, the algebraic deconvolver, the
+             symbol ring, the Viterbi decoders around the ACS kernels,
+             RS/PRBS/interleaver
+  proto/     MPEG-TS sync and framing
+  native/    the C++ host byte backend of the fleet (MPEG framing,
+             deinterleave, RS decode, derandomize), loaded with ctypes
+  core/      generic host blocks (the VBER rate estimator)
+  util/      wire sample formats and the --fd-info/--fd-const writers
+  pipelines/ the multi-carrier receiver `multi_rx.MultiDvbsReceiver`, the
+             single-carrier `dvbs_rx.DvbsReceiver` and RxConfig, and the
+             stimulus generators tsgen / dvbs_tx
+  apps/      leandvb, the single-carrier CLI
   convert.py carries a `leansdr_tpu` receiver checkpoint into the port
 """
 

@@ -1,0 +1,271 @@
+"""leandvb-compatible DVB-S receiver CLI (reference leandvb.cc:974-1221),
+on the port's single-carrier receiver (the counterpart of
+leansdr_tpu/apps/leandvb.py).
+
+Usage: python -m leansdr_tpu_torch.apps.leandvb [options] < IQ > TS
+
+Flags mirror the reference and the JAX CLI 1:1; stdin is read in the
+same 2^17-sample blocks and stdout carries the same TS. The receiver
+runs on the GPU; `--device cpu` runs the kernels' plain PyTorch
+versions instead, for tests and CPU drives.
+Decisions are always the demod kernel's computed ones (--no-exact-lut);
+the flags of paths not ported yet raise NotImplementedError naming
+their ROADMAP item.
+"""
+
+import sys
+
+import numpy as np
+
+
+def usage(code=0, f=sys.stderr):
+    f.write(
+        "Usage: leandvb [options]  < IQ  > TS\n"
+        "Demodulate DVB-S I/Q on stdin, output MPEG packets on stdout\n"
+        "\nInput options:\n"
+        "  --u8, --s8, --u16, --s16, --f32   Input format (default u8)\n"
+        "  --float-scale FLOAT     Scaling factor for float data\n"
+        "  -f FREQ                 Sampling rate (Hz)\n"
+        "  --loop                  Repeat input file forever\n"
+        "\nPreprocessing options:\n"
+        "  --anf INT               Number of birdies to remove (default 1)\n"
+        "  --derotate FREQ         Shift frequency (Hz)\n"
+        "  --resample              Lowpass and decimate to ~4 sps\n"
+        "  --resample-rej FLOAT    Lowpass rejection (default 10)\n"
+        "  --decim INT             Decimate by INT\n"
+        "\nDVB-S options:\n"
+        "  --sr SYMBOLRATE         Symbol rate (Hz, default 2e6)\n"
+        "  --tune FREQ             Bias frequency for acquisition (Hz)\n"
+        "  --drift                 Follow carrier beyond safe limits\n"
+        "  --standard S            DVB-S (default)\n"
+        "  --const C               Constellation (QPSK)\n"
+        "  --cr N/D                Code rate (default 1/2)\n"
+        "  --sampler S             linear (default), rrc\n"
+        "  --rrc-rej FLOAT         RRC filter rejection (default 30)\n"
+        "  --roll-off FLOAT        RRC roll-off (default 0.35)\n"
+        "  --no-exact-lut          Computed decisions, the demod kernel "
+        "(default)\n"
+        "  --fastlock              Synchronize more aggressively\n"
+        "  --viterbi               Use Viterbi decoding\n"
+        "  --hq                    --fastlock --viterbi --sampler rrc\n"
+        "\nUI options:\n"
+        "  --fd-info FDNUM         Info messages to file descriptor\n"
+        "  --fd-const FDNUM        Constellation to file descriptor\n"
+        "  --fd-pp FDNUM           Dump preprocessed IQ data to fd\n"
+        "  --duration FLOAT        Width of timeline plot (s) [no-op]\n"
+        "  --json                  JSON format for aux outputs\n"
+        "  --version               Display version and exit\n"
+        "  -v, -d                  Verbose / debug\n"
+        "\nPort options:\n"
+        "  --device DEV            cuda (default) or cpu (plain PyTorch\n"
+        "                          versions of the kernels)\n"
+        "\nNot ported yet (raise NotImplementedError): --cnr,\n"
+        "--fd-spectrum, --acq (ROADMAP item 13), --awgn (22), --hs (12),\n"
+        "--segments (8), --exact-lut, --hard-metric, --sampler nearest\n"
+        "(10), --hdlc (21), constellations other than QPSK (20).\n")
+    sys.exit(code)
+
+
+def parse_args(argv):
+    from ..pipelines.dvbs_rx import RxConfig
+    from ._dvbs_flags import handle_dvbs_flag
+
+    # leandvb default anf=1 (leandvb.cc:103); the computed decisions of
+    # the demod kernel, which the JAX CLI resolves to on an accelerator.
+    cfg = RxConfig(anf=1, exact_lut=False)
+    opts = {
+        "input": "u8", "loop": False, "fd_info": -1, "fd_const": -1,
+        "fd_spectrum": -1, "json": False, "verbose": False, "debug": False,
+        "hs": False, "hdlc": False, "packetized": False, "buf_factor": 4,
+        "Finfo": 5.0, "standard": "DVB-S", "acq": False, "debug2": False,
+        "device": None,
+    }
+    i = 0
+    while i < len(argv):
+        a = argv[i]
+
+        def val():
+            nonlocal i
+            i += 1
+            return argv[i]
+
+        if a == "-h":
+            usage(0, sys.stdout)
+        elif a == "--version":
+            from .. import __version__
+            print(f"leansdr-tpu-torch-{__version__}")
+            sys.exit(0)
+        elif a == "-v":
+            opts["verbose"] = True
+        elif a == "-d":
+            # Second -d promotes to debug2 (leandvb.cc:1068-1071).
+            opts["debug2"] = opts["debug"]
+            opts["debug"] = True
+            cfg.debug = True
+        elif a == "--u8":
+            opts["input"] = "u8"
+        elif a in ("--s8", "--char"):
+            opts["input"] = "s8"
+        elif a == "--u16":
+            opts["input"] = "u16"
+        elif a == "--s16":
+            opts["input"] = "s16"
+        elif a == "--f32":
+            opts["input"] = "f32"
+        elif a == "--derotate":
+            cfg.Fderot = float(val())
+        elif a == "--loop":
+            opts["loop"] = True
+        elif a == "--awgn":
+            cfg.awgn = float(val())
+        elif a == "--anf":
+            cfg.anf = int(val())
+        elif a == "--cnr":
+            cfg.cnr = True
+        elif a == "--resample":
+            cfg.resample = True
+        elif a == "--resample-rej":
+            cfg.resample_rej = float(val())
+        elif a == "--decim":
+            cfg.decim = int(val())
+        elif a == "--standard":
+            opts["standard"] = val()
+        elif a == "--hard-metric":
+            cfg.hard_metric = True
+        elif a == "--hs":
+            opts["hs"] = True
+        elif a == "--hdlc":
+            opts["hdlc"] = True
+        elif a == "--packetized":
+            opts["packetized"] = True
+        elif a == "--fd-info":
+            opts["fd_info"] = int(val())
+        elif a == "--fd-const":
+            opts["fd_const"] = int(val())
+        elif a == "--fd-spectrum":
+            opts["fd_spectrum"] = int(val())
+        elif a == "--fd-pp":
+            cfg.fd_pp = int(val())
+        elif a == "--duration":
+            val()       # GUI timeline width: accepted, no effect
+        elif a == "--json":
+            opts["json"] = True
+        elif a == "--buf-factor":
+            opts["buf_factor"] = int(val())
+        elif a == "--inpipe" or a == "--inbuf":
+            val()       # accepted, no-op (host buffering is adaptive)
+        elif a == "--acq":
+            opts["acq"] = True
+        elif a == "--gui" or a == "--linger" or a == "--filler":
+            pass        # GUI replaced by the fd-info/const streams
+        elif a == "--nhelpers":
+            val()
+        elif a == "--device":
+            opts["device"] = val()
+        elif handle_dvbs_flag(a, val, cfg):
+            pass        # shared DVB-S flags (_dvbs_flags.py)
+        else:
+            usage(1)
+        i += 1
+    if opts["fd_spectrum"] >= 0:
+        cfg.want_spectrum = True
+    if opts["hs"]:
+        if opts["input"] != "u8":
+            print("** --hs requires u8 input (fast_qpsk_receiver is "
+                  "a u8 pipeline, sdr.h:946)", file=sys.stderr)
+            sys.exit(1)
+        cfg.hs = True
+        cfg.anf = 0
+    if opts["fd_const"] >= 0:
+        cfg.want_const = True
+    if opts["hdlc"]:
+        cfg.hdlc = True
+        cfg.packetized = opts["packetized"]
+    return cfg, opts
+
+
+def main(argv=None):
+    from ..fec.convenc import FEC_SPECS
+    from ..pipelines.dvbs_rx import DvbsReceiver
+    from ..util import info as info_mod
+    from ..util.iofmt import read_iq
+
+    cfg, opts = parse_args(sys.argv[1:] if argv is None else argv)
+    if opts["acq"]:
+        raise NotImplementedError(
+            "--acq (the FFT coarse carrier search, dsp/acquisition.py) is "
+            "not ported yet (ROADMAP queue 1 item 13)")
+    rx = DvbsReceiver(cfg, device=opts["device"])
+
+    if opts["debug"]:
+        # Glyph legend (leandvb.cc:700-713).
+        sys.stderr.write(
+            "Output:\n"
+            "  '_': packet received without errors\n"
+            "  '.': error-corrected packet\n"
+            "  '!': packet with remaining errors\n")
+
+    info = None
+    if opts["fd_info"] >= 0:
+        info = info_mod.InfoWriter(opts["fd_info"], opts["json"])
+        bits_in, bits_out = FEC_SPECS[cfg.rate]
+        info.initial(opts["standard"], rx.cstln.name,
+                     f"{bits_in}/{bits_out}", cfg.Fm)
+    if opts["fd_const"] >= 0:
+        # The kernel path samples no constellation points (as the JAX
+        # kernel path): only the CONST line is written.
+        info_mod.ConstWriter(opts["fd_const"], opts["json"]).const(
+            rx.cstln.symbols)
+
+    itemsize = {"u8": 2, "s8": 2, "u16": 4, "s16": 4, "f32": 8}[opts["input"]]
+    stdin = sys.stdin.buffer
+    out = sys.stdout.buffer
+    CHUNK_BYTES = (1 << 17) * itemsize
+
+    meas_sent = 0
+    locktime_sent = 0
+
+    def flush_info():
+        nonlocal meas_sent, locktime_sent
+        if not info:
+            return
+        n = len(rx.meas["freq"])
+        for k in range(meas_sent, n):
+            # freq_tap is cycles/sample at the POST-decimation rate
+            info.freq(rx.meas["freq"][k], scale=rx.Fs_eff)
+            info.ss(rx.meas["ss"][k])
+            info.mer(rx.meas["mer"][k])
+        meas_sent = n
+        for st in rx.mpeg.lock_events:
+            info.lock(st)
+        rx.mpeg.lock_events.clear()
+        if rx.mpeg.locktime_count > locktime_sent:
+            info.locktime(rx.mpeg.locktime)
+            locktime_sent = rx.mpeg.locktime_count
+        if rx.vbitcount:
+            info.vber(rx.vber)
+        info.flush()
+
+    while True:
+        raw = stdin.read(CHUNK_BYTES)
+        if not raw:
+            if opts["loop"]:
+                # file_reader.loop: lseek to 0 on EOF (generic.h:59-63)
+                try:
+                    stdin.seek(0)
+                    continue
+                except OSError:
+                    break
+            break
+        nitems = len(raw) // itemsize * itemsize
+        ts = rx.process(read_iq(raw[:nitems], opts["input"]))
+        if len(ts):
+            out.write(np.ascontiguousarray(ts).tobytes())
+            out.flush()
+        flush_info()
+    flush_info()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,6 +1,8 @@
 """Carry a `leansdr_tpu` receiver checkpoint into the port.
 
-`from_jax_checkpoint(blob)` turns the pickle written by the JAX
+`from_jax_dvbs_checkpoint(blob)` does it for the single-carrier
+`DvbsReceiver` (see its docstring); `from_jax_checkpoint(blob)` for the
+fleet. It turns the pickle written by the JAX
 `MultiDvbsReceiver.save_state()` (leansdr_tpu/pipelines/multi_rx.py:
 986-1012) into one that `leansdr_tpu_torch.pipelines.multi_rx.
 MultiDvbsReceiver.load_state` reads, so the port can continue exactly
@@ -20,6 +22,7 @@ Python scalars and bytes, so loading it needs no JAX.
     chunk count carry over as they are.
 """
 
+import io
 import pickle
 
 import numpy as np
@@ -91,4 +94,149 @@ def from_jax_checkpoint(blob: bytes, rate: str = "1/2") -> bytes:
         "backend_native": d["backend_native"],
         "sample_backlog": np.asarray(d["sample_backlog"], np.float32),
         "chunk_count": d.get("chunk_count", 0),
+    })
+
+
+# ---------------------------------------------------------------------------
+# Single-carrier receiver
+# ---------------------------------------------------------------------------
+
+def _np_array(fun, args, arr_state, aval_state):
+    """Stand-in for jax._src.array._reconstruct_array: the NumPy value a
+    pickled JAX array carries, without placing it on a JAX device."""
+    v = fun(*args)
+    v.__setstate__(arr_state)
+    return v
+
+
+def _stand_ins() -> dict:
+    from .dsp import blocks_device
+    from .fec import deconv, viterbi
+    return {
+        ("jax._src.array", "_reconstruct_array"): _np_array,
+        ("leansdr_tpu.fec.deconv", "DeconvSpec"): deconv.DeconvSpec,
+        ("leansdr_tpu.fec.viterbi", "Trellis"): viterbi.Trellis,
+        ("leansdr_tpu.fec.viterbi", "ViterbiBank"): viterbi.ViterbiBank,
+        ("leansdr_tpu.dsp.blocks_device", "BatchedAutoNotch"):
+            blocks_device.BatchedAutoNotch,
+        ("leansdr_tpu.dsp.blocks_device", "_Backlog"):
+            blocks_device._Backlog,
+    }
+
+
+class _JaxFreeUnpickler(pickle.Unpickler):
+    """Reads a leansdr_tpu pickle without importing jax or leansdr_tpu:
+    the classes it names are mapped to the port's own (same fields) or to
+    NumPy; anything else from those packages raises, naming it."""
+
+    def find_class(self, module, name):
+        hit = _stand_ins().get((module, name))
+        if hit is not None:
+            return hit
+        if module.split(".")[0] in ("jax", "jaxlib", "leansdr_tpu"):
+            raise NotImplementedError(
+                f"{module}.{name} in the checkpoint has no stand-in in "
+                "leansdr_tpu_torch.convert")
+        return super().find_class(module, name)
+
+
+def _notch_state(st) -> dict:
+    """The notch's streaming state: from the host blocks.AutoNotch fields
+    (a JAX checkpoint written on the CPU) or from AutoNotch1's
+    BatchedAutoNotch (written on an accelerator)."""
+    if "b" in st:
+        b = st["b"].__dict__
+        return {"slot_i": b["slot_i"], "estim": b["estim"],
+                "gain": b["gain"], "phase": b["phase"],
+                "backlog": b["backlog"].buf}
+    est = np.asarray(st["estim"], np.complex64)
+    return {"slot_i": np.asarray(st["slot_i"], np.int32)[None],
+            "estim": np.stack([est.real, est.imag], -1)[None].astype(
+                np.float32),
+            "gain": np.array([st["gain"]], np.float32),
+            "phase": int(st["phase"]),
+            "backlog": np.stack([st["backlog"].real, st["backlog"].imag],
+                                -1)[None].astype(np.float32)}
+
+
+def _viterbi_state(dc: dict, rate: str) -> dict:
+    """ViterbiSyncDevice fields; the trellis state _dev_state
+    (cost_st [S, 64] i32, path_hi/path_lo [S, 64] u32, natural state
+    order) to the port's planes: [64, S] i32; at rate 1/2 (metric, path
+    = path_lo), the low path word being all that reaches the decision
+    at depth 32; at the punctured rates permuted to stored rows."""
+    out = {k: dc[k] for k in ("current", "resync_phase", "sym_backlog",
+                              "cost_backlog")}
+    dev = dc.get("_dev_state")
+    if dev is None:
+        out["planes"] = None
+        return out
+    cst, hi, lo = (np.asarray(a) for a in dev)
+    if rate == "1/2":
+        out["planes"] = {"metric": cst.T, "path": lo.view(np.int32).T}
+    else:
+        orig = bank_geometry(rate).orig
+        out["planes"] = {k: np.ascontiguousarray(
+            np.asarray(a).view(np.int32).T[orig])
+            for k, a in (("metric", cst), ("path_hi", hi), ("path_lo", lo))}
+    return out
+
+
+def from_jax_dvbs_checkpoint(blob: bytes) -> bytes:
+    """JAX DvbsReceiver.save_state() pickle -> a checkpoint the port's
+    `pipelines.dvbs_rx.DvbsReceiver.load_state` reads.
+
+    The JAX pickle names classes (the deconvolver's DeconvSpec, the
+    Viterbi decoder's Trellis and ViterbiBank, JAX arrays in its trellis
+    state, the notch's BatchedAutoNotch when written on an accelerator);
+    it is read with an unpickler that maps them to the port's classes or
+    to NumPy, so neither jax nor leansdr_tpu is imported. Carried over:
+    the demod state planes (kernel or scan path) to [19, 1], the sample,
+    byte and MPEG backlogs, the derandomizer phase, the decoder's
+    streaming state, the MPEG sync FSM, counters, measurements, and the
+    notch / derotator / resampler streaming state. The measurement phase
+    is not in the JAX pickle and starts at 0, as in a JAX receiver that
+    loads it. Paths of the JAX receiver the port has not taken raise."""
+    from .pipelines.dvbs_rx import CHECKPOINT_FORMAT as DVBS_FORMAT
+    d = _JaxFreeUnpickler(io.BytesIO(blob)).load()
+    aux = d.get("aux", {})
+    for name in ("hs_state", "etr_state", "cnr_est", "spectrum"):
+        if name in aux:
+            raise NotImplementedError(
+                f"a checkpoint with {name} (a receiver path the port has "
+                "not taken yet, ROADMAP queue 1) cannot be carried over")
+    if d["use_pallas"]:
+        planes = np.asarray(d["dev"], np.float32).reshape(NSTATE, -1)[:, :1]
+    else:
+        planes = _planes_from_scan_state(d["dev"])
+    dc = d["deconv"]
+    if "trellis" in dc:
+        deconv = _viterbi_state(dc, dc["rate"])
+    else:
+        deconv = {k: dc[k] for k in ("locked", "skip", "backlog")}
+    out_aux = {}
+    if "notch" in aux:
+        out_aux["notch"] = _notch_state(aux["notch"])
+    if "derot" in aux:
+        out_aux["derot"] = {"index": int(aux["derot"]["index"])}
+    if "resampler" in aux:
+        r = aux["resampler"]
+        out_aux["resampler"] = {"current_freq": float(r["current_freq"]),
+                                "hist": np.asarray(r["hist"], np.complex64),
+                                "_primed": bool(r["_primed"])}
+    return pickle.dumps({
+        "format": DVBS_FORMAT,
+        "dev": np.ascontiguousarray(planes),
+        "meas_backlog": 0,
+        "sample_backlog": np.asarray(d["sample_backlog"], np.float32),
+        "byte_backlog": d["byte_backlog"],
+        "mpegbyte_backlog": d["mpegbyte_backlog"],
+        "derand_pos": d["derand_pos"],
+        "first_derand": d["first_derand"],
+        "deconv": deconv,
+        "mpeg": d["mpeg"],
+        "vbitcount": d["vbitcount"],
+        "verrcount": d["verrcount"],
+        "meas": d["meas"],
+        "aux": out_aux,
     })

@@ -35,14 +35,15 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v"]
 
-# Per-kernel nvcc flags. The demod recurrence must round like its plain
-# PyTorch version (one rounding per operation, IEEE cosf/sinf/sqrtf and
-# division), so multiply-add contraction is off and fast math is never
-# used.
+# Per-kernel nvcc flags. The demod recurrence and the FIR must round like
+# their plain PyTorch versions (one rounding per operation; the demod's
+# IEEE cosf/sinf/sqrtf and division), so multiply-add contraction is off
+# for them and fast math is never used.
 KERNEL_FLAGS = {
     "demod": ["--fmad=false"],
     "acs": [],
     "acs_banked": [],
+    "fir": ["--fmad=false"],
 }
 
 

@@ -26,6 +26,19 @@ def normalize_dcgain(coeffs: np.ndarray, gain: float = 1.0) -> np.ndarray:
     return (c * np.float32(gain)).astype(np.float32)
 
 
+def lowpass(order: int, fcut: float, gain: float = 1.0) -> np.ndarray:
+    """Windowed-sinc lowpass, window disabled like the reference
+    (filtergen.h:45-62). ncoeffs = order+1; normalized to DC gain."""
+    ncoeffs = order + 1
+    i = np.arange(ncoeffs, dtype=np.float64)
+    t = i - (ncoeffs - 1) * 0.5
+    x = 2 * np.pi * fcut * t
+    sinc = 2 * fcut * np.where(t != 0, np.divide(np.sin(x), x,
+                                                 out=np.ones_like(x),
+                                                 where=(t != 0)), 1.0)
+    return normalize_dcgain(sinc.astype(np.float32), gain)
+
+
 def root_raised_cosine(order: int, fs: float, rolloff: float) -> np.ndarray:
     """Closed-form RRC taps (filtergen.h:68-92).
 

@@ -56,3 +56,15 @@ def atan2_poly(q: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     t = torch.where(ay > ax, HALF_PI_F32 - t, t)
     t = torch.where(i < 0, PI_F32 - t, t)
     return torch.where(q < 0, -t, t)
+
+
+def trig16_table() -> np.ndarray:
+    """The 65536-entry complex exp table of the reference (math.h:95-111)
+    as float32 [65536, 2]: entry a is (cos, sin) of a*2*pi/65536 with the
+    angle quantized to float32 first, as the reference's cosf/sinf see it
+    (a copy of leansdr_tpu/dsp/math_utils.py:25-37)."""
+    af = (np.arange(65536, dtype=np.float64) * (2 * np.pi) / 65536).astype(
+        np.float32)
+    tab = np.stack([np.cos(af.astype(np.float64)),
+                    np.sin(af.astype(np.float64))], axis=-1)
+    return tab.astype(np.float32)

@@ -1,15 +1,21 @@
-"""DVB-S energy-dispersal PRBS randomizer (the TX-side NumPy parts of
-leansdr_tpu/fec/prbs.py, copied for the stimulus generator; the
-receiver's derandomizer runs in native/byte_backend.cc).
+"""DVB-S energy-dispersal PRBS (de)randomizer (the NumPy parts of
+leansdr_tpu/fec/prbs.py: the TX randomizer of the stimulus generator and
+the single-carrier receiver's derandomizer; the fleet's derandomizer
+runs in native/byte_backend.cc).
 
-Mirrors randomizer (reference dvb.h:1063-1128): the EN 300 421 section
-4.4.1 PRBS 1+x^14+x^15 seeded 000251, precomputed as a 188*8-byte
-pattern with the sync-byte inversion/inhibition rules.
+Mirrors randomizer/derandomizer (reference dvb.h:1063-1163): the
+EN 300 421 section 4.4.1 PRBS 1+x^14+x^15 seeded 000251, precomputed as
+a 188*8-byte pattern with the sync-byte inversion/inhibition rules.
 """
 
 from functools import lru_cache
 
 import numpy as np
+
+MPEG_SYNC = 0x47
+MPEG_SYNC_INV = MPEG_SYNC ^ 0xFF           # 0xB8
+MPEG_SYNC_CORRUPTED = 0x55
+
 
 @lru_cache(maxsize=None)
 def prbs_pattern() -> np.ndarray:
@@ -39,3 +45,33 @@ def randomize(packets: np.ndarray, start_phase: int = 0):
     phases = (start_phase + np.arange(n)) % 8
     out = packets ^ pat[phases]
     return out, int((start_phase + n) % 8)
+
+
+def derandomize_np(packets: np.ndarray, pos: int = 0):
+    """Vectorized host derandomizer (dvb.h:1130-1157).
+
+    Returns (out_packets [n,188], good_mask [n], next_pos). Bad packets
+    get the TEI bit set, mirroring dvb.h:1146-1156; the caller drops them
+    via the mask.
+
+    The sequential position recurrence (reset to 0 on inverted sync,
+    else +1 mod 8) vectorizes as distance-to-last-resync: pos[i] =
+    (i - last_resync_at_or_before_i) %% 8, falling back to the carried-in
+    phase before the first resync.
+    """
+    packets = np.atleast_2d(packets)
+    n = packets.shape[0]
+    if n == 0:
+        return packets.copy(), np.zeros(0, bool), pos
+    pat = prbs_pattern().reshape(8, 188)
+    sync_in = packets[:, 0]
+    resync = (sync_in == MPEG_SYNC_INV) | (
+        sync_in == (MPEG_SYNC_INV ^ MPEG_SYNC_CORRUPTED))
+    idx = np.arange(n)
+    last = np.maximum.accumulate(np.where(resync, idx, -1))
+    positions = np.where(last >= 0, (idx - last) % 8, (pos + idx) % 8)
+    out = packets ^ pat[positions]
+    good = out[:, 0] == MPEG_SYNC
+    out[~good, 1] |= 0x80  # Transport Error Indicator
+    next_pos = int((positions[-1] + 1) % 8)
+    return out, good, next_pos

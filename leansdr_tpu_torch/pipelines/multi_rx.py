@@ -35,10 +35,9 @@ from ..fec.deconv_device import deconv_append
 from ..fec.viterbi_banked import fleet_rate
 from ..fec.viterbi_device import MultiViterbiSync, decoder
 from ..native import NativeByteBackend
-from .dvbs_rx import RxConfig, TS_SIZE
+from .dvbs_rx import RATES, RxConfig, TS_SIZE
 
 CHECKPOINT_FORMAT = "leansdr_tpu_torch.multi_rx/1"
-RATES = ("1/2", "2/3", "3/4", "5/6", "7/8")     # the DVB-S code rates
 
 
 def _pack_fetch(fill: torch.Tensor, flat: list) -> torch.Tensor:

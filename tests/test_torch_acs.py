@@ -19,6 +19,10 @@ from leansdr_tpu.fec import viterbi_device as jvd
 
 from leansdr_tpu_torch.fec import viterbi_device as tvd
 
+# Single-threaded torch: the plain versions run many small ops, which
+# OpenMP threads only slow down, most of all beside other test workers.
+torch.set_num_threads(1)
+
 RATE = "1/2"
 
 

@@ -23,6 +23,10 @@ from leansdr_tpu.pipelines import tsgen, dvbs_tx
 from leansdr_tpu_torch.dsp import receiver as t_receiver
 from leansdr_tpu_torch.dsp import receiver_kernel as rk
 
+# Single-threaded torch: the plain versions run many small ops, which
+# OpenMP threads only slow down, most of all beside other test workers.
+torch.set_num_threads(1)
+
 STATE_KEYS = {"mu": 0, "freqw": 2, "agc_gain": 3, "est_insp": 4}
 
 

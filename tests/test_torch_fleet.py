@@ -30,6 +30,10 @@ from leansdr_tpu_torch.convert import from_jax_checkpoint
 from leansdr_tpu_torch.pipelines.dvbs_rx import RxConfig
 from leansdr_tpu_torch.pipelines.multi_rx import MultiDvbsReceiver
 
+# Single-threaded torch: the plain versions run many small ops, which
+# OpenMP threads only slow down, most of all beside other test workers.
+torch.set_num_threads(1)
+
 C = 2
 CHUNK = 4096
 NPKT = 36

@@ -19,6 +19,7 @@ per channel (see tests/test_torch_fleet.py for why).
 import numpy as np
 import pytest
 import jax
+import torch
 
 from leansdr_tpu.pipelines import tsgen, dvbs_tx
 from leansdr_tpu.pipelines.dvbs_rx import RxConfig as JaxRxConfig
@@ -27,6 +28,10 @@ from leansdr_tpu.pipelines.multi_rx import MultiDvbsReceiver as JaxRx
 from leansdr_tpu_torch.convert import from_jax_checkpoint
 from leansdr_tpu_torch.pipelines.dvbs_rx import RxConfig
 from leansdr_tpu_torch.pipelines.multi_rx import MultiDvbsReceiver
+
+# Single-threaded torch: the plain versions run many small ops, which
+# OpenMP threads only slow down, most of all beside other test workers.
+torch.set_num_threads(1)
 
 RATE = "3/4"
 C = 2

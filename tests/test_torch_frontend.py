@@ -21,6 +21,10 @@ from leansdr_tpu.fec import deconv_device as jdd
 from leansdr_tpu_torch.dsp import mf_prefilter as tmf
 from leansdr_tpu_torch.fec import deconv_device as tdd
 
+# Single-threaded torch: the plain versions run many small ops, which
+# OpenMP threads only slow down, most of all beside other test workers.
+torch.set_num_threads(1)
+
 
 def test_mf_taps_match():
     assert tmf.make_mf_taps(4e6, 2e6, 0.35, 30) == \

@@ -89,3 +89,79 @@ def test_unported_settings_raise():
             MultiDvbsReceiver(RxConfig(**(base | change)), 2, device="cpu")
     with pytest.raises(NotImplementedError, match="item 8"):
         MultiDvbsReceiver(RxConfig(**base), 2, segments=8, device="cpu")
+
+
+def test_leandvb_help_runs_without_jax():
+    """`python -m leansdr_tpu_torch.apps.leandvb -h` in a process where
+    jax and leansdr_tpu cannot be imported."""
+    code = ("import sys, runpy\n"
+            "for m in ('jax', 'jaxlib', 'leansdr_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "sys.argv = ['leandvb', '-h']\n"
+            "runpy.run_module('leansdr_tpu_torch.apps.leandvb', "
+            "run_name='__main__')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert r.stdout.startswith("Usage: leandvb") and "--device" in r.stdout
+
+
+def test_single_carrier_entry_points_default_to_cuda():
+    import torch
+    from leansdr_tpu_torch.dsp.blocks_device import AutoNotch1
+    from leansdr_tpu_torch.dsp.fir_kernel import FirFilterDevice
+    from leansdr_tpu_torch.pipelines.dvbs_rx import DvbsReceiver, RxConfig
+    if torch.cuda.is_available():
+        return
+    for make in (lambda: DvbsReceiver(RxConfig(exact_lut=False)),
+                 lambda: FirFilterDevice([1.0, 0.5], 2),
+                 lambda: AutoNotch1(1)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--awgn", "1"], "item 22"), (["--cnr"], "item 13"),
+    (["--fd-spectrum", "3"], "item 13"), (["--acq"], "item 13"),
+    (["--hs"], "item 12"), (["--segments", "8"], "item 8"),
+    (["--exact-lut"], "item 10"), (["--hard-metric"], "item 10"),
+    (["--sampler", "nearest"], "item 10"), (["--hdlc"], "item 21"),
+    (["--const", "8PSK"], "item 20")])
+def test_leandvb_unported_flags_raise(flags, item):
+    """Each flag of a path the port has not taken raises
+    NotImplementedError naming its ROADMAP item, before reading input."""
+    from leansdr_tpu_torch.apps import leandvb
+    with pytest.raises(NotImplementedError, match=item):
+        leandvb.main(flags + ["--device", "cpu"])
+
+
+ARGVS = [
+    [],
+    ["-f", "2400e3", "--sr", "2000e3", "--cr", "1/2"],
+    ["--s16", "-f", "10e6", "--sr", "333e3", "--resample", "--cr", "3/4",
+     "--resample-rej", "12", "--anf", "2"],
+    ["--f32", "--float-scale", "75", "-f", "4e6", "--sr", "2e6", "--hq",
+     "--cr", "7/8", "--tune", "5e3", "--drift", "--roll-off", "0.25"],
+    ["--u8", "--viterbi", "--fastlock", "--sampler", "rrc", "--rrc-rej",
+     "20", "--derotate", "-12e3", "--decim", "2", "--fd-pp", "9", "-d"],
+    ["--const", "QPSK", "--cr", "2/3", "--fd-const", "4", "--fd-info", "2",
+     "--json", "--no-exact-lut", "--anf", "0"],
+]
+
+
+@pytest.mark.parametrize("argv", ARGVS, ids=lambda a: " ".join(a) or "-")
+def test_leandvb_parse_args_matches_jax(argv):
+    """The port's parse_args gives the JAX CLI's RxConfig (exact_lut
+    aside: the port's default is False, the JAX one resolves None from
+    its backend) and the same options."""
+    from leansdr_tpu.apps import leandvb as jcli
+    from leansdr_tpu_torch.apps import leandvb as tcli
+    jc, jo = jcli.parse_args(list(argv))
+    tc, to = tcli.parse_args(list(argv))
+    a, b = dict(jc.__dict__), dict(tc.__dict__)
+    assert b.pop("exact_lut") is False
+    a.pop("exact_lut")
+    assert a.pop("constellation").name == b.pop("constellation").name
+    assert a == b
+    assert to.pop("device") is None
+    assert jo == to
