@@ -22,12 +22,14 @@ Phases (any failure exits non-zero):
      every valid sample, float state within max(1e-3, 1e-4*|v|) (the CPU
      tests' bar; the kernel and its plain version round alike, so 0 is
      expected);
-  3. ACS kernel == viterbi_acs_ref bit for bit (T=2048, ties forced, the
-     main path's N=256 ACQUIRE lanes with and without cheap_q, its N=64
-     TRACK lanes with cheap_q); banked ACS kernel ==
-     viterbi_acs_banked_ref bit for bit at 4/6, 3/4, 5/6 and 7/8 (T=1024,
-     ties forced, from zero and from a live state, at each rate's
-     main-path ACQUIRE lanes, at TRACK's 64 and at N=200);
+  3. ACS kernel == viterbi_acs_ref bit for bit (ties forced, from zero
+     and from a live state; T=2048 at the fleet's N=256 ACQUIRE lanes
+     with and without cheap_q and its N=64 TRACK lanes with cheap_q;
+     T=128 at the single carrier's N=4 replica lanes without cheap_q);
+     banked ACS kernel == viterbi_acs_banked_ref bit for bit at 4/6,
+     3/4, 5/6 and 7/8 (ties forced, from zero and from a live state;
+     T=1024 at each rate's fleet ACQUIRE lanes, at TRACK's 64 and at
+     N=200; T=128 at the single carrier's nsyncs lanes, 8 to 16);
      cfir == cfir_ref and fir == fir_ref bit for bit (nt 21, 79, 2048;
      lengths off the tile; from a zero head and mid-stream);
   4. the main path through MultiDvbsReceiver.process, with the kernels'
@@ -43,6 +45,11 @@ Phases (any failure exits non-zero):
      --resample (cfir), and --hq at 1/2 and 3/4 on 4 Msps f32 (the ACS
      kernels); each must lock and decode >= 90% of the packets sent
      after lock; per-stage times, input Msamples/s and x real time;
+     after each stream, the inputs of its first launch of every kernel
+     and of one launch mid-stream (a live state) go through the kernel
+     and its plain version again, equal bit for bit (the demod on the
+     first 1024 samples of the read: its plain version costs ~3 ms per
+     sample on the card);
   5. kernel times at the main path's shapes, bounds, one `kernels` line
      (cfir/fir beside one conv1d computing the same FIR, TF32 off);
   6. last line: {"ok": true, "device": {...}}.
@@ -79,6 +86,11 @@ STATE_KEYS = {"mu": 0, "freqw": 2, "agc_gain": 3, "est_insp": 4}
 # 4-cycle dependent-issue latency of Hopper's FP32/INT32 pipes.
 DEMOD_CHAIN_OPS = 90
 DEP_LATENCY_CYCLES = 4
+# The single-carrier paths' launches held against the plain versions:
+# the first launch of each kernel and this one (a live, mid-stream
+# state); the demod on this many samples of its read.
+SC_LIVE_LAUNCH = {"demod": 20, "cfir": 20, "acs": 4000, "acs_banked": 4000}
+SC_DEMOD_CHECK = 1024
 
 
 def fail(msg: str):
@@ -180,10 +192,11 @@ def check_demod(predef, rate, nsym, C, nsamp, dev, gen):
 
 def check_acs(dev, gen):
     from leansdr_tpu_torch.fec import viterbi_device as vd
-    T = 2048
     out = []
-    for N, cheap_q in ((NCHAN * vd.NSYNCS, False), (NCHAN * vd.NSYNCS, True),
-                       (NCHAN, True)):
+    for N, cheap_q, T in ((NCHAN * vd.NSYNCS, False, 2048),
+                          (NCHAN * vd.NSYNCS, True, 2048),
+                          (NCHAN, True, 2048),
+                          (sc_lanes("1/2", dev), False, 128)):
         z = torch.zeros((64, N), dtype=torch.int32, device=dev)
         m0, p0 = z, z
         for rnd in range(2):      # second round starts from a live state
@@ -210,6 +223,14 @@ def check_acs(dev, gen):
     return max(e for e, _ in out), out[0][1]
 
 
+def sc_lanes(rate, dev):
+    """The single-carrier decoder's replica lanes (nsyncs) at `rate`."""
+    from leansdr_tpu_torch.dsp.cstln import Predef, make_dvbs2_constellation
+    from leansdr_tpu_torch.fec.viterbi import ViterbiSyncDevice
+    return ViterbiSyncDevice(make_dvbs2_constellation(Predef.QPSK, rate),
+                             rate, device=dev).nsyncs
+
+
 def fleet_plan(rate, dev):
     """The ACQUIRE ViterbiPlan of the 64-carrier main path at `rate`."""
     from leansdr_tpu_torch.dsp.cstln import Predef, make_dvbs2_constellation
@@ -221,19 +242,20 @@ def fleet_plan(rate, dev):
 
 def check_acs_banked(dev, gen):
     """acs_banked == viterbi_acs_banked_ref bit for bit at every fleet
-    punctured rate, T=1024, coarse costs forcing metric ties, at the main
-    path's lane counts (the rate's ACQUIRE lanes, 64 carriers x nsyncs,
-    and TRACK's 64) and at N=200 (not a multiple of 32); round 0 from
-    zero planes, round 1 from the kernel's end state. Returns (max |diff|,
-    plain ms at 3/4 ACQUIRE round 0, its N)."""
+    punctured rate, coarse costs forcing metric ties: T=1024 at the fleet
+    main path's lane counts (the rate's ACQUIRE lanes, 64 carriers x
+    nsyncs, and TRACK's 64) and at N=200 (not a multiple of 32); T=128
+    (one single-carrier chunk) at the single carrier's nsyncs lanes;
+    round 0 from zero planes, round 1 from the kernel's end state.
+    Returns (max |diff|, plain ms at 3/4 ACQUIRE round 0, its N)."""
     from leansdr_tpu_torch.fec import viterbi_banked as vb
     from leansdr_tpu_torch.fec.viterbi import make_trellis
-    T = 1024
     err, plain = 0.0, None
     for rate in vb.FLEET_RATES:
         ncs = make_trellis(rate).ncs
         n_acq = fleet_plan(rate, dev).n_lanes
-        for N in (n_acq, NCHAN, 200):
+        for N, T in ((n_acq, 1024), (NCHAN, 1024), (200, 1024),
+                     (sc_lanes(rate, dev), 128)):
             z = torch.zeros((64, N), dtype=torch.int32, device=dev)
             planes = (z, z, z)
             for rnd in range(2):
@@ -362,6 +384,7 @@ def main_path(dev, gen, code_rate="1/2"):
     """The fleet at `code_rate`: NCHUNKS chunks through process() with
     every kernel's launch count zeroed just before and read just after;
     at rate 1/2 also the pipelined submit() path."""
+    from leansdr_tpu_torch.dsp import fir_kernel as fk
     from leansdr_tpu_torch.dsp import mf_prefilter, receiver_kernel as rk
     from leansdr_tpu_torch.fec import viterbi_banked as vb
     from leansdr_tpu_torch.fec import viterbi_device as vd
@@ -409,8 +432,9 @@ def main_path(dev, gen, code_rate="1/2"):
             return out
         return wrapper
 
-    demod_fn, acs_fn, banked_fn = rk.demod, vd.viterbi_acs, \
-        vb.viterbi_acs_banked
+    counted = {"demod": rk.demod, "acs": vd.viterbi_acs,
+               "acs_banked": vb.viterbi_acs_banked, "cfir": fk.cfir,
+               "fir": fk.fir}
     patches = [(mf_prefilter, "mf_prefilter", timed("mf", mf_prefilter.
                                                    mf_prefilter)),
                (rk, "demod", timed("demod", rk.demod)),
@@ -429,9 +453,8 @@ def main_path(dev, gen, code_rate="1/2"):
 
     pkts = [[] for _ in range(NCHAN)]
     wall = []
-    demod_fn.launches = 0
-    acs_fn.launches = 0
-    banked_fn.launches = 0
+    for fn in counted.values():
+        fn.launches = 0
     try:
         for k in range(NCHUNKS):
             chunk[0] = k
@@ -443,8 +466,7 @@ def main_path(dev, gen, code_rate="1/2"):
             for c in range(NCHAN):
                 pkts[c] += list(out[c])
     finally:
-        launches = {"demod": demod_fn.launches, "acs": acs_fn.launches,
-                    "acs_banked": banked_fn.launches}
+        launches = {k: fn.launches for k, fn in counted.items()}
         for obj, name, fn in saved:
             setattr(obj, name, fn)
     torch.cuda.synchronize()
@@ -540,10 +562,11 @@ def main_path(dev, gen, code_rate="1/2"):
 # None). pick=True upsamples by `up` and keeps every `down`-th sample
 # from the 3rd (a 0.3-sample delay at 2.4 Msps): a front end whose
 # filter passes the DVB-S excess band, which folds back in-band. A
-# brick-wall filter at 1.2 MHz (resample_poly(6, 5)) cuts that band
-# instead, and the linear sampler at 1.2 samples per symbol then sees
-# ISI: MER ~10 dB on a clean carrier, too low for hard decisions, in the
-# JAX receiver as in the port.
+# brick-wall filter at 1.2 MHz (resample_poly(6, 5)), closer to a real
+# rtl_sdr front end, cuts that band instead, and the JAX receiver then
+# reaches MER ~10 dB on a clean carrier and does not lock
+# (tools/frontend_mer.py; ROADMAP queue 1 item 24), so this stream's
+# lock gate is easier than a real front end's.
 SC_PATHS = (
     # rtl_sdr u8 at 2.4 Msps, 2 Msym/s, rate 1/2: the CLI's defaults
     # (anf=1, linear sampler, hard decisions); 2^23 samples.
@@ -608,12 +631,55 @@ def sc_stimulus(rate, fs, seconds, updown, f_off, esn0_db, birdie, fmt,
     return (x / rms).astype(np.float32).tobytes(), npkt
 
 
+def sc_plain_checks(name, inputs):
+    """The captured inputs of a single-carrier path's kernel launches
+    (kernel -> [(call index, args, kwargs)]) through the kernel and its
+    plain version: every output equal bit for bit (torch.equal). The
+    demod reads the first SC_DEMOD_CHECK samples of its read. Returns
+    [(kernel, call index, shape, plain ms)]."""
+    from leansdr_tpu_torch.dsp import fir_kernel as fk
+    from leansdr_tpu_torch.dsp import receiver_kernel as rk
+    from leansdr_tpu_torch.fec import viterbi_banked as vb
+    from leansdr_tpu_torch.fec import viterbi_device as vd
+    pairs = {"demod": (rk.demod, rk.demod_ref),
+             "acs": (vd.viterbi_acs, vd.viterbi_acs_ref),
+             "acs_banked": (vb.viterbi_acs_banked, vb.viterbi_acs_banked_ref),
+             "cfir": (fk.cfir, fk.cfir_ref)}
+    done = []
+    for key, calls in inputs.items():
+        kern, ref = pairs[key]
+        for n, a, kw in calls:
+            if key == "demod":
+                a = a[:3] + [a[3][:, :SC_DEMOD_CHECK + 1].contiguous()]
+            k = kern(*a, **kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = ref(*a, **kw)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            k, r = (k, r) if isinstance(k, tuple) else ((k,), (r,))
+            for i, (u, w) in enumerate(zip(k, r)):
+                if not torch.equal(u, w):
+                    fail(f"{name}: {key} launch {n}: output {i} differs from "
+                         f"the plain version in {int((u != w).sum())} "
+                         "entries")
+            shape = " ".join(f"{list(v.shape)}" for v in a
+                             if torch.is_tensor(v))
+            done.append((key, n, shape, plain_ms))
+    print(f"[{name}] kernels == plain versions on the path's inputs: "
+          + "; ".join(f"{k} launch {n} {sh} (plain {ms:.0f} ms)"
+                      for k, n, sh, ms in done))
+    return done
+
+
 def single_carrier(dev, rng, name, fields, fmt, seconds, updown, f_off,
                    esn0_db, birdie):
     """One single-carrier path: the wire stream through DvbsReceiver in
     leandvb's 2^17-sample reads (read_iq -> process), with every kernel's
     launch count zeroed just before and read just after, device stages
-    timed with CUDA events and host stages with the host clock."""
+    timed with CUDA events and host stages with the host clock; then the
+    inputs of chosen launches against the plain versions
+    (sc_plain_checks)."""
     from leansdr_tpu_torch.dsp import fir_kernel as fk
     from leansdr_tpu_torch.dsp import mf_prefilter, receiver_kernel as rk
     from leansdr_tpu_torch.fec import viterbi_banked as vb
@@ -651,6 +717,19 @@ def single_carrier(dev, rng, name, fields, fmt, seconds, updown, f_off,
             return out
         return wrapper
 
+    seen, inputs = {}, {}
+
+    def captured(key, fn):
+        def wrapper(*a, **kw):
+            n = seen.get(key, 0)
+            seen[key] = n + 1
+            if n in (0, SC_LIVE_LAUNCH[key]):
+                inputs.setdefault(key, []).append(
+                    (n, [v.clone() if torch.is_tensor(v) else v for v in a],
+                     kw))
+            return fn(*a, **kw)
+        return wrapper
+
     kernels = {"demod": (rk, "demod"), "acs": (vd, "viterbi_acs"),
                "acs_banked": (vb, "viterbi_acs_banked"),
                "cfir": (fk, "cfir"), "fir": (fk, "fir")}
@@ -658,8 +737,8 @@ def single_carrier(dev, rng, name, fields, fmt, seconds, updown, f_off,
     counted = {k: getattr(m, a) for k, (m, a) in kernels.items()}
     patches = [(mf_prefilter, "mf_prefilter",
                 timed("mf", mf_prefilter.mf_prefilter))]
-    patches += [(m, a, timed(k, getattr(m, a))) for k, (m, a) in
-                kernels.items() if k != "fir"]
+    patches += [(m, a, timed(k, captured(k, getattr(m, a))))
+                for k, (m, a) in kernels.items() if k != "fir"]
     for attr in ("notch", "resampler", "deconv"):
         blk = getattr(rx, attr)
         if blk is not None:
@@ -705,6 +784,11 @@ def single_carrier(dev, rng, name, fields, fmt, seconds, updown, f_off,
     if not rx.lock or n_good < 100 or n_good < 0.9 * max(n_after, span):
         fail(f"{name}: {n_good} sent packets decoded of {n_after} after "
              f"lock, span {span}, lock {rx.lock}")
+    short = [k for k in need if len(inputs.get(k, ())) < 2]
+    if short:
+        fail(f"{name}: no mid-stream launch of {short} to hold against the "
+             f"plain version ({seen})")
+    checks = sc_plain_checks(name, inputs)
     nsamp = len(raw) // itemsize
     xrt = nsamp / cfg.Fs / wall
     print(f"[{name}] wall {wall:.3f} s for {nsamp} samples: "
@@ -716,7 +800,9 @@ def single_carrier(dev, rng, name, fields, fmt, seconds, updown, f_off,
                 msamples_per_s=nsamp / wall / 1e6, x_real_time=xrt,
                 device_ms=device, host_ms=host, launches=launches,
                 packets_good=int(n_good), packets_after_lock=int(n_after),
-                slots=rx.notch.b.slot_i.tolist())
+                slots=rx.notch.b.slot_i.tolist(),
+                plain_checks=[dict(kernel=k, launch=n, shapes=sh,
+                                   plain_ms=ms) for k, n, sh, ms in checks])
 
 
 # ---------------------------------------------------------------- phase 5
@@ -940,9 +1026,12 @@ def main() -> int:
     b0 = btimes[0]                      # 3/4 ACQUIRE: the headline shape
     rng = np.random.default_rng(SEED)
     single = [single_carrier(dev, rng, *p) for p in SC_PATHS]
-    sc_launches = {k: sum(r["launches"][k] for r in single)
-                   for k in single[0]["launches"]}
     ftimes = fir_times(dev, gen)
+    # Each path's own count (zeroed just before it, read just after).
+    by_path = {"fleet 1/2": launches}
+    by_path.update({f"fleet {r}": p["launches"] for r, p in punctured.items()})
+    by_path.update({r["path"]: r["launches"] for r in single})
+    resample = next(r for r in single if r["path"] == "resample")
 
     kernels = [
         {"name": "demod", "route": "cuda",
@@ -971,10 +1060,7 @@ def main() -> int:
         {"name": "acs_banked", "route": "cuda",
          "source": "leansdr_tpu_torch/csrc/acs_banked.cu",
          "replaces": "leansdr_tpu/fec/viterbi_banked.py:361",
-         "launches": sum(p["launches"]["acs_banked"]
-                         for p in punctured.values()),
-         "launches_by_rate": {r: p["launches"]["acs_banked"]
-                              for r, p in punctured.items()},
+         "launches": punctured["3/4"]["launches"]["acs_banked"],
          "max_abs_err": b_err, "ms": b0["ms"], "plain_ms": b_plain,
          "bound_ms": b0["bound_ms"], "bound_by": b0["bound_by"],
          "library_ms": None,
@@ -984,7 +1070,7 @@ def main() -> int:
         {"name": "cfir", "route": "cuda",
          "source": "leansdr_tpu_torch/csrc/fir.cu",
          "replaces": "leansdr_tpu/dsp/fir_pallas.py:62",
-         "launches": sc_launches["cfir"], "max_abs_err": f_err,
+         "launches": resample["launches"]["cfir"], "max_abs_err": f_err,
          "ms": ftimes["cfir"]["ms"], "plain_ms": f_plain_c,
          "bound_ms": ftimes["cfir"]["bound"][0],
          "bound_by": ftimes["cfir"]["bound"][1],
@@ -994,7 +1080,7 @@ def main() -> int:
         {"name": "fir", "route": "cuda",
          "source": "leansdr_tpu_torch/csrc/fir.cu",
          "replaces": "leansdr_tpu/dsp/fir_pallas.py:25",
-         "launches": sc_launches["fir"], "max_abs_err": f_err,
+         "launches": resample["launches"]["fir"], "max_abs_err": f_err,
          "ms": ftimes["fir"]["ms"], "plain_ms": f_plain_r,
          "bound_ms": ftimes["fir"]["bound"][0],
          "bound_by": ftimes["fir"]["bound"][1],
@@ -1002,8 +1088,8 @@ def main() -> int:
          "shape": ftimes["fir"]["shape"],
          "plain_shape": "R=128 n=131157 nt=79"},
     ]
-    for k in kernels[:3]:
-        k["launches_single_carrier"] = sc_launches[k["name"]]
+    for k in kernels:
+        k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
     print(json.dumps({"stages_ms": stages, "chain_msamples_per_s": rate,
                       "pipelined_msamples_per_s": piped_rate,
                       "punctured": punctured, "single_carrier": single,

@@ -109,6 +109,12 @@ def _np_array(fun, args, arr_state, aval_state):
     return v
 
 
+class _Unread:
+    """Stand-in for a pickled object whose fields the conversion does not
+    read (the JAX decoder's host ACS bank: the device path keeps its
+    trellis state in `_dev_state`)."""
+
+
 def _stand_ins() -> dict:
     from .dsp import blocks_device
     from .fec import deconv, viterbi
@@ -116,7 +122,7 @@ def _stand_ins() -> dict:
         ("jax._src.array", "_reconstruct_array"): _np_array,
         ("leansdr_tpu.fec.deconv", "DeconvSpec"): deconv.DeconvSpec,
         ("leansdr_tpu.fec.viterbi", "Trellis"): viterbi.Trellis,
-        ("leansdr_tpu.fec.viterbi", "ViterbiBank"): viterbi.ViterbiBank,
+        ("leansdr_tpu.fec.viterbi", "ViterbiBank"): _Unread,
         ("leansdr_tpu.dsp.blocks_device", "BatchedAutoNotch"):
             blocks_device.BatchedAutoNotch,
         ("leansdr_tpu.dsp.blocks_device", "_Backlog"):
@@ -187,7 +193,7 @@ def from_jax_dvbs_checkpoint(blob: bytes) -> bytes:
     `pipelines.dvbs_rx.DvbsReceiver.load_state` reads.
 
     The JAX pickle names classes (the deconvolver's DeconvSpec, the
-    Viterbi decoder's Trellis and ViterbiBank, JAX arrays in its trellis
+    Viterbi decoder's Trellis and host ViterbiBank, JAX arrays in its trellis
     state, the notch's BatchedAutoNotch when written on an accelerator);
     it is read with an unpickler that maps them to the port's classes or
     to NumPy, so neither jax nor leansdr_tpu is imported. Carried over:

@@ -1,6 +1,7 @@
 """Viterbi trellis and sync-map tables (the host NumPy parts of
-leansdr_tpu/fec/viterbi.py, copied; the decoder runs on the device in
-fec/viterbi_device.py).
+leansdr_tpu/fec/viterbi.py, copied) and the single-carrier decoder
+ViterbiSyncDevice, whose ACS runs on the fleet's device kernels
+(fec/viterbi_device.py, fec/viterbi_banked.py).
 
 Mirrors trellis/viterbi_dec (reference viterbi.h:43-293) and viterbi_sync
 (reference dvb.h:1173-1416): per code rate, a 64-state trellis whose coded
@@ -123,80 +124,38 @@ def make_sync_maps(cstln, rate: str):
     return maps, nconj, nrotations, nshifts
 
 
-class ViterbiBank:
-    """A bank of decoder replicas sharing one trellis (the [nsyncs]
-    replicas of viterbi_sync), states vectorized in the last axis: the
-    host NumPy ACS of `ViterbiSync` (leansdr_tpu/fec/viterbi.py:94-157)."""
-
-    def __init__(self, trellis: Trellis, n: int):
-        self.t = trellis
-        self.n = n
-        self.cost = np.zeros((n, NSTATES), np.int64)
-        self.path = np.zeros((n, NSTATES), np.uint64)
-        nbits, depth = PATH_SPEC[trellis.rate]
-        self.nbits, self.depth = nbits, depth
-
-    def update(self, idx: np.ndarray, cs: np.ndarray, cost: np.ndarray):
-        """Partial-metric ACS (viterbi.h:202-260) for replicas `idx`.
-
-        cs, cost: per-replica coded symbol and (negative) metric.
-        Returns (us_out [k], quality [k]).
-        """
-        t = self.t
-        prev_cost = self.cost[idx]                     # [k, 64]
-        prev_path = self.path[idx]
-        # Candidate metrics in the reference's scan order: provided branch
-        # first, then all branches (without metric) cs-ascending; '<='
-        # means the LAST minimum wins.
-        m_other = prev_cost[:, t.in_pred]              # [k, 64, NUS]
-        prov_pred = t.pred[np.arange(NSTATES)[None, :], cs[:, None]]
-        prov_valid = prov_pred >= 0
-        m_prov = np.where(prov_valid,
-                          np.take_along_axis(prev_cost, np.maximum(
-                              prov_pred, 0), axis=1) + cost[:, None],
-                          np.int64(1) << 60)
-        cand = np.concatenate([m_prov[:, :, None], m_other], axis=2)
-        rev = cand[:, :, ::-1]
-        j = rev.shape[2] - 1 - np.argmin(rev, axis=2)  # [k,64]
-        best_m = np.take_along_axis(cand, j[:, :, None], axis=2)[:, :, 0]
-
-        prov_us = t.us[np.arange(NSTATES)[None, :], cs[:, None]]
-        all_pred = np.concatenate(
-            [np.maximum(prov_pred, 0)[:, :, None],
-             np.broadcast_to(t.in_pred[None], m_other.shape)], axis=2)
-        all_us = np.concatenate(
-            [prov_us[:, :, None],
-             np.broadcast_to(t.in_us[None], m_other.shape)], axis=2)
-        bpred = np.take_along_axis(all_pred, j[:, :, None], axis=2)[:, :, 0]
-        bus = np.take_along_axis(all_us, j[:, :, None], axis=2)[:, :, 0]
-
-        new_path = (np.take_along_axis(prev_path, bpred, axis=1)
-                    << np.uint64(self.nbits)) | bus.astype(np.uint64)
-
-        # Best / second-best states ('<' scan ascending, viterbi.h:239-244)
-        best_state = np.argmin(best_m, axis=1)
-        best_tpm = np.min(best_m, axis=1)
-        tmp = best_m.copy()
-        tmp[np.arange(len(idx)), best_state] = np.int64(1) << 60
-        best2_tpm = np.min(tmp, axis=1)
-
-        self.cost[idx] = best_m - best_tpm[:, None]
-        self.path[idx] = new_path
-
-        out = (new_path[np.arange(len(idx)), best_state]
-               >> np.uint64((self.depth - 1) * self.nbits)) \
-            & np.uint64((1 << self.nbits) - 1)
-        return out.astype(np.int64), (best2_tpm - best_tpm)
-
-
-class ViterbiSync:
+class ViterbiSyncDevice:
     """viterbi_sync (dvb.h:1173-1416): all-rate soft-decision Viterbi with
     periodic sync election, consuming (symbol, cost) softsymbol streams,
-    on the host bank (leansdr_tpu/fec/viterbi.py:194-291)."""
+    with the ACS on the device and all replicas always on
+    (leansdr_tpu/fec/viterbi.py:375-421): each 128-block chunk is ONE
+    launch of the fleet's ACS kernels over the nsyncs replica lanes,
+    where the JAX package runs a plain XLA scan (`_viterbi_chunk_device`):
+
+      rate 1/2: `viterbi_acs` (csrc/acs.cu), planes (metric, path) [64, S]
+        in natural state order, path the low 32 bits of JAX's
+        (path_hi, path_lo), which are all that reach the decision at
+        traceback depth 32;
+      4/6, 3/4, 5/6, 7/8: `viterbi_acs_banked` (csrc/acs_banked.cu),
+        planes (metric, path_hi, path_lo) [64, S] in stored-row order.
+
+    Both compute `_viterbi_chunk_device`'s function: per-step metric
+    normalisation, the reference's tie rules, us at traceback depth and
+    the best2-best discriminant. The trellis state is created on the
+    first chunk (`_dev_state`), as in the JAX class.
+    """
 
     CHUNK = 128
 
-    def __init__(self, cstln, rate: str, fastlock: bool = False):
+    def __init__(self, cstln, rate: str, fastlock: bool = False,
+                 device=None):
+        from .. import device as _dev
+        from .viterbi_banked import FLEET_RATES
+        if rate != "1/2" and rate not in FLEET_RATES:
+            raise NotImplementedError(
+                f"trellis rate {rate}: the device Viterbi runs 1/2 and "
+                f"{', '.join(FLEET_RATES)} (ROADMAP queue 1 item 20)")
+        self.device = _dev.resolve_device(device)
         self.rate = rate
         self.trellis = make_trellis(rate)
         self.bits_in = self.trellis.bits_in
@@ -211,12 +170,16 @@ class ViterbiSync:
         self.sync_map = np.array(
             [(s // nrot) % nconj * nrot + (s % nrot)
              for s in range(self.nsyncs)])
-        self.bank = ViterbiBank(self.trellis, self.nsyncs)
         self.current = 0
         self.resync_phase = 0
         self.resync_period = 1 if fastlock else 32
         self.sym_backlog = np.empty(0, np.uint8)
         self.cost_backlog = np.empty(0, np.int16)
+
+    @property
+    def plane_keys(self) -> tuple:
+        return (("metric", "path") if self.bits_in == 1
+                else ("metric", "path_hi", "path_lo"))
 
     def _block_inputs(self, syms, costs, nblocks):
         """Per sync: coded symbols + costs for `nblocks` FEC blocks.
@@ -264,59 +227,6 @@ class ViterbiSync:
         if self.resync_phase >= self.resync_period:
             self.resync_phase = 0
         return np.packbits(out_bits.reshape(-1))
-
-    def _chunk(self) -> np.ndarray:
-        B = self.CHUNK
-        discr_delay = 64 // self.bits_in
-        costs = self.cost_backlog.astype(np.int64)
-        cs, cost = self._block_inputs(self.sym_backlog, costs, B)
-        run_all = self.resync_phase == 0
-        active = (np.arange(self.nsyncs) if run_all
-                  else np.array([self.current]))
-        totaldiscr = np.zeros(self.nsyncs, np.int64)
-        us_cur = np.zeros(B, np.int64)
-        for b in range(B):
-            us, q = self.bank.update(active, cs[active, b], cost[active, b])
-            if b >= discr_delay:
-                totaldiscr[active] += q
-            us_cur[b] = us[list(active).index(self.current)]
-        return self._advance(us_cur, totaldiscr, run_all)
-
-
-class ViterbiSyncDevice(ViterbiSync):
-    """ViterbiSync with the ACS on the device and all replicas always on
-    (leansdr_tpu/fec/viterbi.py:375-421): each 128-block chunk is ONE
-    launch of the fleet's ACS kernels over the nsyncs replica lanes,
-    where the JAX package runs a plain XLA scan (`_viterbi_chunk_device`):
-
-      rate 1/2: `viterbi_acs` (csrc/acs.cu), planes (metric, path) [64, S]
-        in natural state order, path the low 32 bits of JAX's
-        (path_hi, path_lo), which are all that reach the decision at
-        traceback depth 32;
-      4/6, 3/4, 5/6, 7/8: `viterbi_acs_banked` (csrc/acs_banked.cu),
-        planes (metric, path_hi, path_lo) [64, S] in stored-row order.
-
-    Both compute `_viterbi_chunk_device`'s function: per-step metric
-    normalisation, the reference's tie rules, us at traceback depth and
-    the best2-best discriminant. The trellis state is created on the
-    first chunk (`_dev_state`), as in the JAX class.
-    """
-
-    def __init__(self, cstln, rate: str, fastlock: bool = False,
-                 device=None):
-        from .. import device as _dev
-        from .viterbi_banked import FLEET_RATES
-        super().__init__(cstln, rate, fastlock)
-        if rate != "1/2" and rate not in FLEET_RATES:
-            raise NotImplementedError(
-                f"trellis rate {rate}: the device Viterbi runs 1/2 and "
-                f"{', '.join(FLEET_RATES)} (ROADMAP queue 1 item 20)")
-        self.device = _dev.resolve_device(device)
-
-    @property
-    def plane_keys(self) -> tuple:
-        return (("metric", "path") if self.bits_in == 1
-                else ("metric", "path_hi", "path_lo"))
 
     def _chunk(self) -> np.ndarray:
         import torch

@@ -127,12 +127,16 @@ def _state_pairs(j, t, rate):
                (p.numpy() for p in t.deconv._dev_state))
 
 
-@pytest.mark.parametrize("rate,npkt", [("1/2", 14), ("3/4", 30)])
-def test_viterbi_sync_device_matches_jax(rate, npkt, monkeypatch):
-    """ViterbiSyncDevice on the plain ACS versions (rate 1/2: acs, 3/4:
-    the banked ACS over 8 replicas) against JAX's on its XLA scan: every
-    chunk's us and q for all replicas, the elected sync, the decoded
-    bytes, the trellis state after each piece and, at 3/4, the TS."""
+@pytest.mark.parametrize("rate,npkt,fastlock", [("1/2", 14, True),
+                                               ("3/4", 30, True),
+                                               ("7/8", 120, False)])
+def test_viterbi_sync_device_matches_jax(rate, npkt, fastlock, monkeypatch):
+    """ViterbiSyncDevice on the plain ACS versions (rate 1/2: acs, 3/4 and
+    7/8: the banked ACS over 8 and 16 replicas) against JAX's on its XLA
+    scan: every chunk's us and q for all replicas, the elected sync, the
+    decoded bytes, the trellis state after each piece and, at the
+    punctured rates, the TS. Without fastlock (7/8) elections run on
+    every 32nd chunk only, as the reference's resync_period has it."""
     cap_j, cap_t = [], []
     jfun = jvit._viterbi_chunk_device
 
@@ -153,8 +157,9 @@ def test_viterbi_sync_device_matches_jax(rate, npkt, monkeypatch):
     monkeypatch.setattr(jvit, "_viterbi_chunk_device", jcap)
     monkeypatch.setattr(mod, tname, tcap)
     sym, cost = _tx_symbols(rate, npkt, seed=4, rot=1)
-    j, t = _receivers(rate, fastlock=True, viterbi=True)
-    assert t.deconv.nsyncs == j.deconv.nsyncs == (4 if rate == "1/2" else 8)
+    j, t = _receivers(rate, fastlock=fastlock, viterbi=True)
+    assert t.deconv.nsyncs == j.deconv.nsyncs == {"1/2": 4, "3/4": 8,
+                                                  "7/8": 16}[rate]
     out_j, out_t = [], []
     for a in range(0, len(sym), 5003):
         s, c = sym[a:a + 5003], cost[a:a + 5003]
@@ -172,26 +177,5 @@ def test_viterbi_sync_device_matches_jax(rate, npkt, monkeypatch):
     assert t.deconv.current != 0          # the rotation was elected away
     for k, (a, b) in enumerate(zip(out_j, out_t)):
         np.testing.assert_array_equal(a, b, err_msg=f"TS, piece {k}")
-    if rate == "3/4":
+    if rate != "1/2":
         assert sum(len(o) for o in out_t) > 5
-
-
-def test_host_viterbi_sync_matches_jax():
-    """The host-bank ViterbiSync (the reference's time-multiplexed
-    replicas: all syncs on every 32nd chunk without fastlock, the elected
-    one in between) against JAX's at 3/4: bytes, elections, bank state."""
-    from leansdr_tpu.dsp.cstln import Predef as JPredef
-    from leansdr_tpu_torch.dsp.cstln import Predef as TPredef
-    from leansdr_tpu_torch.dsp.cstln import make_dvbs2_constellation as tmk
-    from leansdr_tpu_torch.fec import viterbi as tvit
-    sym, cost = _tx_symbols("3/4", 20, seed=6, rot=1)
-    j = jvit.ViterbiSync(make_dvbs2_constellation(JPredef.QPSK, "3/4"),
-                         "3/4", fastlock=False)
-    t = tvit.ViterbiSync(tmk(TPredef.QPSK, "3/4"), "3/4", fastlock=False)
-    for a in range(0, len(sym), 4001):
-        s, c = sym[a:a + 4001], cost[a:a + 4001]
-        np.testing.assert_array_equal(j.process(s, c), t.process(s, c))
-        assert j.current == t.current and j.resync_phase == t.resync_phase
-    np.testing.assert_array_equal(j.bank.cost, t.bank.cost)
-    np.testing.assert_array_equal(j.bank.path, t.bank.path)
-    assert t.current != 0
