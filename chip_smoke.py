@@ -8,11 +8,12 @@ each kernel against its plain PyTorch version on the card, then drives
 the fleet receiver's main path at full width — 64 QPSK carriers at
 2 Msym/s sampled at 4 Msps, chunk_samples = 2**18, Viterbi on — at code
 rate 1/2 (the rate-1/2 ACS kernel) and at the punctured rates 3/4 and 7/8
-(the banked ACS kernel), and the single-carrier receiver of leandvb on
-four streams (the CLI defaults, --resample on the complex FIR kernel,
---hq at 1/2 and 3/4), from DVB-S stimulus the port modulates itself,
-and checks that every carrier locks and decodes the TS packets that were
-sent.
+(the banked ACS kernel), each sequentially and with the time-segmented
+demod (segments=8), and the single-carrier receiver of leandvb on five
+streams (the CLI defaults, the same with --segments 8, --resample on the
+complex FIR kernel, --hq at 1/2 and 3/4), from DVB-S stimulus the port
+modulates itself, and checks that every carrier locks and decodes the
+TS packets that were sent.
 
 Phases (any failure exits non-zero):
   1. card name and power limit, versions, kernel build time;
@@ -31,27 +32,38 @@ Phases (any failure exits non-zero):
      T=1024 at each rate's fleet ACQUIRE lanes, at TRACK's 64 and at
      N=200; T=128 at the single carrier's nsyncs lanes, 8 to 16);
      cfir == cfir_ref and fir == fir_ref bit for bit (nt 21, 79, 2048;
-     lengths off the tile; from a zero head and mid-stream);
+     lengths off the tile; from a zero head and mid-stream); fft4096
+     within max|dy| / max|y| < 2e-5 of fft4096_ref and of torch.fft.fft
+     at B=8 and 1024 (the sums run in other orders); torch.argmax takes
+     the first maximum on the card, as the segmented demod needs;
   4. the main path through MultiDvbsReceiver.process, with the kernels'
      launch counters zeroed just before and read just after, and
      per-stage times from CUDA events; at rate 1/2 then the same stream
      through the pipelined submit()/flush() path (device->host copy and
-     byte backend on threads), held to the same TS gate; then 64
-     carriers at 3/4 and at 7/8, each run with its own zeroed counters;
-     then the single-carrier receiver (leandvb's DvbsReceiver, in its
-     2^17-sample reads) on four streams, each with its own zeroed
+     byte backend on threads), held to the same TS gate; then with
+     segments=8 (seg_holdoff=2, 8 chunks: 5 timed segmented chunks; the
+     demod's pass 1, pass 2 and the engine's own relabel/splice ops
+     timed apart), the two demod launches of its last chunk against
+     demod_ref bit for bit on their first 1024 samples, and the rate-1/2
+     chain at segments 1, 2, 4, 8 and 16; then 64 carriers at 3/4 and at
+     7/8, sequential and segments=8, each run with its own zeroed
+     counters; then the single-carrier receiver (leandvb's DvbsReceiver,
+     in its 2^17-sample reads) on five streams, each with its own zeroed
      counters: rtl_sdr u8 at 2.4 Msps with a birdie (the CLI defaults:
-     notch, hard decisions), a 10 Msps s16 333 ksym/s carrier through
-     --resample (cfir), and --hq at 1/2 and 3/4 on 4 Msps f32 (the ACS
-     kernels); each must lock and decode >= 90% of the packets sent
-     after lock; per-stage times, input Msamples/s and x real time;
-     after each stream, the inputs of its first launch of every kernel
-     and of one launch mid-stream (a live state) go through the kernel
-     and its plain version again, equal bit for bit (the demod on the
-     first 1024 samples of the read: its plain version costs ~3 ms per
-     sample on the card);
-  5. kernel times at the main path's shapes, bounds, one `kernels` line
-     (cfir/fir beside one conv1d computing the same FIR, TF32 off);
+     notch, hard decisions), the same bytes with --segments 8, a 10 Msps
+     s16 333 ksym/s carrier through --resample (cfir), and --hq at 1/2
+     and 3/4 on 4 Msps f32 (the ACS kernels); each must lock and decode
+     >= 90% of the packets sent after lock; per-stage times, input
+     Msamples/s and x real time; after each stream, the inputs of its
+     first launch of every kernel and of one launch mid-stream (a live
+     state; with --segments both passes of one read) go through the
+     kernel and its plain version again, equal bit for bit (the demod on
+     the first 1024 samples of the read: its plain version costs ~3 ms
+     per sample on the card);
+  5. kernel times at the main path's shapes (the demod also at the
+     segmented launches' shapes), bounds, one `kernels` line (cfir/fir
+     beside one conv1d computing the same FIR, TF32 off; fft4096 beside
+     one torch.fft.fft);
   6. last line: {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when no CUDA device is present.
@@ -69,6 +81,12 @@ SEED = 20261016
 NCHAN = 64
 CHUNK_SAMPLES = 1 << 18
 NCHUNKS = 6
+# The segmented fleet (slice 2): SEG_HOLDOFF sequential chunks, one that
+# builds the segment states, then SEG_CHUNKS - SEG_HOLDOFF - 1 timed.
+SEG_CHUNKS = 8
+SEG_HOLDOFF = 2
+SEG_SWEEP = (1, 2, 4, 8, 16)     # rate-1/2 chain at these segment counts
+FFT_BAR = 2e-5                   # max|dy| / max|y|: tests/test_fft_fir.py
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 VECTOR_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 # Integer work (the ACS kernels) is priced at the INT32 issue rate: a
@@ -326,6 +344,51 @@ def check_fir(dev, gen):
     return err, plain["cfir", 79], plain["fir", 79]
 
 
+def check_fft(dev, gen):
+    """fft4096 against fft4096_ref (TF32 off) and torch.fft.fft at B=8 and
+    B=1024, unit-variance planes: max|dy| / max|y| < FFT_BAR (the sums
+    run in other orders, so not bit for bit). Returns (max |dy| against
+    the plain version, the largest relative error against each)."""
+    from leansdr_tpu_torch.dsp import fft_kernel as ffk
+    err, rel_plain, rel_lib = 0.0, 0.0, 0.0
+    for B in (8, 1024):
+        xr, xi = (torch.randn((B, ffk.N), device=dev, generator=gen)
+                  for _ in range(2))
+        y = torch.complex(*ffk.fft4096(xr, xi))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = torch.complex(*ffk.fft4096_ref(xr, xi))
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        lib = torch.fft.fft(torch.complex(xr, xi))
+        e_plain = float((y - r).abs().max() / r.abs().max())
+        e_lib = float((y - lib).abs().max() / lib.abs().max())
+        print(f"fft4096 B={B}: max|dy|/max|y| {e_plain:.3g} against "
+              f"fft4096_ref, {e_lib:.3g} against torch.fft.fft, plain "
+              f"{plain_ms:.1f} ms")
+        if not (e_plain < FFT_BAR and e_lib < FFT_BAR):
+            fail(f"fft4096 B={B}: {e_plain:.3g} / {e_lib:.3g} >= {FFT_BAR}")
+        err = max(err, float((y - r).abs().max()))
+        rel_plain, rel_lib = max(rel_plain, e_plain), max(rel_lib, e_lib)
+    return err, rel_plain, rel_lib
+
+
+def check_first_argmax(dev, gen):
+    """The segmented demod's rotation estimate and handover cut take the
+    FIRST maximum of torch.argmax (the first agreeing row, the smallest
+    rotation on ties), as jnp.argmax does: held on the card on the
+    engine's shapes, with many ties."""
+    for shape, hi in (((127, 8 * NCHAN), 2), ((4, 8 * NCHAN), 3)):
+        a = torch.randint(0, hi, shape, device=dev, dtype=torch.int32,
+                          generator=gen)
+        got = torch.argmax(a, dim=0).cpu().numpy()
+        want = np.argmax(a.cpu().numpy(), axis=0)
+        if not (got == want).all():
+            fail(f"torch.argmax on the card does not take the first "
+                 f"maximum ({int((got != want).sum())} of {shape[1]})")
+    print("argmax on the card takes the first maximum (as jnp.argmax)")
+
+
 # ---------------------------------------------------------------- phase 4
 
 def fleet_stimulus(dev, gen, nsamp, rate="1/2"):
@@ -380,36 +443,48 @@ def check_packets(c, pkts):
     return len(pkts) - first, sum(ok[first:]), span
 
 
-def main_path(dev, gen, code_rate="1/2"):
-    """The fleet at `code_rate`: NCHUNKS chunks through process() with
-    every kernel's launch count zeroed just before and read just after;
-    at rate 1/2 also the pipelined submit() path."""
-    from leansdr_tpu_torch.dsp import fir_kernel as fk
-    from leansdr_tpu_torch.dsp import mf_prefilter, receiver_kernel as rk
-    from leansdr_tpu_torch.fec import viterbi_banked as vb
-    from leansdr_tpu_torch.fec import viterbi_device as vd
+def fleet_rx(dev, code_rate, **seg):
+    """The 64-carrier fleet receiver of the main path at `code_rate`
+    (seg: MultiDvbsReceiver's segments, seg_warmup, seg_holdoff)."""
     from leansdr_tpu_torch.pipelines import multi_rx
     from leansdr_tpu_torch.pipelines.dvbs_rx import RxConfig
-
     cfg = RxConfig(Fs=4e6, Fm=2e6, rate=code_rate, fastlock=True,
                    float_scale=75, exact_lut=False, viterbi=True,
                    sampler="rrc")
-    rx = multi_rx.MultiDvbsReceiver(cfg, NCHAN, chunk_samples=CHUNK_SAMPLES,
-                                    device=dev)
-    ra = rx.readahead
+    return multi_rx.MultiDvbsReceiver(cfg, NCHAN, chunk_samples=CHUNK_SAMPLES,
+                                      device=dev, **seg)
+
+
+def fleet_frames(dev, gen, code_rate):
+    """SEG_CHUNKS chunks of fleet_stimulus at `code_rate`, scaled by the
+    float_scale (the device path's contract); the S=1 runs read the first
+    NCHUNKS of them."""
+    ra = fleet_rx(dev, code_rate).readahead
     t0 = time.perf_counter()
-    frames = fleet_stimulus(dev, gen, NCHUNKS * CHUNK_SAMPLES + ra,
-                            code_rate)
-    frames = frames * cfg.float_scale       # the device path's contract
+    frames = fleet_stimulus(dev, gen, SEG_CHUNKS * CHUNK_SAMPLES + ra,
+                            code_rate) * 75.0
     torch.cuda.synchronize()
     print(f"[rate {code_rate}] stimulus: {NCHAN} x {frames.shape[1]} "
           f"samples in {time.perf_counter() - t0:.1f} s")
+    return frames
 
-    # Per-stage CUDA events (host clocks for the host stages) around the
-    # main path's own calls, tagged with the chunk they belong to.
+
+def fleet_run(rx, frames, nchunks, tag, steady_from, capture=None):
+    """`nchunks` chunks through rx.process() with every kernel's launch
+    count zeroed just before and read just after; per-stage CUDA events
+    (host clocks for the host stages); the lock and TS gate. Steady state
+    is chunks steady_from.. . capture(k) -> True records the inputs of
+    chunk k's demod launches. Returns dict(launches, stages, rate in
+    Msamples/s, chunk_ms, captured)."""
+    from leansdr_tpu_torch.dsp import mf_prefilter, receiver_kernel as rk
+    from leansdr_tpu_torch.fec import viterbi_device as vd
+    from leansdr_tpu_torch.pipelines import multi_rx
+
     chunk = [0]
     marks = []                                   # (chunk, stage, s, e)
     host = []                                    # (chunk, stage, ms)
+    captured = []
+    S = rx.segments
 
     def timed(name, fn):
         def wrapper(*a, **kw):
@@ -418,7 +493,8 @@ def main_path(dev, gen, code_rate="1/2"):
             s.record()
             out = fn(*a, **kw)
             e.record()
-            marks.append((chunk[0], name, s, e))
+            marks.append((chunk[0], name(a) if callable(name) else name,
+                          s, e))
             return out
         return wrapper
 
@@ -432,12 +508,29 @@ def main_path(dev, gen, code_rate="1/2"):
             return out
         return wrapper
 
-    counted = {"demod": rk.demod, "acs": vd.viterbi_acs,
-               "acs_banked": vb.viterbi_acs_banked, "cfir": fk.cfir,
-               "fir": fk.fir}
+    calls = {}                                   # chunk -> demod calls
+
+    def demod_stage(a):
+        k = chunk[0]
+        calls[k] = calls.get(k, 0) + 1
+        if S == 1 or k < rx.seg_holdoff:
+            return "demod"
+        return "pass1" if calls[k] == 1 else "pass2"
+
+    demod = rk.demod
+
+    def recorded(*a, **kw):
+        if capture is not None and capture(chunk[0]):
+            captured.append([v.clone() if torch.is_tensor(v) else v
+                             for v in a])
+        return demod(*a, **kw)
+
+    counted = kernel_wrappers()
     patches = [(mf_prefilter, "mf_prefilter", timed("mf", mf_prefilter.
                                                    mf_prefilter)),
-               (rk, "demod", timed("demod", rk.demod)),
+               (rk, "demod", timed(demod_stage, recorded)),
+               (multi_rx, "_demod_segmented", timed(
+                   "segmented", multi_rx._demod_segmented)),
                (multi_rx, "deconv_append", timed("append",
                                                  multi_rx.deconv_append)),
                (vd, "viterbi_decode", timed("decode", vd.viterbi_decode)),
@@ -451,12 +544,13 @@ def main_path(dev, gen, code_rate="1/2"):
     for obj, name, fn in patches:
         setattr(obj, name, fn)
 
+    ra = rx.readahead
     pkts = [[] for _ in range(NCHAN)]
     wall = []
     for fn in counted.values():
         fn.launches = 0
     try:
-        for k in range(NCHUNKS):
+        for k in range(nchunks):
             chunk[0] = k
             x = frames[:, k * CHUNK_SAMPLES:(k + 1) * CHUNK_SAMPLES + ra]
             torch.cuda.synchronize()
@@ -471,15 +565,14 @@ def main_path(dev, gen, code_rate="1/2"):
             setattr(obj, name, fn)
     torch.cuda.synchronize()
 
-    acs_key = "acs" if code_rate == "1/2" else "acs_banked"
-    print(f"[rate {code_rate}] main path: {NCHUNKS} chunks of {NCHAN} x "
-          f"{CHUNK_SAMPLES}; launches {launches}; TRACK={rx.deconv.track}")
-    if launches["demod"] < NCHUNKS or launches[acs_key] < 1:
-        fail(f"main path at rate {code_rate} did not run through the "
-             f"kernels: {launches}")
+    acs_key = "acs" if rx.rate == "1/2" else "acs_banked"
+    print(f"[{tag}] {nchunks} chunks of {NCHAN} x {CHUNK_SAMPLES}; launches "
+          f"{launches}; TRACK={rx.deconv.track}")
+    if launches["demod"] < nchunks or launches[acs_key] < 1:
+        fail(f"{tag} did not run through the kernels: {launches}")
     locks = rx.locks
     if not all(locks):
-        fail(f"rate {code_rate}: channels not locked: "
+        fail(f"{tag}: channels not locked: "
              f"{[c for c, l in enumerate(locks) if not l]}")
     worst = 1.0
     total_good = 0
@@ -490,37 +583,52 @@ def main_path(dev, gen, code_rate="1/2"):
         worst = min(worst, frac_ok, frac_span)
         total_good += n_good
         if n_good < 100 or frac_ok < 0.9 or frac_span < 0.9:
-            fail(f"rate {code_rate} channel {c}: {n_good} sent packets "
-                 f"decoded of {n_after} after lock, span {span}")
-    print(f"[rate {code_rate}] TS: {total_good} sent packets decoded over "
-          f"{NCHAN} channels; worst channel fraction {worst:.4f}")
+            fail(f"{tag} channel {c}: {n_good} sent packets decoded of "
+                 f"{n_after} after lock, span {span}")
+    print(f"[{tag}] TS: {total_good} sent packets decoded over {NCHAN} "
+          f"channels; worst channel fraction {worst:.4f}")
 
-    # Steady state: chunks 1.. (chunk 0 includes first-call costs).
-    steady = slice(1, NCHUNKS)
-    nsteady = NCHUNKS - 1
-    stages = dict.fromkeys(("mf", "demod", "append", "decode", "fetch",
-                            "backend"), 0.0)
+    nsteady = nchunks - steady_from
+    stages = dict.fromkeys(
+        ("mf", "demod", "append", "decode", "fetch", "backend") if S == 1
+        else ("mf", "pass1", "pass2", "splice", "segmented", "append",
+              "decode", "fetch", "backend"), 0.0)
     for k, name, s, e in marks:
-        if k >= 1:
+        if k >= steady_from:
             stages["fetch" if name == "pack" else name] += \
                 s.elapsed_time(e) / nsteady
     for k, name, ms in host:
-        if k >= 1:
+        if k >= steady_from:
             stages[name] += ms / nsteady
-    chunk_s = sum(wall[steady]) / len(wall[steady])
+    if S > 1:
+        # The segmented demod's own ops (window stacking, relabel,
+        # handover cuts, derotation, splice): its span less its matched
+        # filters and demod passes.
+        stages["splice"] = stages["segmented"] - (
+            stages["mf"] + stages["pass1"] + stages["pass2"])
+    chunk_s = sum(wall[steady_from:]) / nsteady
     rate = NCHAN * CHUNK_SAMPLES / chunk_s / 1e6
-    print(f"[rate {code_rate}] per-stage ms per chunk (steady state, chunks "
-          f"1..{NCHUNKS - 1}): "
+    print(f"[{tag}] per-stage ms per chunk (steady state, chunks "
+          f"{steady_from}..{nchunks - 1}): "
           + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-    print(f"[rate {code_rate}] chain: {chunk_s * 1e3:.1f} ms per chunk, "
-          f"{rate:.1f} Msamples/s ({NCHAN} x 2 Msym/s carriers need "
+    print(f"[{tag}] chain: {chunk_s * 1e3:.1f} ms per chunk, {rate:.1f} "
+          f"Msamples/s ({NCHAN} x 2 Msym/s carriers need "
           f"{NCHAN * 4.0:.0f})")
+    return dict(launches=launches, stages=stages, rate=rate,
+                chunk_ms=chunk_s * 1e3, captured=captured)
+
+
+def main_path(dev, gen, frames, code_rate="1/2"):
+    """The fleet at `code_rate`, segments=1: NCHUNKS chunks through
+    process(); at rate 1/2 also the pipelined submit() path."""
+    rx = fleet_rx(dev, code_rate)
+    run = fleet_run(rx, frames, NCHUNKS, f"rate {code_rate}", 1)
     if code_rate != "1/2":
-        return rx, frames, launches, stages, rate, None
+        return rx, run, None
 
     # The same stream through the pipelined path.
-    rp = multi_rx.MultiDvbsReceiver(cfg, NCHAN, chunk_samples=CHUNK_SAMPLES,
-                                    device=dev)
+    ra = rx.readahead
+    rp = fleet_rx(dev, code_rate)
     done = []
     try:
         for k in range(NCHUNKS):
@@ -552,7 +660,56 @@ def main_path(dev, gen, code_rate="1/2"):
     piped_rate = NCHAN * CHUNK_SAMPLES / piped_s / 1e6
     print(f"pipelined submit(): {piped_s * 1e3:.1f} ms per chunk, "
           f"{piped_rate:.1f} Msamples/s; {piped_good} sent packets decoded")
-    return rx, frames, launches, stages, rate, piped_rate
+    return rx, run, piped_rate
+
+
+def segmented_path(dev, frames, code_rate, S, capture=False):
+    """The fleet with segments=S (seg_holdoff=SEG_HOLDOFF): SEG_CHUNKS
+    chunks, the first SEG_HOLDOFF sequential, then segmented; steady
+    state from the second segmented chunk on (the first builds the
+    segment states). With capture, the inputs of both demod launches of
+    the last chunk are kept."""
+    rx = fleet_rx(dev, code_rate, segments=S, seg_holdoff=SEG_HOLDOFF)
+    return fleet_run(rx, frames, SEG_CHUNKS, f"rate {code_rate} S={S}",
+                     SEG_HOLDOFF + 1,
+                     (lambda k: k == SEG_CHUNKS - 1) if capture else None)
+
+
+def seg_plain_checks(captured, params, sym_consts):
+    """The captured demod launches of a segmented chunk (pass 1 and pass
+    2) through the kernel and demod_ref on their first SC_DEMOD_CHECK
+    samples: outputs equal bit for bit. Returns [(lanes, plain ms)]."""
+    from leansdr_tpu_torch.dsp import receiver_kernel as rk
+    done = []
+    for a in captured:
+        planes = a[2]
+        x = a[3][:, :SC_DEMOD_CHECK + 1].contiguous()
+        k = rk.demod(params, sym_consts, planes, x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = rk.demod_ref(params, sym_consts, planes, x)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        for i, (u, w) in enumerate(zip(k, r)):
+            if not torch.equal(u, w):
+                fail(f"segmented demod launch at {x.shape[0]} lanes: output "
+                     f"{i} differs from demod_ref in {int((u != w).sum())} "
+                     "entries")
+        done.append((x.shape[0], plain_ms))
+    return done
+
+
+def kernel_wrappers() -> dict:
+    """Every kernel wrapper of the port by its name in the kernels line
+    (their `launches` counters)."""
+    from leansdr_tpu_torch.dsp import fft_kernel as ffk
+    from leansdr_tpu_torch.dsp import fir_kernel as fk
+    from leansdr_tpu_torch.dsp import receiver_kernel as rk
+    from leansdr_tpu_torch.fec import viterbi_banked as vb
+    from leansdr_tpu_torch.fec import viterbi_device as vd
+    return {"demod": rk.demod, "acs": vd.viterbi_acs,
+            "acs_banked": vb.viterbi_acs_banked, "cfir": fk.cfir,
+            "fir": fk.fir, "fft4096": ffk.fft4096}
 
 
 # The single-carrier paths (leandvb's receiver): name, RxConfig fields as
@@ -572,6 +729,10 @@ SC_PATHS = (
     # (anf=1, linear sampler, hard decisions); 2^23 samples.
     ("canonical", dict(Fs=2.4e6, Fm=2e6, rate="1/2"), "u8", 2 ** 23 / 2.4e6,
      (6, 10, True), 20e3, 20.0, 150e3),
+    # The same stream through `leandvb --segments 8` (the time-segmented
+    # demod over 8 lanes; the first seg_holdoff = 8 reads sequential).
+    ("canonical S=8", dict(Fs=2.4e6, Fm=2e6, rate="1/2", segments=8), "u8",
+     2 ** 23 / 2.4e6, (6, 10, True), 20e3, 20.0, 150e3),
     # PlutoSDR-style s16 at 10 Msps of a 333 ksym/s QO-100 DATV carrier:
     # --s16 -f 10e6 --sr 333e3 --resample (decim 7, 79 taps).
     ("resample", dict(Fs=10e6, Fm=333e3, rate="1/2", resample=True), "s16",
@@ -672,25 +833,29 @@ def sc_plain_checks(name, inputs):
     return done
 
 
-def single_carrier(dev, rng, name, fields, fmt, seconds, updown, f_off,
-                   esn0_db, birdie):
+def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
+                   f_off, esn0_db, birdie):
     """One single-carrier path: the wire stream through DvbsReceiver in
     leandvb's 2^17-sample reads (read_iq -> process), with every kernel's
     launch count zeroed just before and read just after, device stages
     timed with CUDA events and host stages with the host clock; then the
     inputs of chosen launches against the plain versions
-    (sc_plain_checks)."""
+    (sc_plain_checks). Paths with the same stimulus parameters read the
+    same bytes (`stimuli` keeps them)."""
     from leansdr_tpu_torch.dsp import fir_kernel as fk
     from leansdr_tpu_torch.dsp import mf_prefilter, receiver_kernel as rk
     from leansdr_tpu_torch.fec import viterbi_banked as vb
     from leansdr_tpu_torch.fec import viterbi_device as vd
+    from leansdr_tpu_torch.pipelines import multi_rx
     from leansdr_tpu_torch.pipelines.dvbs_rx import DvbsReceiver, RxConfig
     from leansdr_tpu_torch.util.iofmt import read_iq
 
     cfg = RxConfig(anf=1, exact_lut=False, **fields)   # leandvb's defaults
     t0 = time.perf_counter()
-    raw, npkt = sc_stimulus(cfg.rate, cfg.Fs, seconds, updown, f_off,
-                            esn0_db, birdie, fmt, rng)
+    key = (cfg.rate, cfg.Fs, seconds, updown, f_off, esn0_db, birdie, fmt)
+    if key not in stimuli:
+        stimuli[key] = sc_stimulus(*key, rng)
+    raw, npkt = stimuli[key]
     print(f"[{name}] stimulus: {len(raw)} bytes {fmt} at {cfg.Fs / 1e6:g} "
           f"Msps ({seconds:.3f} s of signal) in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -720,10 +885,16 @@ def single_carrier(dev, rng, name, fields, fmt, seconds, updown, f_off,
     seen, inputs = {}, {}
 
     def captured(key, fn):
+        # A segmented read launches the demod twice (pass 1, pass 2): the
+        # mid-stream check takes both.
+        live = (SC_LIVE_LAUNCH[key],) + (
+            (SC_LIVE_LAUNCH[key] + 1,) if key == "demod"
+            and cfg.segments > 1 else ())
+
         def wrapper(*a, **kw):
             n = seen.get(key, 0)
             seen[key] = n + 1
-            if n in (0, SC_LIVE_LAUNCH[key]):
+            if n in (0,) + live:
                 inputs.setdefault(key, []).append(
                     (n, [v.clone() if torch.is_tensor(v) else v for v in a],
                      kw))
@@ -732,13 +903,15 @@ def single_carrier(dev, rng, name, fields, fmt, seconds, updown, f_off,
 
     kernels = {"demod": (rk, "demod"), "acs": (vd, "viterbi_acs"),
                "acs_banked": (vb, "viterbi_acs_banked"),
-               "cfir": (fk, "cfir"), "fir": (fk, "fir")}
+               "cfir": (fk, "cfir")}
     # The wrappers (their counters) before the timing patches.
-    counted = {k: getattr(m, a) for k, (m, a) in kernels.items()}
+    counted = kernel_wrappers()
     patches = [(mf_prefilter, "mf_prefilter",
-                timed("mf", mf_prefilter.mf_prefilter))]
+                timed("mf", mf_prefilter.mf_prefilter)),
+               (multi_rx, "_demod_segmented",
+                timed("segmented", multi_rx._demod_segmented))]
     patches += [(m, a, timed(k, captured(k, getattr(m, a))))
-                for k, (m, a) in kernels.items() if k != "fir"]
+                for k, (m, a) in kernels.items()]
     for attr in ("notch", "resampler", "deconv"):
         blk = getattr(rx, attr)
         if blk is not None:
@@ -784,7 +957,8 @@ def single_carrier(dev, rng, name, fields, fmt, seconds, updown, f_off,
     if not rx.lock or n_good < 100 or n_good < 0.9 * max(n_after, span):
         fail(f"{name}: {n_good} sent packets decoded of {n_after} after "
              f"lock, span {span}, lock {rx.lock}")
-    short = [k for k in need if len(inputs.get(k, ())) < 2]
+    short = [k for k in need if len(inputs.get(k, ())) < 2 + (
+        k == "demod" and cfg.segments > 1)]
     if short:
         fail(f"{name}: no mid-stream launch of {short} to hold against the "
              f"plain version ({seen})")
@@ -967,6 +1141,47 @@ def fir_times(dev, gen):
     return out
 
 
+def seg_demod_times(captured, params, sym_consts, clock):
+    """The demod kernel at the segmented fleet's launch shapes (pass 1 and
+    pass 2 of a 64-carrier S=8 chunk, from the captured inputs)."""
+    from leansdr_tpu_torch.dsp import receiver_kernel as rk
+    out = []
+    for a in captured:
+        planes, x = a[2], a[3]
+        C, n1, _ = x.shape
+        n = n1 - 1
+        ms = cuda_time(lambda: rk.demod(params, sym_consts, planes, x),
+                       reps=3)
+        b, by = bound_ms(n1 * C * 8 + n * C * 4 + 2 * rk.NSTATE * C * 4,
+                         110.0 * n * C)
+        chain = n * DEMOD_CHAIN_OPS * DEP_LATENCY_CYCLES / clock * 1e3
+        out.append(dict(shape=f"C={C} nsamp={n}", ms=ms, bound_ms=b,
+                        bound_by=by, chain_bound_ms=chain))
+        print(f"kernel demod     C={C} nsamp={n} (segmented): {ms:.3f} ms, "
+              f"bound {b:.4f} ms ({by}), serial chain bound {chain:.3f} ms")
+    return out
+
+
+def fft_times(dev, gen):
+    """fft4096 at B=1024 beside its plain version and one torch.fft.fft
+    (cuFFT) over the same frames as complex64. Bound: 16 bytes per point
+    (two planes in, two out) over the HBM rate against 5 N log2 N
+    operations per frame at the float rate."""
+    from leansdr_tpu_torch.dsp import fft_kernel as ffk
+    B, N = 1024, ffk.N
+    xr, xi = (torch.randn((B, N), device=dev, generator=gen)
+              for _ in range(2))
+    xc = torch.complex(xr, xi)
+    ms = cuda_time(lambda: ffk.fft4096(xr, xi), reps=50)
+    plain = cuda_time(lambda: ffk.fft4096_ref(xr, xi), reps=10)
+    lib = cuda_time(lambda: torch.fft.fft(xc), reps=50)
+    b, by = bound_ms(16.0 * B * N, 5.0 * N * np.log2(N) * B)
+    print(f"kernel fft4096    B={B}: {ms:.4f} ms, bound {b:.4f} ms ({by}); "
+          f"plain {plain:.4f} ms; torch.fft.fft {lib:.4f} ms")
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                bound_by=by, shape=f"B={B}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1013,23 +1228,58 @@ def main() -> int:
     b_err, b_plain, b_plain_n = check_acs_banked(dev, gen)
     f_err, f_plain_c, f_plain_r = check_fir(dev, gen)
 
-    rx, frames, launches, stages, rate, piped_rate = main_path(dev, gen)
+    fft_err, fft_rel_plain, fft_rel_lib = check_fft(dev, gen)
+    check_first_argmax(dev, gen)
+
+    # Phase 4: the fleet at each rate, sequential (segments=1) and
+    # segmented (segments=8), on one stimulus per rate; at rate 1/2 also
+    # the segment sweep and the segmented launches against demod_ref.
+    clock = max_sm_clock_hz()
+    frames = fleet_frames(dev, gen, "1/2")
+    rx, run, piped_rate = main_path(dev, gen, frames)
+    launches, stages, rate = run["launches"], run["stages"], run["rate"]
     times = kernel_times(rx, frames, dev, gen)
-    del rx, frames
+    params, sym_consts = rx.params, rx._sym_consts
+    del rx
+    seg = {"1/2": segmented_path(dev, frames, "1/2", 8, capture=True)}
+    captured = seg["1/2"].pop("captured")
+    seg_checks = seg_plain_checks(captured, params, sym_consts)
+    print("[rate 1/2 S=8] demod launches of chunk "
+          f"{SEG_CHUNKS - 1} == demod_ref on {SC_DEMOD_CHECK} samples: "
+          + "; ".join(f"{c} lanes (plain {ms:.0f} ms)"
+                      for c, ms in seg_checks))
+    seg_times = seg_demod_times(captured, params, sym_consts, clock)
+    del captured
+    sweep = {}
+    for S in SEG_SWEEP:
+        r = seg["1/2"] if S == 8 else segmented_path(dev, frames, "1/2", S)
+        r.pop("captured", None)
+        sweep[S] = r
+    print("rate-1/2 chain by segments: " + ", ".join(
+        f"S={S} {r['rate']:.1f} Msamples/s" for S, r in sweep.items()))
+    del frames
     punctured = {}
     for code_rate in PUNCTURED:
-        _, _, p_launches, p_stages, p_rate, _ = main_path(dev, gen,
-                                                          code_rate)
-        punctured[code_rate] = dict(launches=p_launches, stages_ms=p_stages,
-                                    chain_msamples_per_s=p_rate)
+        frames = fleet_frames(dev, gen, code_rate)
+        _, p_run, _ = main_path(dev, gen, frames, code_rate)
+        punctured[code_rate] = dict(launches=p_run["launches"],
+                                    stages_ms=p_run["stages"],
+                                    chain_msamples_per_s=p_run["rate"])
+        seg[code_rate] = segmented_path(dev, frames, code_rate, 8)
+        seg[code_rate].pop("captured")
+        del frames
     btimes = banked_times(dev, gen)
     b0 = btimes[0]                      # 3/4 ACQUIRE: the headline shape
     rng = np.random.default_rng(SEED)
-    single = [single_carrier(dev, rng, *p) for p in SC_PATHS]
+    stimuli = {}
+    single = [single_carrier(dev, rng, stimuli, *p) for p in SC_PATHS]
+    del stimuli
     ftimes = fir_times(dev, gen)
+    fft = fft_times(dev, gen)
     # Each path's own count (zeroed just before it, read just after).
     by_path = {"fleet 1/2": launches}
     by_path.update({f"fleet {r}": p["launches"] for r, p in punctured.items()})
+    by_path.update({f"fleet {r} S=8": p["launches"] for r, p in seg.items()})
     by_path.update({r["path"]: r["launches"] for r in single})
     resample = next(r for r in single if r["path"] == "resample")
 
@@ -1045,6 +1295,9 @@ def main() -> int:
          "chain_bound_ms": times["demod"]["chain_bound_ms"],
          "wide_ms": times["demod_wide"]["ms"],
          "wide_shape": times["demod_wide"]["shape"],
+         "segmented_shapes": seg_times,
+         "segmented_plain": [dict(lanes=c, nsamp=SC_DEMOD_CHECK, plain_ms=ms)
+                             for c, ms in seg_checks],
          "plain_shape": f"C={NCHAN} nsamp=4096"},
         {"name": "acs", "route": "cuda",
          "source": "leansdr_tpu_torch/csrc/acs.cu",
@@ -1087,12 +1340,22 @@ def main() -> int:
          "library_ms": ftimes["fir"]["library_ms"],
          "shape": ftimes["fir"]["shape"],
          "plain_shape": "R=128 n=131157 nt=79"},
+        {"name": "fft4096", "route": "cuda",
+         "source": "leansdr_tpu_torch/csrc/fft4096.cu",
+         "replaces": "leansdr_tpu/dsp/fft_pallas.py:58",
+         "launches": launches["fft4096"], "max_abs_err": fft_err,
+         "ms": fft["ms"], "plain_ms": fft["plain_ms"],
+         "bound_ms": fft["bound_ms"], "bound_by": fft["bound_by"],
+         "library_ms": fft["library_ms"], "shape": fft["shape"],
+         "rel_err_plain": fft_rel_plain, "rel_err_library": fft_rel_lib,
+         "plain_shape": fft["shape"]},
     ]
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
     print(json.dumps({"stages_ms": stages, "chain_msamples_per_s": rate,
                       "pipelined_msamples_per_s": piped_rate,
-                      "punctured": punctured, "single_carrier": single,
+                      "punctured": punctured, "segmented": seg,
+                      "segment_sweep": sweep, "single_carrier": single,
                       "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

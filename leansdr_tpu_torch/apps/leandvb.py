@@ -41,6 +41,7 @@ def usage(code=0, f=sys.stderr):
         "  --const C               Constellation (QPSK)\n"
         "  --cr N/D                Code rate (default 1/2)\n"
         "  --sampler S             linear (default), rrc\n"
+        "  --segments S            Time-segmented demod over S lanes\n"
         "  --rrc-rej FLOAT         RRC filter rejection (default 30)\n"
         "  --roll-off FLOAT        RRC roll-off (default 0.35)\n"
         "  --no-exact-lut          Computed decisions, the demod kernel "
@@ -61,8 +62,8 @@ def usage(code=0, f=sys.stderr):
         "                          versions of the kernels)\n"
         "\nNot ported yet (raise NotImplementedError): --cnr,\n"
         "--fd-spectrum, --acq (ROADMAP item 13), --awgn (22), --hs (12),\n"
-        "--segments (8), --exact-lut, --hard-metric, --sampler nearest\n"
-        "(10), --hdlc (21), constellations other than QPSK (20).\n")
+        "--exact-lut, --hard-metric, --sampler nearest (10), --hdlc (21),\n"
+        "constellations other than QPSK (20).\n")
     sys.exit(code)
 
 

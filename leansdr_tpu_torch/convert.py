@@ -10,7 +10,9 @@ where the JAX receiver stopped. The JAX pickle holds only NumPy arrays,
 Python scalars and bytes, so loading it needs no JAX.
 
   * demod state: the Pallas kernel's [19, nsub, 128] planes
-    (use_pallas=True) or the scan path's state dict, to [19, C];
+    (use_pallas=True) or the scan path's state dict, to [19, C]; the
+    segmented demod's per-segment states (`seg_state`, `segments=S`)
+    likewise to [19, S*C], with `seg_nseg`;
   * trellis planes lose their 128-lane padding: C*nsyncs lanes in
     ACQUIRE, C in TRACK (nsyncs = 4 at rate 1/2, 4*nshifts at the
     punctured rates). At a punctured rate the JAX fleet holds them in one
@@ -45,6 +47,19 @@ def _planes_from_scan_state(st: dict) -> np.ndarray:
     return np.stack([np.asarray(r, np.float32) for r in rows])
 
 
+def _planes(use_pallas: bool, st, lanes) -> np.ndarray:
+    """A JAX demod state (Pallas [19, nsub, 128] lane tiles, or the scan
+    path's dict) -> [19, lanes] float32. lanes=None keeps every lane up
+    to the last one in use: the tiles' padding lanes are all zero, a
+    live lane never is (its AGC gain is positive)."""
+    if not use_pallas:
+        return _planes_from_scan_state(st)
+    flat = np.asarray(st, np.float32).reshape(NSTATE, -1)
+    if lanes is None:
+        lanes = int(np.flatnonzero(np.abs(flat).sum(axis=0))[-1]) + 1
+    return np.ascontiguousarray(flat[:, :lanes])
+
+
 def _nsyncs(rate: str) -> int:
     """Sync replicas per channel of the QPSK fleet at `rate`."""
     cstln = make_dvbs2_constellation(Predef.QPSK, rate)
@@ -58,9 +73,6 @@ def from_jax_checkpoint(blob: bytes, rate: str = "1/2") -> bytes:
     `rate` is the receiver's code rate (RxConfig.rate): the JAX pickle
     does not record it, and a punctured rate's planes need it."""
     d = pickle.loads(blob)
-    if d.get("seg_state") is not None:
-        raise NotImplementedError(
-            "segmented-demod checkpoints are ROADMAP queue 1 item 8")
     dstate = {k: np.asarray(v) for k, v in d["deconv_state"].items()}
     if "metric" not in dstate:
         raise NotImplementedError(
@@ -71,10 +83,13 @@ def from_jax_checkpoint(blob: bytes, rate: str = "1/2") -> bytes:
         raise ValueError(f"checkpoint trellis state {sorted(dstate)} is "
                          f"not that of rate {rate}: pass its rate=")
     C = dstate["fill"].shape[0]
-    if d["use_pallas"]:
-        planes = np.asarray(d["dev"], np.float32).reshape(NSTATE, -1)[:, :C]
-    else:
-        planes = _planes_from_scan_state(d["dev"])
+    planes = _planes(d["use_pallas"], d["dev"], C)
+    seg = d.get("seg_state")
+    if seg is not None:
+        seg = _planes(d["use_pallas"], seg, None)
+        if seg.shape[1] % C:
+            raise ValueError(f"checkpoint segment states: {seg.shape[1]} "
+                             f"lanes for {C} channels")
     host = dict(d["deconv_host"])
     lanes = C if host.get("track") else C * _nsyncs(rate)
     keys = ("metric", "path") if rate == "1/2" else ("metric", "path_hi",
@@ -87,7 +102,9 @@ def from_jax_checkpoint(blob: bytes, rate: str = "1/2") -> bytes:
         dstate[k] = np.ascontiguousarray(v[:, :lanes], np.int32)
     return pickle.dumps({
         "format": CHECKPOINT_FORMAT,
-        "dev": np.ascontiguousarray(planes),
+        "dev": planes,
+        "seg_state": seg,
+        "seg_nseg": d.get("seg_nseg", 0),
         "deconv_state": dstate,
         "deconv_host": host,
         "backend": d["backend"],
@@ -211,10 +228,7 @@ def from_jax_dvbs_checkpoint(blob: bytes) -> bytes:
             raise NotImplementedError(
                 f"a checkpoint with {name} (a receiver path the port has "
                 "not taken yet, ROADMAP queue 1) cannot be carried over")
-    if d["use_pallas"]:
-        planes = np.asarray(d["dev"], np.float32).reshape(NSTATE, -1)[:, :1]
-    else:
-        planes = _planes_from_scan_state(d["dev"])
+    planes = _planes(d["use_pallas"], d["dev"], 1)
     dc = d["deconv"]
     if "trellis" in dc:
         deconv = _viterbi_state(dc, dc["rate"])
@@ -232,7 +246,7 @@ def from_jax_dvbs_checkpoint(blob: bytes) -> bytes:
                                 "_primed": bool(r["_primed"])}
     return pickle.dumps({
         "format": DVBS_FORMAT,
-        "dev": np.ascontiguousarray(planes),
+        "dev": planes,
         "meas_backlog": 0,
         "sample_backlog": np.asarray(d["sample_backlog"], np.float32),
         "byte_backlog": d["byte_backlog"],

@@ -44,6 +44,7 @@ KERNEL_FLAGS = {
     "acs": [],
     "acs_banked": [],
     "fir": ["--fmad=false"],
+    "fft4096": [],
 }
 
 

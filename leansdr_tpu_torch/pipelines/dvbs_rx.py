@@ -1,7 +1,7 @@
 """The single-carrier DVB-S receiver (the leandvb equivalent, reference
 leandvb.cc:157-724), and RxConfig: the counterpart of
 leansdr_tpu/pipelines/dvbs_rx.py on its kernel path (use_pallas=True,
-exact_lut=False, segments=1).
+exact_lut=False).
 
 Chain per call of `DvbsReceiver.process`:
 
@@ -11,7 +11,10 @@ Chain per call of `DvbsReceiver.process`:
        --resample (dsp/fir_kernel.FirFilterDevice on csrc/fir.cu) or
        --decim
     -> [--sampler rrc] matched filter (dsp/mf_prefilter.py)
-    -> demod kernel (csrc/demod.cu) on [1, n + readahead, 2]
+    -> demod kernel (csrc/demod.cu) on [1, n + readahead, 2], or with
+       `segments=S` (--segments) the fleet's time-segmented demod
+       (pipelines/multi_rx._demod_segmented): the call's samples as S
+       lane-parallel segments, two launches
     -> hard symbols: algebraic deconvolution (fec/deconv.py, host), or
        soft symbols: ViterbiSyncDevice (fec/viterbi.py) on the fleet's
        ACS kernels (csrc/acs.cu at 1/2, csrc/acs_banked.cu otherwise)
@@ -98,18 +101,20 @@ def _unsupported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported yet (ROADMAP queue 1 item {item}); the "
         "single-carrier port runs QPSK with the demod kernel "
-        "(exact_lut=False, sampler linear or rrc), hard or Viterbi "
-        "decoding, anf/derotate/resample/decim preprocessing")
+        "(exact_lut=False, sampler linear or rrc; sequential or "
+        "segmented), hard or Viterbi decoding, anf/derotate/resample/"
+        "decim preprocessing")
 
 
 def _check_config(cfg: RxConfig):
     if cfg.exact_lut is None:
         raise ValueError("RxConfig.exact_lut must be given explicitly "
                          "(False: the computed demod path)")
+    if cfg.seg_warmup % receiver.CHUNK:
+        raise ValueError(
+            f"seg_warmup must be a multiple of {receiver.CHUNK}")
     if cfg.hs:
         _unsupported("the --hs fast-QPSK receiver", "12")
-    if cfg.segments > 1:
-        _unsupported("the segmented demod (segments > 1)", "8")
     if cfg.exact_lut or cfg.hard_metric:
         _unsupported("the exact-LUT scan demod (exact_lut, hard_metric)",
                      "10")
@@ -268,6 +273,11 @@ class DvbsReceiver:
         self._planes = rk.pack_state(receiver.init_state(self.params, 1,
                                                          self.device))
         self._meas_backlog = 0
+        # --segments: chunks done (for seg_holdoff), and the segmented
+        # demod's per-segment states and the segment length they are for.
+        self._chunks_done = 0
+        self._seg_state = None
+        self._seg_nseg = 0
 
         if cfg.viterbi:
             # FEC23 -> FEC46 for QPSK (leandvb.cc:533-537)
@@ -318,6 +328,10 @@ class DvbsReceiver:
 
         ra = self.readahead
         K = (len(self.sample_backlog) - ra) // receiver.CHUNK
+        S = self.cfg.segments
+        seg_live = S > 1 and self._chunks_done >= self.cfg.seg_holdoff
+        if seg_live:
+            K -= K % S                  # nseg must stay CHUNK-aligned
         if K <= 0:
             return np.empty((0, TS_SIZE), np.uint8)
         n = K * receiver.CHUNK
@@ -325,14 +339,38 @@ class DvbsReceiver:
         self.sample_backlog = self.sample_backlog[n:]
 
         xd = torch.from_numpy(np.ascontiguousarray(x[None])).to(self.device)
-        if self.mf_taps is not None:
-            xd = mf_prefilter.mf_prefilter(self.mf_taps, self._planes[2],
-                                           xd)
-        self._planes, packed = rk.demod(self.params, self._sym_consts,
-                                        self._planes, xd)
-        p = packed[:, 0].cpu().numpy()
-        valid = ((p >> 24) & 1).astype(bool)
-        syms = ((p >> 16) & 0xFF).astype(np.uint8)[valid]
+        # multi_rx imports this module, so its engine is imported here.
+        from .multi_rx import _SEG_T, _demod_segmented, init_seg_state
+        if seg_live and n // S >= self.cfg.seg_warmup + _SEG_T:
+            # The fleet's time-segmented demod on one carrier.
+            nseg = n // S
+            if self._seg_state is None or self._seg_nseg != nseg:
+                self._seg_state = init_seg_state(self._planes, 1, S, nseg)
+                self._seg_nseg = nseg
+            (self._planes, self._seg_state, sym, valid,
+             cost) = _demod_segmented(
+                self.params, self._sym_consts, self.mf_taps, 1, S,
+                self.cfg.seg_warmup, self.cfg.viterbi, self._planes,
+                self._seg_state, xd)
+            valid = valid[:, 0].cpu().numpy()
+            syms = sym[:, 0].cpu().numpy()[valid]
+            costs = (cost[:, 0].cpu().numpy()[valid] if self.cfg.viterbi
+                     else None)
+        else:
+            # A sequential call moves the stream past the persisted
+            # per-segment positions: rebuild them at the next segmented
+            # call.
+            self._seg_state = None
+            if self.mf_taps is not None:
+                xd = mf_prefilter.mf_prefilter(self.mf_taps,
+                                               self._planes[2], xd)
+            self._planes, packed = rk.demod(self.params, self._sym_consts,
+                                            self._planes, xd)
+            p = packed[:, 0].cpu().numpy()
+            valid = ((p >> 24) & 1).astype(bool)
+            syms = ((p >> 16) & 0xFF).astype(np.uint8)[valid]
+            costs = (-(p & 0xFFFF)).astype(np.int16)[valid]
+        self._chunks_done += 1
 
         # Measurement snapshots from the state planes at the scan path's
         # meas_decimation cadence (the kernel's output carries no
@@ -349,7 +387,6 @@ class DvbsReceiver:
                 self.meas["mer"].append(float(mer))
 
         if self.cfg.viterbi:
-            costs = (-(p & 0xFFFF)).astype(np.int16)[valid]
             bytes_out = self.deconv.process(syms, costs)
         else:
             bytes_out = self.deconv.process(syms)
@@ -481,6 +518,10 @@ class DvbsReceiver:
         return pickle.dumps({
             "format": CHECKPOINT_FORMAT,
             "dev": self._planes.cpu().numpy(),
+            "chunks_done": self._chunks_done,
+            "seg_state": (None if self._seg_state is None
+                          else self._seg_state.cpu().numpy()),
+            "seg_nseg": self._seg_nseg,
             "meas_backlog": self._meas_backlog,
             "sample_backlog": self.sample_backlog,
             "byte_backlog": self.byte_backlog,
@@ -504,6 +545,13 @@ class DvbsReceiver:
                 "checkpoint goes through convert.from_jax_dvbs_checkpoint)")
         self._planes = torch.from_numpy(
             np.ascontiguousarray(d["dev"], np.float32)).to(self.device)
+        # A JAX checkpoint carries no segment state (a JAX receiver that
+        # loads one starts its holdoff count and segment states afresh).
+        self._chunks_done = d.get("chunks_done", 0)
+        seg = d.get("seg_state")
+        self._seg_state = (None if seg is None else torch.from_numpy(
+            np.ascontiguousarray(seg, np.float32)).to(self.device))
+        self._seg_nseg = d.get("seg_nseg", 0)
         self._meas_backlog = d["meas_backlog"]
         self.sample_backlog = d["sample_backlog"]
         self.byte_backlog = d["byte_backlog"]

@@ -1,11 +1,13 @@
 """Multi-carrier DVB-S receiver: many independent carriers demodulated and
 Viterbi-decoded in one device batch (the counterpart of
-leansdr_tpu/pipelines/multi_rx.py, sequential demod, `segments=1`).
+leansdr_tpu/pipelines/multi_rx.py).
 
 Chain per chunk, all on the device until one packed fetch:
 
   matched filter (dsp/mf_prefilter.py)
-    -> demod kernel (csrc/demod.cu: PLL + M&M timing + soft demap)
+    -> demod kernel (csrc/demod.cu: PLL + M&M timing + soft demap), one
+       launch per chunk, or with `segments=S` two launches over S lanes
+       per carrier (the time-segmented demod, `_demod_segmented`)
     -> symbol ring append (fec/deconv_device.py: cumsum + scatter)
     -> soft Viterbi over the sync replicas with election:
        rate 1/2, 4 replicas: csrc/acs.cu inside
@@ -67,16 +69,231 @@ def _extract_sym_valid(packed: torch.Tensor):
     return sym, valid, cost
 
 
+def _wrap_u16(p):
+    """Wrap a u16-unit angle (65536 = 2*pi) into [0, 65536)."""
+    return p - torch.floor(p / 65536.0) * 65536.0
+
+
+_SEG_T = 128    # boundary overlap window (rows, a multiple of CHUNK)
+
+
+def seg_positions(S: int, nseg: int, T: int = _SEG_T):
+    """End-of-chunk stream positions of the S persisted segment states,
+    relative to the NEXT chunk's head (all <= 0). Segment 0's emit
+    window is [0, nseg+T); segment s>=1's is [s*nseg-T, (s+1)*nseg)."""
+    n = S * nseg
+    return [nseg + T - n] + [(j + 1) * nseg - n for j in range(1, S)]
+
+
+def init_seg_state(planes: torch.Tensor, nchan: int, S: int, nseg: int,
+                   T: int = _SEG_T) -> torch.Tensor:
+    """Cold-start per-segment persisted state: the carried chunk-head
+    planes [NSTATE, C] replicated into S*C lanes (lane s*C + c) positioned
+    at seg_positions(S, nseg), with the lock phase advanced by freqw x
+    position, so the first segmented chunk's pass-1 seeding is exactly a
+    prediction from the chunk head, and every later chunk's a one-chunk
+    advance of each segment's own trajectory. Returns [NSTATE, S*C]."""
+    C = nchan
+    pos = torch.tensor(seg_positions(S, nseg, T), dtype=torch.float32,
+                       device=planes.device).repeat_interleave(C)
+    rep = planes[:, :C].repeat(1, S)
+    adv = _wrap_u16(_wrap_u16(rep[2] * 128.0) * (pos / 128.0))
+    rep[1] = _wrap_u16(rep[1] + adv)
+    return rep
+
+
+def _rot_label(sb: torch.Tensor, r):
+    """The QPSK label permutation for a lock offset of r*90 degrees, as
+    branchless bit algebra on labels b1b0 = (i_neg, q_neg). r is an int
+    or a [C] row of ints."""
+    s_ = sb.to(torch.int32)
+    forms = (s_,
+             2 + (s_ >> 1) - 2 * (s_ & 1),      # [2,0,3,1]  +90
+             3 - s_,                            # [3,2,1,0]  180
+             1 - (s_ >> 1) + 2 * (s_ & 1))      # [1,3,0,2]  -90
+    if isinstance(r, int):
+        return forms[r].to(torch.uint8)
+    rh = r[None, :]
+    out = forms[0]
+    for k in (1, 2, 3):
+        out = torch.where(rh == k, forms[k], out)
+    return out.to(torch.uint8)
+
+
+def _demod_segmented(params, sym_consts, mf_taps, nchan, S, W, want_cost,
+                     dem_state, seg_state, x):
+    """Two-pass time-segmented demod with per-segment persistent state
+    (the counterpart of leansdr_tpu/pipelines/multi_rx.py:109-401): each
+    carrier's chunk is split into S time segments demodulated in
+    parallel kernel lanes (lane l = s*C + c), which widens the demod
+    kernel's launch from C to S*C threads.
+
+    pass 1 (precursor): S-1 windows of W samples, window j ending exactly
+      where segment j+1's emit window starts. Lane j is seeded from
+      segment j's own persisted end-of-previous-chunk state (`seg_state`)
+      with the lock phase advanced by freqw x gap; only each lane's end
+      state is kept.
+    pass 2 (emit): segment 0 continues the carried chunk-head state
+      `dem_state`; segment s>=1 starts from pass-1 lane s-1's end state.
+      Each lane's matched filter tracks its own freqw.
+
+    Each boundary is cut inside a T-row overlap window at the first row
+    where both trajectories emit the same symbol (rows offset by at most
+    one), falling back to the blind cut. A segment whose PLL locked a
+    QPSK quadrant away is relabelled (the rotation estimated from
+    decision agreement in the overlap window) and its persisted phase
+    derotated. Every float step is in the JAX version's order.
+
+    dem_state [NSTATE, C], seg_state [NSTATE, S*C], x [C, n + readahead,
+    2] with n a multiple of S*CHUNK. Returns (dem_state, seg_state,
+    sym [n, C] u8, valid [n, C] bool, cost [n, C] i16 or None).
+    """
+    C = nchan
+    T = _SEG_T
+    J = (S - 1) * C                      # precursor lanes
+    dev = x.device
+    ra = params.readahead + (len(mf_taps) - 1 if mf_taps is not None else 0)
+    n = x.shape[1] - ra
+    nseg = n // S
+    if nseg < W + T:
+        raise ValueError(
+            f"chunk/segments = {nseg} < warmup+overlap {W + T}")
+    L2 = nseg + T                        # emit window rows
+    # Persisted segment j sits at pos[j] (<= 0, relative to this chunk's
+    # head); precursor window j is [b_j, b_j + W), ending exactly at emit
+    # window j+1's start. Gaps are multiples of 128, so the two-step
+    # wrap below is exact in float32.
+    pos = seg_positions(S, nseg, T)
+    b = [(j + 1) * nseg - T - W for j in range(S - 1)]
+    gapv = torch.tensor([b[j] - pos[j] for j in range(S - 1)],
+                        dtype=torch.float32, device=dev).repeat_interleave(C)
+    xs1 = torch.stack([x[:, bj:bj + W + ra] for bj in b]).reshape(
+        J, W + ra, 2)
+    offs2 = [0] + [s * nseg - T for s in range(1, S)]
+    xs2 = torch.stack([x[:, o:o + L2 + ra] for o in offs2]).reshape(
+        S * C, L2 + ra, 2)
+
+    def mf(freqw, xs):
+        if mf_taps is None:
+            return xs
+        return mf_prefilter.mf_prefilter(mf_taps, freqw, xs)
+
+    # -- pass 1: precursor windows from the persisted per-segment states
+    p1 = seg_state[:, :J].clone()
+    adv = _wrap_u16(_wrap_u16(p1[2] * 128.0) * (gapv / 128.0))
+    p1[1] = _wrap_u16(p1[1] + adv)
+    st1, _ = rk.demod(params, sym_consts, p1, mf(p1[2], xs1))
+    # -- pass 2: emit windows; lane 0 = the carried chunk-head state, lane
+    # s>=1 = pass-1 lane s-1's exactly positioned end state.
+    p2 = torch.cat([dem_state, st1], dim=1)
+    seg_out, packed = rk.demod(params, sym_consts, p2, mf(p2[2], xs2))
+    sym, valid, cost = _extract_sym_valid(packed)       # [L2, S*C]
+
+    # Local rows per segment: segment 0 owns [0, nseg) ([nseg, L2) is
+    # padding for window uniformity); segment s>=1 has its boundary
+    # prefix in [0, T) and owns [T, L2). The overlap at boundary s is lane
+    # s-1's owned tail against lane s's prefix.
+    def seg_of(a, s):
+        return a[:, s * C:(s + 1) * C]
+
+    def owned_rows(s):
+        lo = 0 if s == 0 else T
+        return lo, lo + nseg
+
+    def tail_rows(s):
+        return (nseg - T, nseg) if s == 0 else (nseg, L2)
+
+    # Rotation: perms[r] maps the incoming trajectory's labels into the
+    # outgoing frame for a lock offset of r*90 degrees; rhat per carrier
+    # is the r under which the overlap window's decisions agree most
+    # (argmax takes the first maximum), kept at 0 without T//8 agreeing
+    # emissions. Handover: the cut is the row after both copies of the
+    # first anchor symbol emitted by both trajectories at rows at most
+    # one apart:
+    #   case0  a and b emit at w        -> cut w+1
+    #   case1  a at w, b at w+1         -> cut w+2, a silent at w+1
+    #   case2  a at w+1, b at w         -> cut w+2, b silent at w+1
+    # Rows < cut come from the outgoing trajectory; no anchor -> cut T.
+    qpsk = params.nsymbols == 4
+    dphase = torch.tensor([0.0, 16384.0, 32768.0, -16384.0],
+                          dtype=torch.float32, device=dev)
+    sym_corr = [seg_of(sym, 0)]
+    masks = []
+    seg_rot = [torch.zeros(C, dtype=torch.float32, device=dev)]
+    rows = torch.arange(T, device=dev)[:, None]
+    for s in range(1, S):
+        ta, tb = tail_rows(s - 1)
+        va = seg_of(valid, s - 1)[ta:tb]
+        sa = sym_corr[s - 1][ta:tb]
+        vb = seg_of(valid, s)[:T]
+        sb_raw = seg_of(sym, s)
+        if qpsk:
+            cnt = []
+            for r in range(4):
+                sbr = _rot_label(sb_raw[:T], r)
+                m = (va[:-1] & vb[:-1] & (sa[:-1] == sbr[:-1])) \
+                    | (va[:-1] & vb[1:] & (sa[:-1] == sbr[1:])) \
+                    | (va[1:] & vb[:-1] & (sa[1:] == sbr[:-1]))
+                cnt.append(m.sum(dim=0))
+            cnt = torch.stack(cnt)                     # [4, C]
+            rhat = torch.argmax(cnt, dim=0)
+            rhat = torch.where(cnt.amax(dim=0) >= T // 8, rhat,
+                               torch.zeros_like(rhat))
+            sseg = _rot_label(sb_raw, rhat)
+            # rhat maps segment s's raw labels into the base frame, so it
+            # is also the segment's lock-phase offset against the stream.
+            seg_rot.append(dphase[rhat])
+        else:
+            sseg = sb_raw
+            seg_rot.append(seg_rot[0])
+        sym_corr.append(sseg)
+        sb = sseg[:T]
+        c0 = va[:-1] & vb[:-1] & (sa[:-1] == sb[:-1])        # [T-1, C]
+        c1 = va[:-1] & vb[1:] & (sa[:-1] == sb[1:]) & ~va[1:]
+        c2 = va[1:] & vb[:-1] & (sa[1:] == sb[:-1]) & ~vb[1:]
+        anyc = c0 | c1 | c2
+        first = torch.argmax(anyc.to(torch.int32), dim=0)    # first True
+        same_row = torch.gather(c0, 0, first[None])[0]
+        cut = torch.where(same_row, first + 1, first + 2)
+        cut = torch.where(anyc.any(dim=0), cut, torch.full_like(cut, T))
+        masks.append(rows >= cut[None, :])
+
+    # Derotate every persisted segment's lock phase into the stream frame
+    # (segment S-1's state is also the next chunk's exact segment-0 seed).
+    if qpsk:
+        seg_out[1] = _wrap_u16(seg_out[1] - torch.cat(seg_rot))
+    dem_state = seg_out[:, (S - 1) * C:].contiguous()
+
+    def splice(a, segs=None):
+        get = segs.__getitem__ if segs else (lambda s: seg_of(a, s))
+        out = torch.cat([get(s)[slice(*owned_rows(s))] for s in range(S)])
+        for s in range(1, S):
+            ta, tb = tail_rows(s - 1)
+            out[s * nseg - T:s * nseg] = torch.where(
+                masks[s - 1], get(s)[:T], get(s - 1)[ta:tb])
+        return out
+
+    return (dem_state, seg_out, splice(sym, sym_corr), splice(valid),
+            splice(cost) if want_cost else None)
+
+
 def _fused_chunk(params, sym_consts, mf_taps, kind, plan, plan_dec, maps,
-                 schedule, planes, dstate, x):
-    """One chunk of device work: matched filter -> demod kernel ->
-    sym/valid/cost extraction -> ring append(s) -> `schedule` decodes
-    (the decoder of `kind`) -> the packed fetch buffer. Plain eager
-    PyTorch around the kernels. Returns (planes, dstate, packed_out)."""
+                 schedule, planes, seg_state, dstate, x, segments=1,
+                 seg_warmup=2048):
+    """One chunk of device work: matched filter -> demod kernel (or the
+    segmented demod when segments > 1) -> sym/valid/cost extraction ->
+    ring append(s) -> `schedule` decodes (the decoder of `kind`) -> the
+    packed fetch buffer. Plain eager PyTorch around the kernels. Returns
+    (planes, seg_state, dstate, packed_out)."""
     decode = decoder(kind)
-    x = mf_prefilter.mf_prefilter(mf_taps, planes[2], x)
-    planes, packed = rk.demod(params, sym_consts, planes, x)
-    sym, valid, cost = _extract_sym_valid(packed)
+    if segments > 1:
+        planes, seg_state, sym, valid, cost = _demod_segmented(
+            params, sym_consts, mf_taps, planes.shape[1], segments,
+            seg_warmup, True, planes, seg_state, x)
+    else:
+        x = mf_prefilter.mf_prefilter(mf_taps, planes[2], x)
+        planes, packed = rk.demod(params, sym_consts, planes, x)
+        sym, valid, cost = _extract_sym_valid(packed)
     n = sym.shape[0]
     step = plan.nsamp
     flat = []
@@ -87,17 +304,21 @@ def _fused_chunk(params, sym_consts, mf_taps, kind, plan, plan_dec, maps,
         for _ in range(schedule[i]):
             dstate, by, errs, under = decode(plan_dec, dstate, maps)
             flat += [by, errs, under]
-    return planes, dstate, _pack_fetch(dstate["fill"], flat)
+    return planes, seg_state, dstate, _pack_fetch(dstate["fill"], flat)
 
 
 def _unsupported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported yet (ROADMAP queue 1 item {item}); the "
         f"port runs QPSK at rates {', '.join(RATES)} with viterbi=True, "
-        "exact_lut=False, sampler='rrc', segments=1")
+        "exact_lut=False, sampler='rrc'")
 
 
-def _check_config(cfg: RxConfig, use_pallas, native, segments):
+def _check_config(cfg: RxConfig, use_pallas, native, segments, seg_warmup):
+    if segments < 1:
+        raise ValueError("segments must be >= 1")
+    if seg_warmup % receiver.CHUNK:
+        raise ValueError(f"seg_warmup must be a multiple of {receiver.CHUNK}")
     if cfg.constellation != Predef.QPSK or cfg.rate not in RATES:
         _unsupported(f"{Predef(cfg.constellation).name} rate {cfg.rate}",
                      "20")
@@ -110,8 +331,6 @@ def _check_config(cfg: RxConfig, use_pallas, native, segments):
         _unsupported("the exact-LUT scan demod (exact_lut=True)", "10")
     if cfg.sampler != "rrc":
         _unsupported(f"sampler={cfg.sampler!r}", "10")
-    if segments != 1:
-        _unsupported("the segmented demod (segments > 1)", "8")
     if cfg.anf or cfg.cnr or cfg.want_spectrum:
         _unsupported("fleet preprocessing (anf, cnr, spectrum)", "13")
     if use_pallas is False:
@@ -130,10 +349,19 @@ class MultiDvbsReceiver:
                  segments: int = 1, seg_warmup: int = 2048,
                  seg_holdoff: int = 8, device=None):
         self.device = _dev.resolve_device(device)
-        _check_config(cfg, use_pallas, native, segments)
+        _check_config(cfg, use_pallas, native, segments, seg_warmup)
         self.cfg = cfg
         self.nchan = nchan
+        # The time-segmented demod (_demod_segmented): each chunk as
+        # `segments` lane-parallel segments, `seg_warmup` samples of
+        # precursor per segment. The first `seg_holdoff` chunks run
+        # sequentially, so the loops lock before segmentation engages.
+        self.segments = segments
+        self.seg_warmup = seg_warmup
+        self.seg_holdoff = seg_holdoff
         self._chunk_count = 0
+        self._seg_state = None     # per-segment persisted demod state
+        self._seg_nseg = 0         # the segment length it was built for
         cstln = make_dvbs2_constellation(cfg.constellation, cfg.rate)
         # Matched filter at input rate, then the linear-sampler demod.
         self.mf_taps = mf_prefilter.make_mf_taps(cfg.Fs, cfg.Fm, cfg.rolloff,
@@ -192,7 +420,8 @@ class MultiDvbsReceiver:
         if (isinstance(iq, torch.Tensor) and iq.device == self.device
                 and self.device.type == "cuda"
                 and self.sample_backlog.shape[1] == 0
-                and (iq.shape[1] - ra) % receiver.CHUNK == 0):
+                and (iq.shape[1] - ra) % (receiver.CHUNK
+                                          * self.segments) == 0):
             # Device-resident fast path.
             x = iq
             n = iq.shape[1] - ra
@@ -204,6 +433,7 @@ class MultiDvbsReceiver:
             self.sample_backlog = np.concatenate(
                 [self.sample_backlog, iq], axis=1)
             K = (self.sample_backlog.shape[1] - ra) // receiver.CHUNK
+            K -= K % self.segments       # nseg must stay CHUNK-aligned
             if K <= 0:
                 return None
             n = K * receiver.CHUNK
@@ -222,11 +452,21 @@ class MultiDvbsReceiver:
             m = min(step, n - o)
             self.deconv.note_production(max(0, int(m / self.omega) - 8))
             schedule.append(self.deconv.schedule_decode())
-        self._planes, self.deconv.state, packed_out = _fused_chunk(
+        S = self.segments if self._chunk_count >= self.seg_holdoff else 1
+        if S > 1 and (self._seg_state is None or self._seg_nseg != n // S):
+            # The persisted states assume a constant segment length:
+            # (re)build them from the carried chunk-head state.
+            self._seg_state = init_seg_state(self._planes, self.nchan, S,
+                                             n // S)
+            self._seg_nseg = n // S
+        (self._planes, seg_state, self.deconv.state,
+         packed_out) = _fused_chunk(
             self.params, self._sym_consts, self.mf_taps, self.deconv.kind,
             self.deconv.plan, plan_dec, self.deconv.maps, schedule,
-            self._planes,
-            self.deconv.state, x)
+            self._planes, self._seg_state, self.deconv.state, x,
+            segments=S, seg_warmup=self.seg_warmup)
+        if S > 1:
+            self._seg_state = seg_state
         self._chunk_count += 1
         shapes = [(plan_dec.nbytes, plan_dec.E + 1)] * sum(schedule)
         return packed_out, shapes
@@ -327,12 +567,16 @@ class MultiDvbsReceiver:
                            "_track_decodes")
 
     def save_state(self) -> bytes:
-        """Serialize every mutable piece of the receiver: demod state,
-        the symbol ring + trellis state, the byte backend (the C++ FSMs)
-        and the sample backlog, as NumPy arrays in a pickle."""
+        """Serialize every mutable piece of the receiver: demod state
+        (and the segmented demod's per-segment states), the symbol ring +
+        trellis state, the byte backend (the C++ FSMs) and the sample
+        backlog, as NumPy arrays in a pickle."""
+        seg = self._seg_state
         return pickle.dumps({
             "format": CHECKPOINT_FORMAT,
             "dev": self._planes.cpu().numpy(),
+            "seg_state": None if seg is None else seg.cpu().numpy(),
+            "seg_nseg": self._seg_nseg,
             "deconv_state": {k: v.cpu().numpy()
                              for k, v in self.deconv.state.items()},
             "deconv_host": {k: getattr(self.deconv, k)
@@ -357,6 +601,17 @@ class MultiDvbsReceiver:
             raise ValueError(f"checkpoint demod state {tuple(planes.shape)}"
                              f" != {(rk.NSTATE, self.nchan)}")
         self._planes = planes.to(dev).contiguous()
+        seg = d.get("seg_state")
+        if seg is not None:
+            seg = torch.from_numpy(np.asarray(seg, np.float32))
+            want = (rk.NSTATE, self.segments * self.nchan)
+            if tuple(seg.shape) != want:
+                raise ValueError(f"checkpoint segment states "
+                                 f"{tuple(seg.shape)} != {want} (another "
+                                 "segments=?)")
+            seg = seg.to(dev).contiguous()
+        self._seg_state = seg
+        self._seg_nseg = d.get("seg_nseg", 0)
         if set(d["deconv_state"]) != set(self.deconv.state):
             raise ValueError(
                 f"checkpoint trellis state {sorted(d['deconv_state'])} != "

@@ -22,6 +22,8 @@ def _modules():
 
 
 def test_import_loads_no_jax():
+    assert {"leansdr_tpu_torch.dsp.fft_kernel",
+            "leansdr_tpu_torch.pipelines.multi_rx"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {list(_modules())!r}:\n"
@@ -87,8 +89,8 @@ def test_unported_settings_raise():
                          (dict(cnr=True), "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             MultiDvbsReceiver(RxConfig(**(base | change)), 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        MultiDvbsReceiver(RxConfig(**base), 2, segments=8, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        MultiDvbsReceiver(RxConfig(**base), 2, native=False, device="cpu")
 
 
 def test_leandvb_help_runs_without_jax():
@@ -123,7 +125,7 @@ def test_single_carrier_entry_points_default_to_cuda():
 @pytest.mark.parametrize("flags,item", [
     (["--awgn", "1"], "item 22"), (["--cnr"], "item 13"),
     (["--fd-spectrum", "3"], "item 13"), (["--acq"], "item 13"),
-    (["--hs"], "item 12"), (["--segments", "8"], "item 8"),
+    (["--hs"], "item 12"), (["--hdlc", "--packetized"], "item 21"),
     (["--exact-lut"], "item 10"), (["--hard-metric"], "item 10"),
     (["--sampler", "nearest"], "item 10"), (["--hdlc"], "item 21"),
     (["--const", "8PSK"], "item 20")])
