@@ -16,13 +16,17 @@ modulates itself, and checks that every carrier locks and decodes the
 TS packets that were sent.
 
 Phases (any failure exits non-zero):
-  1. card name and power limit, versions, kernel build time;
-  2. demod kernel == demod_ref (QPSK at C=64 and C=8192, 8PSK at C=64;
-     4096 samples: the plain version costs one launch per op per sample).
-     Tolerance: valid exactly on every sample, symbol and cost exactly on
-     every valid sample, float state within max(1e-3, 1e-4*|v|) (the CPU
-     tests' bar; the kernel and its plain version round alike, so 0 is
-     expected);
+  1. card name and power limit, versions, kernel build time; dependent
+     instruction latencies on the card (tools/latency_probe.cu) and the
+     demod's serial chain counted from its SASS (tools/sass_chain.py on
+     `cuobjdump -sass` of the built library);
+  2. the demod's rotation (sincosf) == torch.cos / torch.sin bit for bit
+     on all 65536 u16 angles; demod kernel == demod_ref, every packed
+     word and every state plane bit for bit (DEMOD_CHECKS: QPSK at C=64
+     and C=8192, 8PSK at C=64, 4096 samples; QPSK and 16APSK at C in
+     {1, 33, 100} over 1024 samples and C=33 over 128, the ragged
+     32-channel blocks and the copy ring's prologue and epilogue; the
+     plain version costs one launch per op per sample);
   3. ACS kernel == viterbi_acs_ref bit for bit (ties forced, from zero
      and from a live state; T=2048 at the fleet's N=256 ACQUIRE lanes
      with and without cheap_q and its N=64 TRACK lanes with cheap_q;
@@ -34,7 +38,7 @@ Phases (any failure exits non-zero):
      cfir == cfir_ref and fir == fir_ref bit for bit (nt 21, 79, 2048;
      lengths off the tile; from a zero head and mid-stream); fft4096
      within max|dy| / max|y| < 2e-5 of fft4096_ref and of torch.fft.fft
-     at B=8 and 1024 (the sums run in other orders); torch.argmax takes
+     at B=8, 1024 and 1064 (the sums run in other orders); torch.argmax takes
      the first maximum on the card, as the segmented demod needs;
   4. the main path through MultiDvbsReceiver.process, with the kernels'
      launch counters zeroed just before and read just after, and
@@ -61,18 +65,22 @@ Phases (any failure exits non-zero):
      the first 1024 samples of the read: its plain version costs ~3 ms
      per sample on the card);
   5. kernel times at the main path's shapes (the demod also at the
-     segmented launches' shapes), bounds, one `kernels` line (cfir/fir
-     beside one conv1d computing the same FIR, TF32 off; fft4096 beside
-     one torch.fft.fft);
+     segmented launches' shapes and at one carrier), bounds (the demod's
+     serial bound from phase 1), one `kernels` line (cfir/fir beside one
+     conv1d computing the same FIR, TF32 off; fft4096 beside one
+     torch.fft.fft, in turns over inputs that exceed the L2, timed in
+     phase 3 right after its check);
   6. last line: {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
 
+import ctypes
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -87,6 +95,7 @@ SEG_CHUNKS = 8
 SEG_HOLDOFF = 2
 SEG_SWEEP = (1, 2, 4, 8, 16)     # rate-1/2 chain at these segment counts
 FFT_BAR = 2e-5                   # max|dy| / max|y|: tests/test_fft_fir.py
+FFT_BUFFERS = 6                  # fft timing inputs in turn: 192 MB > L2
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 VECTOR_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 # Integer work (the ACS kernels) is priced at the INT32 issue rate: a
@@ -96,14 +105,26 @@ VECTOR_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 # FP32 FMA rate counting each FMA as two operations, 4x the INT32 rate.
 INT32_OPS_PER_SM_CLOCK = 64
 PUNCTURED = ("3/4", "7/8")       # main-path rates of the banked ACS
-STATE_KEYS = {"mu": 0, "freqw": 2, "agc_gain": 3, "est_insp": 4}
-# The demod's serial bound: dependent operations per sample along
-# demod.cu's loop-carried path (phase -> u16 wrap 7, sinf/cosf ~25,
-# rotate + interpolate + AGC 7, halving + decision 11, atan2_poly with
-# its IEEE division ~30, pe16 fold 8, PLL update 4), each at least the
-# 4-cycle dependent-issue latency of Hopper's FP32/INT32 pipes.
-DEMOD_CHAIN_OPS = 90
-DEP_LATENCY_CYCLES = 4
+# Demod kernel against demod_ref, every word and state plane bit for
+# bit: (constellation, rate, nsym, C, nsamp). The fleet's widths, then
+# the ragged edges of the 32-channel blocks and of the copy ring (C=33
+# at 128 samples: one chunk, the ring's prologue and epilogue alone).
+DEMOD_CHECKS = (
+    ("QPSK", "1/2", 4, NCHAN, 4096), ("QPSK", "1/2", 4, 8192, 4096),
+    ("PSK8", "2/3", 8, NCHAN, 4096),
+) + tuple((p, r, m, C, n) for p, r, m in (("QPSK", "1/2", 4),
+                                          ("APSK16", "3/4", 16))
+          for C, n in ((1, 1024), (33, 1024), (100, 1024), (33, 128)))
+# The demod's serial bound is counted from the built kernel's SASS
+# (tools/sass_chain.py on `cuobjdump -sass`: the instructions on the
+# QPSK loop's loop-carried path, each at its latency as
+# tools/latency_probe.cu measures it on this card). It supersedes an
+# assumed count, 90 dependent operations per sample at 4 cycles, still
+# printed beside it.
+ASSUMED_CHAIN_CYCLES = 90 * 4
+DEMOD_QPSK_FUNCTION = "demod_kernelILb1E"     # demod_kernel<true>
+TOOLS = Path(__file__).resolve().parent / "tools"
+LATENCY_PROBES = 15                           # tools/latency_probe.cu
 # The single-carrier paths' launches held against the plain versions:
 # the first launch of each kernel and this one (a live, mid-stream
 # state); the demod on this many samples of its read.
@@ -142,6 +163,81 @@ def int32_ops_per_s(clock_hz: float) -> float:
     return INT32_OPS_PER_SM_CLOCK * sms * clock_hz
 
 
+def start_probe_build():
+    """nvcc on tools/latency_probe.cu, started beside the kernels' build;
+    latency_table waits for it. Returns (process, library path)."""
+    from leansdr_tpu_torch import device as kdev
+    kdev.BUILD.mkdir(exist_ok=True)
+    so = kdev.BUILD / "liblatency_probe.so"
+    cmd = ([kdev.nvcc_path()] + kdev.ARCH
+           + ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+              str(TOOLS / "latency_probe.cu"), "-o", str(so)])
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), so
+
+
+def latency_table(build, dev) -> dict:
+    """Dependent-instruction latencies in cycles on this card, from
+    tools/latency_probe.cu, keyed for tools/sass_chain.py: `fixed` (every
+    fixed-latency pipe) is the largest of FADD, FMUL, FFMA, FMNMX, FSEL,
+    SHF and IMAD; FSETP, MUFU.RCP, MUFU.SIN and MUFU.RSQ are their pair
+    less the partner; F2I and I2F(P) half their pair."""
+    proc, so = build
+    text, _ = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        fail(f"latency probe build failed:\n{text}")
+    lib = ctypes.CDLL(str(so))
+    lib.run_probes.restype = ctypes.c_int
+    lib.run_probes.argtypes = [ctypes.c_void_p] * 4
+    lib.probe_rep.restype = ctypes.c_int
+    lib.probe_rep.argtypes = []
+    fin = torch.tensor([1.5, 1.0, 0.999], device=dev)
+    iin = torch.ones(2, dtype=torch.int32, device=dev)
+    fout = torch.zeros(LATENCY_PROBES, device=dev)
+    cyc = torch.zeros(LATENCY_PROBES, dtype=torch.int64, device=dev)
+    for _ in range(2):                    # the second run is warm
+        err = lib.run_probes(fin.data_ptr(), iin.data_ptr(),
+                             fout.data_ptr(), cyc.data_ptr())
+        if err != 0:
+            fail(f"latency probe: CUDA error {err}")
+    (fadd, fmul, ffma, fmnmx, fsel, fsetp_fsel, shf, imad, conv_pair, trunc,
+     floor, rcp_fadd, sin_pair, rsq_fadd, lds) = (
+        cyc.cpu().double() / lib.probe_rep()).tolist()
+    lat = {"fixed": max(fadd, fmul, ffma, fmnmx, fsel, shf, imad),
+           "FSETP": fsetp_fsel - fsel, "F2I": conv_pair / 2,
+           "I2F": conv_pair / 2, "I2FP": conv_pair / 2, "FRND.TRUNC": trunc,
+           "FRND.FLOOR": floor, "FRND": max(trunc, floor),
+           "MUFU.RCP": rcp_fadd - fadd, "MUFU.SIN": sin_pair - fmul,
+           "MUFU.COS": sin_pair - fmul, "MUFU.RSQ": rsq_fadd - fadd,
+           "LDS": lds}
+    print("dependent latency, cycles (tools/latency_probe.cu): "
+          + ", ".join(f"{k} {v:.2f}" for k, v in lat.items()))
+    return lat
+
+
+def demod_chain(so, lat, clock) -> dict:
+    """The demod's serial bound per sample from its built library's SASS
+    (tools/sass_chain.py on the QPSK loop of `cuobjdump -sass`)."""
+    from leansdr_tpu_torch import device as kdev
+    sys.path.insert(0, str(TOOLS))
+    import sass_chain
+    cuobjdump = Path(kdev.nvcc_path()).parent / "cuobjdump"
+    r = subprocess.run([str(cuobjdump), "-sass", str(so)],
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        fail(f"cuobjdump -sass {so.name}: {r.stderr}")
+    res = sass_chain.analyse(r.stdout, DEMOD_QPSK_FUNCTION, lat)
+    print(f"demod serial chain (tools/sass_chain.py on cuobjdump -sass "
+          f"{so.name}, QPSK loop {res['loop'][0]}-{res['loop'][1]}): "
+          f"{res['path_instructions_per_step']:.0f} instructions on the "
+          f"loop-carried path, {res['cycles_per_step']:.1f} cycles per "
+          f"sample ({res['cycles_per_step'] / clock * 1e9:.1f} ns at "
+          f"{clock / 1e6:.0f} MHz; assumed before: {ASSUMED_CHAIN_CYCLES}); "
+          f"{res['instructions_per_step']:.0f} hot-path instructions per "
+          f"sample; priced as fixed-pipe: {', '.join(res['priced_as_fixed'])}")
+    return res
+
+
 # ---------------------------------------------------------------- phase 2
 
 def demod_stimulus(predef, rate, C, nsamp, dev, gen):
@@ -170,9 +266,37 @@ def demod_stimulus(predef, rate, C, nsamp, dev, gen):
     return x.to(torch.float32).contiguous()
 
 
-def check_demod(predef, rate, nsym, C, nsamp, dev, gen):
+def check_sincos(dev):
+    """The demod's rotation (sincosf, through demod_sincos_launch) against
+    torch.cos and torch.sin, bit for bit, on every angle its loop can
+    see: idx * K2PI for the 65536 u16 angles idx (wrap_angle's range)."""
+    from leansdr_tpu_torch.dsp import receiver_kernel as rk
+    lib = rk._kernel()
+    lib.demod_sincos_launch.restype = ctypes.c_int
+    lib.demod_sincos_launch.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int, ctypes.c_void_p]
+    a = torch.arange(65536, dtype=torch.float32, device=dev) * rk.K2PI
+    c, s = torch.empty_like(a), torch.empty_like(a)
+    err = lib.demod_sincos_launch(a.data_ptr(), c.data_ptr(), s.data_ptr(),
+                                  a.numel(), torch.cuda.current_stream(
+                                      dev).cuda_stream)
+    if err != 0:
+        fail(f"demod_sincos_launch: CUDA error {err}")
+    bad = int((c != torch.cos(a)).sum()) + int((s != torch.sin(a)).sum())
+    print(f"demod rotation (sincosf) == torch.cos / torch.sin on all "
+          f"{a.numel()} u16 angles: {bad} differing values")
+    if bad:
+        fail(f"the demod's sincosf differs from torch.cos/torch.sin at "
+             f"{bad} values")
+
+
+def check_demod(name, rate, nsym, C, nsamp, dev, gen):
+    """The demod kernel against demod_ref on demod_stimulus from the
+    cold-start state: every packed word and every state plane equal.
+    Returns (state max |diff|, plain ms)."""
     from leansdr_tpu_torch.dsp import receiver, receiver_kernel as rk
-    from leansdr_tpu_torch.dsp.cstln import make_dvbs2_constellation
+    from leansdr_tpu_torch.dsp.cstln import Predef, make_dvbs2_constellation
+    predef = Predef[name]
     cst = make_dvbs2_constellation(predef, rate)
     params = receiver.ReceiverParams(omega=2.0, sampler="linear",
                                      nsymbols=nsym, exact_lut=False,
@@ -186,23 +310,16 @@ def check_demod(predef, rate, nsym, C, nsamp, dev, gen):
     st_r, pk_r = rk.demod_ref(params, sc, planes, x)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
-    vk, vr = (pk_k >> 24) & 1, (pk_r >> 24) & 1
-    bad = int(((vk != vr) | ((pk_k != pk_r) & (vr == 1))).sum())
     words = int((pk_k != pk_r).sum())
-    nvalid = int(vr.sum())
-    err = 0.0
-    for k, row in STATE_KEYS.items():
-        a, b = st_k[row], st_r[row]
-        e = float((a - b).abs().max())
-        tol = max(1e-3, 1e-4 * float(b.abs().max()))
-        if not e <= tol:
-            fail(f"demod {predef.name} C={C}: state {k} differs by {e}")
-        err = max(err, e)
-    print(f"demod {predef.name:6s} C={C:5d} nsamp={nsamp}: valid symbols "
-          f"{nvalid}, mismatches at valid samples {bad}, differing words "
-          f"{words}, state max |d| {err:.3g}, plain {plain_ms:.0f} ms")
-    if bad or nvalid < C * nsamp // 4:
-        fail(f"demod kernel != demod_ref ({predef.name}, C={C})")
+    planes_equal = torch.equal(st_k, st_r)
+    nvalid = int(((pk_r >> 24) & 1).sum())
+    err = float((st_k - st_r).abs().max())
+    print(f"demod {name:6s} C={C:5d} nsamp={nsamp}: valid symbols "
+          f"{nvalid}, differing words {words}, state planes bit-equal "
+          f"{planes_equal} (max |d| {err:.3g}), plain {plain_ms:.0f} ms")
+    if words or not planes_equal or nvalid < C * nsamp // 4:
+        fail(f"demod kernel != demod_ref ({name}, C={C}, "
+             f"nsamp={nsamp})")
     return err, plain_ms
 
 
@@ -345,13 +462,14 @@ def check_fir(dev, gen):
 
 
 def check_fft(dev, gen):
-    """fft4096 against fft4096_ref (TF32 off) and torch.fft.fft at B=8 and
-    B=1024, unit-variance planes: max|dy| / max|y| < FFT_BAR (the sums
-    run in other orders, so not bit for bit). Returns (max |dy| against
-    the plain version, the largest relative error against each)."""
+    """fft4096 against fft4096_ref (TF32 off) and torch.fft.fft at B=8,
+    1024 and 1064 (8 x 133, not a power of two), unit-variance planes:
+    max|dy| / max|y| < FFT_BAR (the sums run in other orders, so not bit
+    for bit). Returns (max |dy| against the plain version, the largest
+    relative error against each)."""
     from leansdr_tpu_torch.dsp import fft_kernel as ffk
     err, rel_plain, rel_lib = 0.0, 0.0, 0.0
-    for B in (8, 1024):
+    for B in (8, 1024, 1064):
         xr, xi = (torch.randn((B, ffk.N), device=dev, generator=gen)
                   for _ in range(2))
         y = torch.complex(*ffk.fft4096(xr, xi))
@@ -988,7 +1106,16 @@ def max_sm_clock_hz() -> float:
     return float(r.stdout.strip()) * 1e6
 
 
-def kernel_times(rx, frames, dev, gen):
+def chain_ms(nsamp: int, chain: dict, clock: float) -> dict:
+    """The demod's serial bound for nsamp samples: the SASS count's and,
+    superseded, the assumed count's (ms)."""
+    return dict(chain_bound_ms=nsamp * chain["cycles_per_step"] / clock
+                * 1e3,
+                chain_bound_ms_assumed=nsamp * ASSUMED_CHAIN_CYCLES / clock
+                * 1e3)
+
+
+def kernel_times(rx, frames, dev, gen, chain):
     from leansdr_tpu_torch.dsp import mf_prefilter, receiver_kernel as rk
     from leansdr_tpu_torch.fec import viterbi_device as vd
     C, n = NCHAN, CHUNK_SAMPLES
@@ -1000,21 +1127,23 @@ def kernel_times(rx, frames, dev, gen):
                                           xm), reps=3)
     d_bytes = (n + 1) * C * 8 + n * C * 4 + 2 * rk.NSTATE * C * 4
     d_ops = 110.0 * n * C               # float ops per sample, demod.cu
-    chain_ms = n * DEMOD_CHAIN_OPS * DEP_LATENCY_CYCLES / clock * 1e3
     out = {"demod": dict(ms=demod_ms, bound=bound_ms(d_bytes, d_ops),
-                         shape=f"C={C} nsamp={n}", chain_bound_ms=chain_ms)}
-    # A fleet wide enough to occupy every SM (8192 channels = 256 warps).
-    Cw, nw = 8192, 1 << 15
-    xw = xm[:, :nw + 1].repeat(Cw // C, 1, 1).contiguous()
-    pw = planes.repeat(1, Cw // C).contiguous()
-    ms = cuda_time(lambda: rk.demod(rx.params, rx._sym_consts, pw, xw),
-                   reps=3)
-    out["demod_wide"] = dict(
-        ms=ms, bound=bound_ms((nw + 1) * Cw * 8 + nw * Cw * 4, 110.0 * nw
-                              * Cw), shape=f"C={Cw} nsamp={nw}",
-        chain_bound_ms=nw * DEMOD_CHAIN_OPS * DEP_LATENCY_CYCLES / clock
-        * 1e3)
-    del xw, pw
+                         shape=f"C={C} nsamp={n}", **chain_ms(n, chain,
+                                                              clock))}
+    # A fleet wide enough to occupy every SM (8192 channels = 256 warps),
+    # and one carrier over one of leandvb's 2^17-sample reads.
+    for key, Cw, nw in (("demod_wide", 8192, 1 << 15),
+                        ("demod_one", 1, 1 << 17)):
+        rows = torch.arange(Cw, device=dev) % C
+        xw = xm[rows, :nw + 1].contiguous()
+        pw = planes[:, rows].contiguous()
+        ms = cuda_time(lambda: rk.demod(rx.params, rx._sym_consts, pw, xw),
+                       reps=3)
+        out[key] = dict(
+            ms=ms, bound=bound_ms((nw + 1) * Cw * 8 + nw * Cw * 4,
+                                  110.0 * nw * Cw),
+            shape=f"C={Cw} nsamp={nw}", **chain_ms(nw, chain, clock))
+        del xw, pw
     T = rx.deconv.plan.nblocks
     for N, cheap_q, key in ((C * vd.NSYNCS, False, "acs"),
                             (C, True, "acs_track")):
@@ -1031,13 +1160,20 @@ def kernel_times(rx, frames, dev, gen):
                                               int32_ops_per_s(clock)),
                         shape=f"N={N} T={T} cheap_q={cheap_q}")
     for k, v in out.items():
-        chain = (f", serial chain bound {v['chain_bound_ms']:.3f} ms"
-                 if "chain_bound_ms" in v else "")
+        note = (f", serial chain bound {v['chain_bound_ms']:.3f} ms (the "
+                f"assumed count, superseded: "
+                f"{v['chain_bound_ms_assumed']:.3f})"
+                if "chain_bound_ms" in v else "")
         print(f"kernel {k:10s} {v['shape']}: {v['ms']:.3f} ms, bound "
-              f"{v['bound'][0]:.4f} ms ({v['bound'][1]}){chain}")
+              f"{v['bound'][0]:.4f} ms ({v['bound'][1]}){note}")
     print(f"demod rate: {C * n / out['demod']['ms'] / 1e3:.1f} Msamples/s "
-          f"at C={C}, {Cw * nw / out['demod_wide']['ms'] / 1e3:.1f} "
-          f"Msamples/s at C={Cw} (max SM clock {clock / 1e6:.0f} MHz)")
+          f"at C={C}, {8192 * (1 << 15) / out['demod_wide']['ms'] / 1e3:.1f}"
+          f" Msamples/s at C=8192; cycles per sample per carrier "
+          + ", ".join(f"{out[k]['shape']} "
+                      f"{out[k]['ms'] * 1e-3 * clock / m:.0f}"
+                      for k, m in (("demod", n), ("demod_wide", 1 << 15),
+                                   ("demod_one", 1 << 17)))
+          + f" (max SM clock {clock / 1e6:.0f} MHz)")
     return out
 
 
@@ -1141,7 +1277,7 @@ def fir_times(dev, gen):
     return out
 
 
-def seg_demod_times(captured, params, sym_consts, clock):
+def seg_demod_times(captured, params, sym_consts, clock, chain):
     """The demod kernel at the segmented fleet's launch shapes (pass 1 and
     pass 2 of a 64-carrier S=8 chunk, from the captured inputs)."""
     from leansdr_tpu_torch.dsp import receiver_kernel as rk
@@ -1154,32 +1290,60 @@ def seg_demod_times(captured, params, sym_consts, clock):
                        reps=3)
         b, by = bound_ms(n1 * C * 8 + n * C * 4 + 2 * rk.NSTATE * C * 4,
                          110.0 * n * C)
-        chain = n * DEMOD_CHAIN_OPS * DEP_LATENCY_CYCLES / clock * 1e3
+        cb = chain_ms(n, chain, clock)
         out.append(dict(shape=f"C={C} nsamp={n}", ms=ms, bound_ms=b,
-                        bound_by=by, chain_bound_ms=chain))
+                        bound_by=by, **cb))
         print(f"kernel demod     C={C} nsamp={n} (segmented): {ms:.3f} ms, "
-              f"bound {b:.4f} ms ({by}), serial chain bound {chain:.3f} ms")
+              f"bound {b:.4f} ms ({by}), serial chain bound "
+              f"{cb['chain_bound_ms']:.3f} ms (the assumed count: "
+              f"{cb['chain_bound_ms_assumed']:.3f})")
     return out
 
 
-def fft_times(dev, gen):
+def fft_times(dev):
     """fft4096 at B=1024 beside its plain version and one torch.fft.fft
-    (cuFFT) over the same frames as complex64. Bound: 16 bytes per point
-    (two planes in, two out) over the HBM rate against 5 N log2 N
-    operations per frame at the float rate."""
+    (cuFFT) over the same frames as complex64, each over FFT_BUFFERS
+    inputs in turn (6 x 32 MB, more than the 50 MB L2), so every call
+    reads its input from device memory as the byte bound assumes. The
+    kernel and cuFFT are timed in turns, three rounds: `ms` and
+    `library_ms` are the medians (the table's), with each round kept.
+    `ms_one_buffer` and `library_ms_one_buffer` repeat one input (which
+    the L2 partly serves). Bound: 16 bytes per point (two planes in, two
+    out) over the HBM rate against 5 N log2 N operations per frame at
+    the float rate. Its own generator: the phases after it draw what
+    they drew."""
     from leansdr_tpu_torch.dsp import fft_kernel as ffk
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 1)
     B, N = 1024, ffk.N
-    xr, xi = (torch.randn((B, N), device=dev, generator=gen)
-              for _ in range(2))
-    xc = torch.complex(xr, xi)
-    ms = cuda_time(lambda: ffk.fft4096(xr, xi), reps=50)
-    plain = cuda_time(lambda: ffk.fft4096_ref(xr, xi), reps=10)
-    lib = cuda_time(lambda: torch.fft.fft(xc), reps=50)
+    xs = [tuple(torch.randn((B, N), device=dev, generator=gen)
+                for _ in range(2)) for _ in range(FFT_BUFFERS)]
+    xcs = [(torch.complex(*x),) for x in xs]
+
+    def rotating(fn, args, reps):
+        i = [0]
+
+        def call():
+            fn(*args[i[0] % len(args)])
+            i[0] += 1
+        return cuda_time(call, reps=reps, warmup=len(args))
+
+    rounds = [(rotating(ffk.fft4096, xs, 60), rotating(torch.fft.fft, xcs, 60))
+              for _ in range(3)]
+    ms, lib = (float(np.median(v)) for v in zip(*rounds))
+    plain = rotating(ffk.fft4096_ref, xs, 12)
+    ms1 = cuda_time(lambda: ffk.fft4096(*xs[0]), reps=50)
+    lib1 = cuda_time(lambda: torch.fft.fft(*xcs[0]), reps=50)
     b, by = bound_ms(16.0 * B * N, 5.0 * N * np.log2(N) * B)
-    print(f"kernel fft4096    B={B}: {ms:.4f} ms, bound {b:.4f} ms ({by}); "
-          f"plain {plain:.4f} ms; torch.fft.fft {lib:.4f} ms")
+    print(f"kernel fft4096    B={B} ({FFT_BUFFERS} inputs in turn): "
+          f"{ms:.4f} ms (rounds " + " ".join(f"{k:.4f}" for k, _ in rounds)
+          + f"), bound {b:.4f} ms ({by}, {b / ms:.0%} of it); plain "
+          f"{plain:.4f} ms; torch.fft.fft {lib:.4f} ms (rounds "
+          + " ".join(f"{c:.4f}" for _, c in rounds) + f"); one input "
+          f"repeated: {ms1:.4f} / torch.fft.fft {lib1:.4f} ms")
     return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                bound_by=by, shape=f"B={B}")
+                bound_by=by, shape=f"B={B}", rounds=rounds,
+                ms_one_buffer=ms1, library_ms_one_buffer=lib1)
 
 
 def main() -> int:
@@ -1188,7 +1352,6 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from leansdr_tpu_torch import device as kdev
-    from leansdr_tpu_torch.dsp.cstln import Predef
     from leansdr_tpu_torch.native import build_lib
 
     dev = torch.device("cuda", 0)
@@ -1201,6 +1364,7 @@ def main() -> int:
     print(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
+    probe_build = start_probe_build()
     built = kdev.build()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -1213,14 +1377,17 @@ def main() -> int:
                  if "registers" in l or "spill" in l]
         print(f"  {name}: {so.name}: " + " | ".join(lines))
 
+    clock = max_sm_clock_hz()
+    lat = latency_table(probe_build, dev)
+    chain = demod_chain(built["demod"][0], lat, clock)
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
+    check_sincos(dev)
     d_err = 0.0
     d_plain = None
-    for predef, rate, nsym, C in ((Predef.QPSK, "1/2", 4, NCHAN),
-                                  (Predef.QPSK, "1/2", 4, 8192),
-                                  (Predef.PSK8, "2/3", 8, NCHAN)):
-        e, p = check_demod(predef, rate, nsym, C, 4096, dev, gen)
+    for predef, rate, nsym, C, n in DEMOD_CHECKS:
+        e, p = check_demod(predef, rate, nsym, C, n, dev, gen)
         d_err = max(d_err, e)
         if d_plain is None:
             d_plain = p
@@ -1229,16 +1396,16 @@ def main() -> int:
     f_err, f_plain_c, f_plain_r = check_fir(dev, gen)
 
     fft_err, fft_rel_plain, fft_rel_lib = check_fft(dev, gen)
+    fft = fft_times(dev)
     check_first_argmax(dev, gen)
 
     # Phase 4: the fleet at each rate, sequential (segments=1) and
     # segmented (segments=8), on one stimulus per rate; at rate 1/2 also
     # the segment sweep and the segmented launches against demod_ref.
-    clock = max_sm_clock_hz()
     frames = fleet_frames(dev, gen, "1/2")
     rx, run, piped_rate = main_path(dev, gen, frames)
     launches, stages, rate = run["launches"], run["stages"], run["rate"]
-    times = kernel_times(rx, frames, dev, gen)
+    times = kernel_times(rx, frames, dev, gen, chain)
     params, sym_consts = rx.params, rx._sym_consts
     del rx
     seg = {"1/2": segmented_path(dev, frames, "1/2", 8, capture=True)}
@@ -1248,7 +1415,7 @@ def main() -> int:
           f"{SEG_CHUNKS - 1} == demod_ref on {SC_DEMOD_CHECK} samples: "
           + "; ".join(f"{c} lanes (plain {ms:.0f} ms)"
                       for c, ms in seg_checks))
-    seg_times = seg_demod_times(captured, params, sym_consts, clock)
+    seg_times = seg_demod_times(captured, params, sym_consts, clock, chain)
     del captured
     sweep = {}
     for S in SEG_SWEEP:
@@ -1275,7 +1442,6 @@ def main() -> int:
     single = [single_carrier(dev, rng, stimuli, *p) for p in SC_PATHS]
     del stimuli
     ftimes = fir_times(dev, gen)
-    fft = fft_times(dev, gen)
     # Each path's own count (zeroed just before it, read just after).
     by_path = {"fleet 1/2": launches}
     by_path.update({f"fleet {r}": p["launches"] for r, p in punctured.items()})
@@ -1293,8 +1459,18 @@ def main() -> int:
          "bound_by": times["demod"]["bound"][1], "library_ms": None,
          "shape": times["demod"]["shape"],
          "chain_bound_ms": times["demod"]["chain_bound_ms"],
+         "chain_bound_ms_assumed": times["demod"]["chain_bound_ms_assumed"],
+         "chain_source": "tools/sass_chain.py on cuobjdump -sass of the "
+                         "built demod (QPSK loop), latencies from "
+                         "tools/latency_probe.cu on this card",
+         "chain_cycles_per_sample": chain["cycles_per_step"],
+         "chain_path_instructions": chain["path_instructions_per_step"],
+         "hot_instructions_per_sample": chain["instructions_per_step"],
+         "latency_cycles": lat,
          "wide_ms": times["demod_wide"]["ms"],
          "wide_shape": times["demod_wide"]["shape"],
+         "one_ms": times["demod_one"]["ms"],
+         "one_shape": times["demod_one"]["shape"],
          "segmented_shapes": seg_times,
          "segmented_plain": [dict(lanes=c, nsamp=SC_DEMOD_CHECK, plain_ms=ms)
                              for c, ms in seg_checks],
@@ -1348,6 +1524,11 @@ def main() -> int:
          "bound_ms": fft["bound_ms"], "bound_by": fft["bound_by"],
          "library_ms": fft["library_ms"], "shape": fft["shape"],
          "rel_err_plain": fft_rel_plain, "rel_err_library": fft_rel_lib,
+         "timing": f"{FFT_BUFFERS} inputs in turn (> L2), median of 3 "
+                   "rounds in turns with torch.fft.fft",
+         "rounds_ms_library_ms": fft["rounds"],
+         "ms_one_buffer": fft["ms_one_buffer"],
+         "library_ms_one_buffer": fft["library_ms_one_buffer"],
          "plain_shape": fft["shape"]},
     ]
     for k in kernels:

@@ -9,29 +9,40 @@
 //
 // What bounds it on an H100: the per-sample recurrence is strictly
 // serial (the PLL phase, M&M mu and the 3-deep history feed the next
-// sample), so one channel is one dependency chain of ~100 float
-// operations plus a sinf/cosf pair per sample. Each channel's data is
-// tiny (8 bytes in, 4 bytes out per sample), so the bound is the
+// sample), so one channel is one dependency chain of float operations,
+// a sincosf and an IEEE division per sample. Each channel's data
+// is tiny (8 bytes in, 4 bytes out per sample), so the bound is the
 // latency of that chain times the number of samples, not bytes or peak
-// FLOP/s; parallelism comes only from channels.
+// FLOP/s; parallelism comes only from channels. chip_smoke.py counts
+// the chain from this kernel's SASS.
 //
-// Design: one thread per channel, all loop state in registers, inputs
-// pre-transposed by the wrapper to [nsamp+1, C] float2 so a warp's 32
-// channels load one contiguous 256-byte row per sample, and the packed
-// output [nsamp, C] int32 is stored the same way. Each sample's
-// lookahead (the linear sampler's pin1) is the next sample, carried in
-// registers so every input is read once. 32-thread blocks spread small
-// fleets over as many SMs as there are warps. At 64 channels that fills
-// two SMs of 132: the segmented demod (a later slice) is what widens it.
+// Design: one warp per block of 32 channels, one thread per channel, all
+// loop state in registers. The wrapper transposes the input to
+// [nsamp+1, C] float2, so a warp's 32 channels are one contiguous row
+// per sample. Nothing on the chain waits for device memory: each
+// thread stages its own channel's next chunk (CHUNK + 1 rows, the last
+// one the linear sampler's lookahead) into a two-stage ring in shared
+// memory with cp.async while it runs the current chunk, and reads x0 and
+// x1 from shared memory. (In a fleet each sample's row is C * 8 bytes
+// past the last and a chunk's input exceeds the L2, so a load inside the
+// loop would wait a device-memory latency per sample.) The packed words
+// go to a [CHUNK, 32] int32 tile in shared memory and leave once per
+// chunk (16 bytes per store where C % 4 == 0). The constellation tables sit in
+// shared memory. 82.4 KB of dynamic shared memory per block (plus the
+// tables), so two blocks share an SM and 8192 channels (256 blocks) are
+// one wave. Lanes past C run on zero-filled rows and store nothing.
 //
 // Exactness: symbol, valid and cost must equal the plain version's, and
 // the recurrence amplifies any rounding difference. This file is built
 // with --fmad=false and without fast math (leansdr_tpu_torch/device.py),
-// uses IEEE cosf/sinf/sqrtf and division, and writes every expression in
-// the plain version's operation order, so each operation rounds once,
-// exactly as the PyTorch ops do. Bit tricks are kept as in the TPU
-// kernel: the truncate-then-wrap of the u16 angle, the halving count
-// from exponent bits, and the pe16 sign fold.
+// uses IEEE sqrtf and division and the IEEE sincosf (one range reduction
+// for both; chip_smoke.py holds it against torch.cos and torch.sin on
+// all 65536 u16 angles the loop can see, through demod_sincos_launch),
+// and writes every expression in the plain version's operation order,
+// so each operation rounds once, exactly as the PyTorch ops do. Bit
+// tricks are kept as in the TPU kernel: the truncate-then-wrap of the
+// u16 angle, the halving count from exponent bits, and the pe16 sign
+// fold.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -62,6 +73,11 @@ __device__ __forceinline__ float wrap_angle(float v) {
   return idx * K2PI;
 }
 
+// cos and sin of a u16 angle in radians (the rotation's cosf/sinf).
+__device__ __forceinline__ void rotation(float a, float& c, float& s) {
+  sincosf(a, &s, &c);
+}
+
 __device__ __forceinline__ int kceil(float v, int bref, float bound) {
   if (!(v > bound)) return 0;
   int b = __float_as_int(v);
@@ -83,47 +99,103 @@ __device__ __forceinline__ float atan2_poly(const DemodArgs& A, float q,
   return q < 0.0f ? -t : t;
 }
 
-__global__ void __launch_bounds__(32)
+constexpr int LANES = 32;          // channels per block: one warp
+constexpr int ROWS = CHUNK + 1;    // a chunk's samples and its lookahead
+constexpr int STAGES = 2;          // input ring: the chunk run, the next
+constexpr size_t X_BYTES = (size_t)STAGES * ROWS * LANES * sizeof(float2);
+constexpr size_t OUT_BYTES = (size_t)CHUNK * LANES * sizeof(int32_t);
+constexpr int MAX_SYM = 256;
+
+__device__ __forceinline__ void cp_async8(float2* dst, const float2* src,
+                                          bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Every group but the newest has landed.
+__device__ __forceinline__ void cp_async_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Rows base .. base + CHUNK of channel c into this lane's column of one
+// ring stage (zeros for a lane past C).
+__device__ __forceinline__ void stage_rows(float2* stage,
+                                           const float2* __restrict__ x,
+                                           int C, int c, bool active,
+                                           int base) {
+  const float2* src = x + (size_t)base * C + (active ? c : 0);
+  float2* dst = stage + threadIdx.x;
+  for (int r = 0; r < ROWS; ++r)
+    cp_async8(dst + r * LANES, src + (size_t)r * C, active);
+}
+
+template <bool QPSK>
+__global__ void __launch_bounds__(LANES)
 demod_kernel(const DemodArgs A, const float* __restrict__ sym,
-             const float2* __restrict__ x, const float* __restrict__ st_in, float* __restrict__ st_out,
-             int32_t* __restrict__ out, int C, int nsamp) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= C) return;
-  float mu = st_in[0 * C + c], phase = st_in[1 * C + c];
-  float freqw = st_in[2 * C + c], agc_gain = st_in[3 * C + c];
-  float est_insp = st_in[4 * C + c], est_sp = st_in[5 * C + c];
-  float est_ep = st_in[6 * C + c];
-  float p0r = st_in[7 * C + c], p0i = st_in[8 * C + c];
-  float p1r = st_in[9 * C + c], p1i = st_in[10 * C + c];
-  float p2r = st_in[11 * C + c], p2i = st_in[12 * C + c];
-  float c0r = st_in[13 * C + c], c0i = st_in[14 * C + c];
-  float c1r = st_in[15 * C + c], c1i = st_in[16 * C + c];
-  float c2r = st_in[17 * C + c], c2i = st_in[18 * C + c];
+             const float2* __restrict__ x, const float* __restrict__ st_in,
+             float* __restrict__ st_out, int32_t* __restrict__ out, int C,
+             int nsamp) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float2* xs = reinterpret_cast<float2*>(smem);
+  int32_t* os = reinterpret_cast<int32_t*>(smem + X_BYTES);
+  float* tab = reinterpret_cast<float*>(smem + X_BYTES + OUT_BYTES);
+  const int lane = threadIdx.x;
+  const int c0 = blockIdx.x * LANES;
+  const int c = c0 + lane;
+  const bool active = c < C;
+  const int nchunks = nsamp / CHUNK;
+  if (nchunks > 0) stage_rows(xs, x, C, c, active, 0);
+  cp_async_commit();
+
+  for (int i = lane; i < 3 * A.nsym; i += LANES) tab[i] = sym[i];
+  float st[NSTATE];
+#pragma unroll
+  for (int k = 0; k < NSTATE; ++k) st[k] = active ? st_in[k * C + c] : 0.0f;
+  float mu = st[0], phase = st[1], freqw = st[2], agc_gain = st[3];
+  float est_insp = st[4], est_sp = st[5], est_ep = st[6];
+  float p0r = st[7], p0i = st[8], p1r = st[9], p1i = st[10];
+  float p2r = st[11], p2i = st[12];
+  float c0r = st[13], c0i = st[14], c1r = st[15], c1i = st[16];
+  float c2r = st[17], c2i = st[18];
+  __syncwarp();
 
   // Constellation tables [3, nsym]: re, im, phase.
-  const float* sym_re = sym;
-  const float* sym_im = sym + A.nsym;
-  const float* sym_phase = sym + 2 * A.nsym;
+  const float* sym_re = tab;
+  const float* sym_im = tab + A.nsym;
+  const float* sym_phase = tab + 2 * A.nsym;
   const float a = sym_re[0];
   float qph[4] = {0.f, 0.f, 0.f, 0.f};
-  if (A.qpsk)
+  if (QPSK)
     for (int k = 0; k < 4; ++k) qph[k] = sym_phase[k];
-  float2 xnext = x[c];
-  for (int base = 0; base < nsamp; base += CHUNK) {
+  const int nl = min(LANES, C - c0);       // this block's channels
+  for (int ck = 0; ck < nchunks; ++ck) {
+    const int base = ck * CHUNK;
+    if (ck + 1 < nchunks)
+      stage_rows(xs + ((ck + 1) & 1) * ROWS * LANES, x, C, c, active,
+                 base + CHUNK);
+    cp_async_commit();
+    cp_async_wait_prior();                 // this chunk's rows are in
+    const float2* xk = xs + (ck & 1) * ROWS * LANES + lane;
     // pin1's rotation = pin0's advanced by the chunk-constant step.
     const float a_d = wrap_angle(-freqw);
-    const float dcos = cosf(a_d), dsin = sinf(a_d);
+    float dcos, dsin;
+    rotation(a_d, dcos, dsin);
     float lsg_re = 0.f, lsg_im = 0.f, ls_re = 0.f, ls_im = 0.f;
     float lc_re = 0.f, lc_im = 0.f;
     bool any_sym = false;
     for (int t = 0; t < CHUNK; ++t) {
-      const int g = base + t;
-      const float2 x0 = xnext;
-      const float2 x1 = x[(size_t)(g + 1) * C + c];
-      xnext = x1;
+      const float2 x0 = xk[t * LANES];
+      const float2 x1 = xk[(t + 1) * LANES];
       const bool emit = mu < 1.0f;
       const float a0 = wrap_angle(-phase);
-      const float cr0 = cosf(a0), sr0 = sinf(a0);
+      float cr0, sr0;
+      rotation(a0, cr0, sr0);
       const float cr1 = cr0 * dcos - sr0 * dsin;
       const float sr1 = sr0 * dcos + cr0 * dsin;
       const float sg0_re = x0.x * cr0 - x0.y * sr0;
@@ -148,7 +220,7 @@ demod_kernel(const DemodArgs A, const float* __restrict__ sym,
 
       float d1, d2, cpt_re, cpt_im, ph_sym;
       int near;
-      if (A.qpsk) {
+      if (QPSK) {
         const float ai = fabsf(i8), aq = fabsf(q8);
         const float di = ai - a, dq = aq - a;
         d1 = di * di + dq * dq;
@@ -208,7 +280,7 @@ demod_kernel(const DemodArgs A, const float* __restrict__ sym,
         lc_re = cpt_re; lc_im = cpt_im;
         any_sym = true;
       }
-      out[(size_t)g * C + c] =
+      os[t * LANES + lane] =
           (int32_t)(-cost) | (near << 16) | ((int)emit << 24);
       mu = mu - 1.0f;
       phase = phase + freqw;
@@ -236,7 +308,24 @@ demod_kernel(const DemodArgs A, const float* __restrict__ sym,
     }
     if (!A.allow_drift && (freqw < A.min_freqw || freqw > A.max_freqw))
       freqw = A.mid_freqw;
+
+    // The chunk's packed words, [CHUNK, nl] of out at row base.
+    __syncwarp();
+    int32_t* dst = out + (size_t)base * C + c0;
+    if ((C & 3) == 0) {                    // nl % 4 == 0: 16-byte stores
+      const int q = nl >> 2;
+      for (int i = lane; i < CHUNK * q; i += LANES) {
+        const int r = i / q, j = i - r * q;
+        *reinterpret_cast<int4*>(dst + (size_t)r * C + 4 * j) =
+            *reinterpret_cast<const int4*>(os + r * LANES + 4 * j);
+      }
+    } else if (active) {
+      for (int r = 0; r < CHUNK; ++r)
+        dst[(size_t)r * C + lane] = os[r * LANES + lane];
+    }
+    __syncwarp();
   }
+  if (!active) return;
   const float fin[NSTATE] = {mu, phase, freqw, agc_gain, est_insp, est_sp,
                              est_ep, p0r, p0i, p1r, p1i, p2r, p2i,
                              c0r, c0i, c1r, c1i, c2r, c2i};
@@ -244,16 +333,37 @@ demod_kernel(const DemodArgs A, const float* __restrict__ sym,
   for (int k = 0; k < NSTATE; ++k) st_out[k * C + c] = fin[k];
 }
 
+__global__ void sincos_kernel(const float* __restrict__ a,
+                              float* __restrict__ c, float* __restrict__ s,
+                              int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) rotation(a[i], c[i], s[i]);
+}
+
 }  // namespace
 
 extern "C" int demod_launch(const DemodArgs* args, const void* sym,
-                            const void* x,
-                            const void* st_in, void* st_out, void* out,
-                            int C, int nsamp, void* stream) {
-  const int threads = 32;
-  const int blocks = (C + threads - 1) / threads;
-  demod_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      *args, (const float*)sym, (const float2*)x, (const float*)st_in, (float*)st_out,
-      (int32_t*)out, C, nsamp);
+                            const void* x, const void* st_in, void* st_out,
+                            void* out, int C, int nsamp, void* stream) {
+  if (args->nsym < 1 || args->nsym > MAX_SYM)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = X_BYTES + OUT_BYTES + 3 * sizeof(float) * args->nsym;
+  const int blocks = (C + LANES - 1) / LANES;
+  auto kernel = args->qpsk ? demod_kernel<true> : demod_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<blocks, LANES, smem, (cudaStream_t)stream>>>(
+      *args, (const float*)sym, (const float2*)x, (const float*)st_in,
+      (float*)st_out, (int32_t*)out, C, nsamp);
+  return (int)cudaGetLastError();
+}
+
+// The loop's rotation on n angles, for the check against torch.cos and
+// torch.sin (chip_smoke.py); not a launch of the demod.
+extern "C" int demod_sincos_launch(const void* a, void* c, void* s, int n,
+                                   void* stream) {
+  sincos_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (const float*)a, (float*)c, (float*)s, n);
   return (int)cudaGetLastError();
 }

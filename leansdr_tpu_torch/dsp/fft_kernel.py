@@ -1,20 +1,25 @@
-"""Batched 4096-point forward DFT as one fused pass (the counterpart of
+"""Batched 4096-point forward DFT (the counterpart of
 leansdr_tpu/dsp/fft_pallas.py, the JAX package's FFT study kernel).
 
 `fft4096(xr, xi)` takes [B, 4096] float32 real and imaginary planes (B a
 multiple of FRAMES) and returns (yr, yi) [B, 4096], the DFT in natural
-order. It is the 64 x 64 four-step: with x[a*64 + b],
+order.
+
+CUDA tensors launch csrc/fft4096.cu, a radix-16 network (three passes
+of 16-point DFTs; the index algebra is in the source) whose inter-pass
+twiddles W4096^m are W64^(m >> 6) * W4096^(m & 63) from the two 64-entry
+tables of `twiddle_tables`. CPU tensors run `fft4096_ref`, the JAX
+kernel's 64 x 64 four-step: with x[a*64 + b],
 
     D[b, k1] = sum_a x[a*64 + b] W64^(a*k1)        DFT over a
     B[b, k1] = D[b, k1] * W4096^(b*k1)             twiddle
     y[q*64 + k1] = sum_b B[b, k1] W64^(b*q)        DFT over b
 
-CUDA tensors launch csrc/fft4096.cu; CPU tensors run `fft4096_ref`, the
-same four-step as two float32 matrix products (TF32 off) over the packed
-real block matrix [[Wr, Wi], [-Wi, Wr]], with the tables built in
-float64 and cast to float32 as the JAX kernel builds them. The two sum
-in different orders, so they agree to float32 rounding (the JAX tests'
-bar, max|dy| / max|y| < 2e-5), not bit for bit.
+as two float32 matrix products (TF32 off) over the packed real block
+matrix [[Wr, Wi], [-Wi, Wr]], with the tables built in float64 and cast
+to float32 as the JAX kernel builds them. The two sum in different
+orders, so they agree to float32 rounding (the JAX tests' bar,
+max|dy| / max|y| < 2e-5), not bit for bit.
 """
 
 import ctypes
@@ -48,11 +53,17 @@ def _twiddle_parts():
 
 
 @lru_cache(maxsize=None)
-def _roots() -> np.ndarray:
-    """W64^m for m = 0..63 as float32 [2, 64] (re, im): the kernel's root
-    table, indexed by (a*k) & 63."""
-    w = np.exp(-2j * np.pi * np.arange(N1) / N1)
-    return np.stack([w.real, w.imag]).astype(np.float32)
+def twiddle_tables() -> np.ndarray:
+    """The CUDA kernel's twiddle tables, float32 [4, 64] C-contiguous:
+    rows W64^h re, im and W4096^l re, im for h, l = 0..63, each computed
+    in float64 and rounded to float32 once. The kernel forms W4096^m
+    (0 <= m < 4096) as row pair 0-1 at m >> 6 times row pair 2-3 at
+    m & 63."""
+    j = np.arange(N1)
+    a = np.exp(-2j * np.pi * j / N1)
+    b = np.exp(-2j * np.pi * j / N)
+    return np.ascontiguousarray(
+        np.stack([a.real, a.imag, b.real, b.imag]).astype(np.float32))
 
 
 def _batch(xr: torch.Tensor) -> int:
@@ -94,18 +105,16 @@ def _kernel():
     if _lib is None:
         lib = _dev.load("fft4096")
         lib.fft4096_launch.restype = ctypes.c_int
-        lib.fft4096_launch.argtypes = [ctypes.c_void_p] * 7 + [
+        lib.fft4096_launch.argtypes = [ctypes.c_void_p] * 5 + [
             ctypes.c_int, ctypes.c_void_p]
         _lib = lib
     return _lib
 
 
-def _device_tables(dev: torch.device):
-    """(roots [2, 64], twiddle re/im [64, 64]) on dev, made once."""
+def _device_tables(dev: torch.device) -> torch.Tensor:
+    """`twiddle_tables()` on dev, made once per device."""
     if dev not in _tables:
-        twr, twi = _twiddle_parts()
-        _tables[dev] = tuple(torch.from_numpy(t).to(dev)
-                             for t in (_roots(), twr, twi))
+        _tables[dev] = torch.from_numpy(twiddle_tables()).to(dev)
     return _tables[dev]
 
 
@@ -119,13 +128,12 @@ def fft4096(xr: torch.Tensor, xi: torch.Tensor):
     dev = xr.device
     _dev.check_tensor("xr", xr, torch.float32, (B, N), dev)
     _dev.check_tensor("xi", xi, torch.float32, (B, N), dev)
-    roots, twr, twi = _device_tables(dev)
+    tables = _device_tables(dev)
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     if B:
         err = _kernel().fft4096_launch(
-            roots.data_ptr(), twr.data_ptr(), twi.data_ptr(), xr.data_ptr(),
-            xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), B,
-            _dev.stream_handle(xr))
+            tables.data_ptr(), xr.data_ptr(), xi.data_ptr(), yr.data_ptr(),
+            yi.data_ptr(), B, _dev.stream_handle(xr))
         _dev.check_launch("fft4096", err)
         _FFT.launches += 1
     return yr, yi

@@ -22,6 +22,7 @@ phase error is the polynomial atan2 of math_utils.
 """
 
 import ctypes
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -333,6 +334,15 @@ def _demod_args(params: ReceiverParams, sym_consts) -> _DemodArgs:
     return a
 
 
+@lru_cache(maxsize=64)
+def _launch_consts(params: ReceiverParams, sym_consts, device):
+    """(DemodArgs, sym [3, nsym] float32 on device) for one (params,
+    constellation, device), built once: the launch reuses both instead of
+    a host-to-device copy per call."""
+    sym = torch.tensor(sym_consts, dtype=torch.float32, device=device)
+    return _demod_args(params, sym_consts), sym
+
+
 _lib = None
 
 
@@ -366,8 +376,7 @@ def demod(params: ReceiverParams, sym_consts, planes: torch.Tensor,
     _dev.check_tensor("planes", planes, torch.float32, (NSTATE, C),
                       x.device)
     lib = _kernel()
-    args = _demod_args(params, sym_consts)
-    sym = torch.tensor(sym_consts, dtype=torch.float32, device=x.device)
+    args, sym = _launch_consts(params, sym_consts, x.device)
     xt = x.transpose(0, 1).contiguous()      # [nsamp+1, C, 2]: coalesced
     st_out = torch.empty_like(planes)
     packed = torch.empty((nsamp, C), dtype=torch.int32, device=x.device)

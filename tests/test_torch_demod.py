@@ -97,16 +97,42 @@ def test_demod_matches_jax_qpsk_huge_amplitudes():
 def test_demod_matches_jax_nonqpsk(predef, cr, nsym):
     """The generic nsym-way argmin branch, noisy random symbols at the
     AGC setpoint amplitude."""
-    rng = np.random.default_rng(5)
-    cstln = make_dvbs2_constellation(predef, cr)
-    n = 1280
-    pts = cstln.symbols.astype(np.float32)
-    sym_ix = rng.integers(0, nsym, n // 2 + 2)
-    base = np.repeat(pts[sym_ix], 2, axis=0)[: n + 1]
-    x = (base + rng.normal(scale=8.0, size=base.shape)).astype(np.float32)
+    x = _noisy_symbols(predef, cr, nsym, 1280, np.random.default_rng(5))
     pj, sj, pt, st = _run_both(predef, cr, nsym, x[None])
     assert ((pt >> 24) & 1).sum() > 100
     _check(pj, sj, pt, st)
+
+
+def _noisy_symbols(predef, cr, nsym, n, rng):
+    """[n+1, 2] float32: random symbols of the constellation at 2 samples
+    per symbol, at the AGC setpoint amplitude, with noise."""
+    pts = make_dvbs2_constellation(predef, cr).symbols.astype(np.float32)
+    sym_ix = rng.integers(0, nsym, n // 2 + 2)
+    base = np.repeat(pts[sym_ix], 2, axis=0)[: n + 1]
+    return (base + rng.normal(scale=8.0, size=base.shape)).astype(np.float32)
+
+
+def test_demod_constellation_switch_matches_jax():
+    """QPSK, then 8PSK, then QPSK again in one process, each equal to the
+    JAX package's demod; the launch constants the CUDA path caches per
+    (params, constellation, device) follow every switch (built for each
+    new key, the same object for a key seen before)."""
+    rng = np.random.default_rng(9)
+    seen = []
+    for predef, cr, nsym in ((Predef.QPSK, "1/2", 4), (Predef.PSK8, "2/3", 8),
+                             (Predef.QPSK, "1/2", 4)):
+        x = _noisy_symbols(predef, cr, nsym, 640, rng)
+        pj, sj, pt, st = _run_both(predef, cr, nsym, x[None])
+        assert ((pt >> 24) & 1).sum() > 50
+        _check(pj, sj, pt, st)
+        sc = rk.sym_constants(make_dvbs2_constellation(predef, cr))
+        tparams = t_receiver.ReceiverParams(omega=2.0, sampler="linear",
+                                            nsymbols=nsym, exact_lut=False)
+        args, sym = rk._launch_consts(tparams, sc, torch.device("cpu"))
+        assert (args.nsym, args.qpsk) == (nsym, int(nsym == 4))
+        assert torch.equal(sym, torch.tensor(sc, dtype=torch.float32))
+        seen.append(args)
+    assert seen[2] is seen[0] and seen[1] is not seen[0]
 
 
 def test_state_pack_roundtrip():
