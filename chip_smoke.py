@@ -18,8 +18,10 @@ TS packets that were sent.
 Phases (any failure exits non-zero):
   1. card name and power limit, versions, kernel build time; dependent
      instruction latencies on the card (tools/latency_probe.cu) and the
-     demod's serial chain counted from its SASS (tools/sass_chain.py on
-     `cuobjdump -sass` of the built library);
+     serial chains of the demod (per sample) and of the ACS kernel (per
+     trellis block, ACQUIRE and TRACK) counted from their SASS
+     (tools/sass_chain.py on `cuobjdump -sass` of the built libraries),
+     each also as one warp issuing it in order;
   2. the demod's rotation (sincosf) == torch.cos / torch.sin bit for bit
      on all 65536 u16 angles; demod kernel == demod_ref, every packed
      word and every state plane bit for bit (DEMOD_CHECKS: QPSK at C=64
@@ -30,13 +32,18 @@ Phases (any failure exits non-zero):
   3. ACS kernel == viterbi_acs_ref bit for bit (ties forced, from zero
      and from a live state; T=2048 at the fleet's N=256 ACQUIRE lanes
      with and without cheap_q and its N=64 TRACK lanes with cheap_q;
-     T=128 at the single carrier's N=4 replica lanes without cheap_q);
+     T=128 at the single carrier's N=4 replica lanes without cheap_q;
+     the callers' int16 cost extremes at the fleet's shapes; one full
+     TRACK decode, N=64 x T=2^17 with ties, against its plain version
+     run on the host CPU in a child process while the fleet runs);
      banked ACS kernel == viterbi_acs_banked_ref bit for bit at 4/6,
      3/4, 5/6 and 7/8 (ties forced, from zero and from a live state;
      T=1024 at each rate's fleet ACQUIRE lanes, at TRACK's 64 and at
      N=200; T=128 at the single carrier's nsyncs lanes, 8 to 16);
      cfir == cfir_ref and fir == fir_ref bit for bit (nt 21, 79, 2048;
-     lengths off the tile; from a zero head and mid-stream); fft4096
+     lengths off the tile; from a zero head and mid-stream; cfir also
+     decimated: the --resample stage's launch at its shape, ragged
+     counts, other steps); fft4096
      within max|dy| / max|y| < 2e-5 of fft4096_ref and of torch.fft.fft
      at B=8, 1024 and 1064 (the sums run in other orders); torch.argmax takes
      the first maximum on the card, as the segmented demod needs;
@@ -65,18 +72,22 @@ Phases (any failure exits non-zero):
      the first 1024 samples of the read: its plain version costs ~3 ms
      per sample on the card);
   5. kernel times at the main path's shapes (the demod also at the
-     segmented launches' shapes and at one carrier), bounds (the demod's
-     serial bound from phase 1), one `kernels` line (cfir/fir beside one
-     conv1d computing the same FIR, TF32 off; fft4096 beside one
-     torch.fft.fft, in turns over inputs that exceed the L2, timed in
-     phase 3 right after its check);
+     segmented launches' shapes and at one carrier; the ACS at N=256,
+     N=64 and N=4), bounds (the demod's and the ACS's serial bounds from
+     phase 1), one `kernels` line (cfir full rate and decimated, and fir,
+     beside one conv1d computing the same FIR, TF32 off, cfir and its
+     conv1d as device time from CUDA-graph replays in turns and as
+     host-paced calls; fft4096 beside one torch.fft.fft, in turns over
+     inputs that exceed the L2, timed in phase 3 right after its check);
   6. last line: {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when no CUDA device is present.
 """
 
+import atexit
 import ctypes
 import json
+import os
 import subprocess
 import sys
 import time
@@ -124,12 +135,48 @@ DEMOD_CHECKS = (
 ASSUMED_CHAIN_CYCLES = 90 * 4
 DEMOD_QPSK_FUNCTION = "demod_kernelILb1E"     # demod_kernel<true>
 TOOLS = Path(__file__).resolve().parent / "tools"
-LATENCY_PROBES = 15                           # tools/latency_probe.cu
+LATENCY_PROBES = 21                           # tools/latency_probe.cu
+# The ACS kernel's per-block chain, from its SASS the same way: per
+# mode (function, marker, markers per block, least markers in the
+# loop). This kernel's loops hold its warp reductions (REDUX, no MUFU):
+# two per block in ACQUIRE (best and second-best key), 1.25 in TRACK
+# (cheap_q: the second-best on one block in four). The parent kernel
+# (before the lagged normalisation; tools/kernel_ab.py counts it)
+# reduced by shuffles and the compiler versioned its one loop on
+# cheap_q: TRACK's, 65 SHFL per 4 blocks (2 inputs, 8 metric and path,
+# 5 reduction levels each, and 5 more for the one q), is the smaller;
+# ACQUIRE's holds 80 (20 per block).
+ACS_FUNCTIONS = {"acquire": ("acs_kernelILb0E", "REDUX", 2.0, 1),
+                 "track": ("acs_kernelILb1E", "REDUX", 1.25, 1)}
+ACS_LEGACY_FUNCTIONS = {"acquire": ("acs_kernel", "SHFL", 20.0, 80),
+                        "track": ("acs_kernel", "SHFL", 16.25, 1)}
 # The single-carrier paths' launches held against the plain versions:
 # the first launch of each kernel and this one (a live, mid-stream
 # state); the demod on this many samples of its read.
 SC_LIVE_LAUNCH = {"demod": 20, "cfir": 20, "acs": 4000, "acs_banked": 4000}
 SC_DEMOD_CHECK = 1024
+ACS_LONG_T = 1 << 17             # blocks of one TRACK decode (main path)
+# cfir's decimated launches held against cfir_ref, per filter length:
+# (start, step, count). At 79 taps the --resample stage's launch on one
+# of its reads (FirFilterDevice: start nt, step decim 7, every output it
+# keeps), then ragged counts (off the 128-output tile) and other steps.
+RESAMPLE_NT, RESAMPLE_N, RESAMPLE_DECIM = 79, (1 << 17) + 85, 7
+CFIR_DECIMATED = {
+    21: ((21, 3, 5000), (0, 5, 10000), (7, 1, 129)),
+    79: ((79, 7, (RESAMPLE_N - 79) // 7), (79, 7, 1000), (2, 2, 65535)),
+    2048: ((2048, 7, 993), (0, 11, 817)),
+}
+CHILDREN = []                    # processes this script started
+
+
+def _stop_children():
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+atexit.register(_stop_children)
 
 
 def fail(msg: str):
@@ -176,12 +223,15 @@ def start_probe_build():
                             stderr=subprocess.STDOUT, text=True), so
 
 
-def latency_table(build, dev) -> dict:
+def latency_table(build, dev) -> tuple:
     """Dependent-instruction latencies in cycles on this card, from
     tools/latency_probe.cu, keyed for tools/sass_chain.py: `fixed` (every
     fixed-latency pipe) is the largest of FADD, FMUL, FFMA, FMNMX, FSEL,
     SHF and IMAD; FSETP, MUFU.RCP, MUFU.SIN and MUFU.RSQ are their pair
-    less the partner; F2I and I2F(P) half their pair."""
+    less the partner; F2I and I2F(P) half their pair. Returns (the
+    demod's table, the keys its chain count uses; the integer table for
+    the ACS: that plus SHFL.IDX, SHFL.BFLY, IMNMX/VIMNMX, SEL, ISETP (its
+    pair less SEL) and REDUX)."""
     proc, so = build
     text, _ = proc.communicate(timeout=600)
     if proc.returncode != 0:
@@ -193,7 +243,7 @@ def latency_table(build, dev) -> dict:
     lib.probe_rep.argtypes = []
     fin = torch.tensor([1.5, 1.0, 0.999], device=dev)
     iin = torch.ones(2, dtype=torch.int32, device=dev)
-    fout = torch.zeros(LATENCY_PROBES, device=dev)
+    fout = torch.zeros(LATENCY_PROBES + 1, device=dev)
     cyc = torch.zeros(LATENCY_PROBES, dtype=torch.int64, device=dev)
     for _ in range(2):                    # the second run is warm
         err = lib.run_probes(fin.data_ptr(), iin.data_ptr(),
@@ -201,8 +251,8 @@ def latency_table(build, dev) -> dict:
         if err != 0:
             fail(f"latency probe: CUDA error {err}")
     (fadd, fmul, ffma, fmnmx, fsel, fsetp_fsel, shf, imad, conv_pair, trunc,
-     floor, rcp_fadd, sin_pair, rsq_fadd, lds) = (
-        cyc.cpu().double() / lib.probe_rep()).tolist()
+     floor, rcp_fadd, sin_pair, rsq_fadd, lds, shfl_idx, shfl_bfly, imnmx,
+     sel, isetp_sel, redux) = (cyc.cpu().double() / lib.probe_rep()).tolist()
     lat = {"fixed": max(fadd, fmul, ffma, fmnmx, fsel, shf, imad),
            "FSETP": fsetp_fsel - fsel, "F2I": conv_pair / 2,
            "I2F": conv_pair / 2, "I2FP": conv_pair / 2, "FRND.TRUNC": trunc,
@@ -210,23 +260,60 @@ def latency_table(build, dev) -> dict:
            "MUFU.RCP": rcp_fadd - fadd, "MUFU.SIN": sin_pair - fmul,
            "MUFU.COS": sin_pair - fmul, "MUFU.RSQ": rsq_fadd - fadd,
            "LDS": lds}
+    lat_int = dict(lat, **{"SHFL.IDX": shfl_idx, "SHFL.BFLY": shfl_bfly,
+                           "IMNMX": imnmx, "VIMNMX": imnmx, "SEL": sel,
+                           "ISETP": isetp_sel - sel, "REDUX": redux})
     print("dependent latency, cycles (tools/latency_probe.cu): "
-          + ", ".join(f"{k} {v:.2f}" for k, v in lat.items()))
-    return lat
+          + ", ".join(f"{k} {v:.2f}" for k, v in lat_int.items()))
+    return lat, lat_int
+
+
+def sass_of(so) -> str:
+    """`cuobjdump -sass` of a built library."""
+    from leansdr_tpu_torch import device as kdev
+    cuobjdump = Path(kdev.nvcc_path()).parent / "cuobjdump"
+    r = subprocess.run([str(cuobjdump), "-sass", str(so)],
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        fail(f"cuobjdump -sass {so}: {r.stderr}")
+    return r.stdout
+
+
+def acs_chain(so, lat_int, clock, functions=None) -> dict:
+    """The rate-1/2 ACS kernel's loop-carried chain per trellis block
+    from its built library's SASS (tools/sass_chain.py), per mode:
+    {mode: analyse(...) result}. `functions` maps a mode to (function,
+    marker, markers per block, least markers in the loop);
+    ACS_FUNCTIONS by default."""
+    sys.path.insert(0, str(TOOLS))
+    import sass_chain
+    text = sass_of(so)
+    out = {}
+    for mode, (fn, marker, per, least) in (functions
+                                           or ACS_FUNCTIONS).items():
+        res = sass_chain.analyse(text, fn, lat_int, marker, None, per, least)
+        out[mode] = res
+        print(f"acs chain [{mode}] (tools/sass_chain.py on cuobjdump -sass "
+              f"{Path(so).name}, {res['function']} loop {res['loop'][0]}-"
+              f"{res['loop'][1]}, {res['unroll']:g} blocks per pass): "
+              f"{res['cycles_per_step']:.1f} cycles per block "
+              f"({res['cycles_per_step'] / clock * 1e9:.1f} ns at "
+              f"{clock / 1e6:.0f} MHz), {res['path_instructions_per_step']:.1f}"
+              f" instructions on the loop-carried path, "
+              f"{res['instructions_per_step']:.1f} instructions per block, "
+              f"{res['issue_cycles_per_step']:.1f} cycles per block issued "
+              f"in order by one warp; "
+              f"mix {res['mix']}; priced as fixed-pipe: "
+              f"{', '.join(res['priced_as_fixed'])}")
+    return out
 
 
 def demod_chain(so, lat, clock) -> dict:
     """The demod's serial bound per sample from its built library's SASS
     (tools/sass_chain.py on the QPSK loop of `cuobjdump -sass`)."""
-    from leansdr_tpu_torch import device as kdev
     sys.path.insert(0, str(TOOLS))
     import sass_chain
-    cuobjdump = Path(kdev.nvcc_path()).parent / "cuobjdump"
-    r = subprocess.run([str(cuobjdump), "-sass", str(so)],
-                       capture_output=True, text=True, timeout=300)
-    if r.returncode != 0:
-        fail(f"cuobjdump -sass {so.name}: {r.stderr}")
-    res = sass_chain.analyse(r.stdout, DEMOD_QPSK_FUNCTION, lat)
+    res = sass_chain.analyse(sass_of(so), DEMOD_QPSK_FUNCTION, lat)
     print(f"demod serial chain (tools/sass_chain.py on cuobjdump -sass "
           f"{so.name}, QPSK loop {res['loop'][0]}-{res['loop'][1]}): "
           f"{res['path_instructions_per_step']:.0f} instructions on the "
@@ -234,7 +321,9 @@ def demod_chain(so, lat, clock) -> dict:
           f"sample ({res['cycles_per_step'] / clock * 1e9:.1f} ns at "
           f"{clock / 1e6:.0f} MHz; assumed before: {ASSUMED_CHAIN_CYCLES}); "
           f"{res['instructions_per_step']:.0f} hot-path instructions per "
-          f"sample; priced as fixed-pipe: {', '.join(res['priced_as_fixed'])}")
+          f"sample, {res['issue_cycles_per_step']:.1f} cycles per sample "
+          f"issued in order by one warp; priced as fixed-pipe: "
+          f"{', '.join(res['priced_as_fixed'])}")
     return res
 
 
@@ -326,19 +415,27 @@ def check_demod(name, rate, nsym, C, nsamp, dev, gen):
 # ---------------------------------------------------------------- phase 3
 
 def check_acs(dev, gen):
+    """acs == viterbi_acs_ref bit for bit: T=2048 at the fleet's N=256
+    ACQUIRE lanes with and without cheap_q and its N=64 TRACK lanes with
+    cheap_q, T=128 at the single carrier's N=4 lanes; costs 0..-3 (ties
+    forced) and, at the fleet's shapes, the callers' int16 extremes
+    (-2^15, 2^15 - 1, 0 or anything between: the lagged normalisation's
+    headroom); round 0 from zero planes, round 1 from the kernel's end
+    state. Returns (max |diff|, plain ms at N=256, T=2048, ties)."""
     from leansdr_tpu_torch.fec import viterbi_device as vd
     out = []
-    for N, cheap_q, T in ((NCHAN * vd.NSYNCS, False, 2048),
-                          (NCHAN * vd.NSYNCS, True, 2048),
-                          (NCHAN, True, 2048),
-                          (sc_lanes("1/2", dev), False, 128)):
+    for N, cheap_q, T, costs in ((NCHAN * vd.NSYNCS, False, 2048, "ties"),
+                                 (NCHAN * vd.NSYNCS, True, 2048, "ties"),
+                                 (NCHAN, True, 2048, "ties"),
+                                 (sc_lanes("1/2", dev), False, 128, "ties"),
+                                 (NCHAN * vd.NSYNCS, False, 2048, "int16"),
+                                 (NCHAN, True, 2048, "int16")):
         z = torch.zeros((64, N), dtype=torch.int32, device=dev)
         m0, p0 = z, z
         for rnd in range(2):      # second round starts from a live state
             cs = torch.randint(0, 4, (T, N), device=dev, dtype=torch.int32,
                                generator=gen)
-            cost = -torch.randint(0, 4, (T, N), device=dev,
-                                  dtype=torch.int32, generator=gen)
+            cost = acs_costs(costs, T, N, dev, gen)
             k = vd.viterbi_acs("1/2", m0, p0, cs, cost, cheap_q=cheap_q)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -347,15 +444,90 @@ def check_acs(dev, gen):
             plain_ms = (time.perf_counter() - t0) * 1e3
             for name, a, b in zip(("metric", "path", "us", "q"), k, r):
                 if not torch.equal(a, b):
-                    fail(f"ACS N={N} cheap_q={cheap_q} round {rnd}: {name} "
-                         f"differs in {int((a != b).sum())} entries")
+                    fail(f"ACS N={N} cheap_q={cheap_q} costs {costs} round "
+                         f"{rnd}: {name} differs in "
+                         f"{int((a != b).sum())} entries")
             err = max(float((a.to(torch.int64) - b.to(torch.int64)).abs()
                             .max()) for a, b in zip(k, r))
-            print(f"acs cheap_q={cheap_q!s:5s} N={N} T={T} round {rnd}: "
-                  f"bit-equal, plain {plain_ms:.0f} ms")
+            print(f"acs cheap_q={cheap_q!s:5s} N={N} T={T} costs {costs} "
+                  f"round {rnd}: bit-equal, plain {plain_ms:.0f} ms")
             out.append((err, plain_ms))
             m0, p0 = k[0], k[1]
     return max(e for e, _ in out), out[0][1]
+
+
+def acs_costs(kind, T, N, dev, gen):
+    """ACS block costs [T, N] int32: "ties", 0..-3 (metric ties on most
+    blocks); "int16", the callers' extremes -2^15, 2^15 - 1 and 0, or
+    anything between, a quarter each."""
+    if kind == "ties":
+        return -torch.randint(0, 4, (T, N), device=dev, dtype=torch.int32,
+                              generator=gen)
+    pick = torch.randint(0, 4, (T, N), device=dev, generator=gen)
+    any16 = torch.randint(-(1 << 15), 1 << 15, (T, N), device=dev,
+                          dtype=torch.int32, generator=gen)
+    ext = torch.tensor([-(1 << 15), (1 << 15) - 1, 0], dtype=torch.int32,
+                       device=dev)
+    return torch.where(pick < 3, ext[pick.clamp(max=2)], any16)
+
+
+def start_long_acs(dev, gen):
+    """acs over one full TRACK decode of the main path (N=64 lanes,
+    T=2^17 blocks, cheap_q, ties) from a live state; its plain version
+    runs on this host's CPU in a child process (`--plain-acs`) while the
+    later phases run: on the card it costs ~0.5 ms of small ops per
+    block, and integer arithmetic gives the same bits on either device.
+    Returns what finish_long_acs needs."""
+    from leansdr_tpu_torch import device as kdev
+    from leansdr_tpu_torch.fec import viterbi_device as vd
+    N, T = NCHAN, ACS_LONG_T
+    z = torch.zeros((64, N), dtype=torch.int32, device=dev)
+    cs0 = torch.randint(0, 4, (64, N), device=dev, dtype=torch.int32,
+                        generator=gen)
+    m0, p0, _, _ = vd.viterbi_acs("1/2", z, z, cs0,
+                                  acs_costs("ties", 64, N, dev, gen),
+                                  cheap_q=True)
+    cs = torch.randint(0, 4, (T, N), device=dev, dtype=torch.int32,
+                       generator=gen)
+    cost = acs_costs("ties", T, N, dev, gen)
+    k = vd.viterbi_acs("1/2", m0, p0, cs, cost, cheap_q=True)
+    src = kdev.BUILD / "long_acs_in.pt"
+    dst = kdev.BUILD / "long_acs_out.pt"
+    dst.unlink(missing_ok=True)
+    torch.save(dict(m=m0.cpu(), p=p0.cpu(), cs=cs.cpu(), cost=cost.cpu()),
+               src)
+    proc = subprocess.Popen([sys.executable, __file__, "--plain-acs",
+                             str(src), str(dst)])
+    CHILDREN.append(proc)
+    return proc, dst, [v.cpu() for v in k], time.perf_counter()
+
+
+def finish_long_acs(job):
+    """Wait for the long TRACK launch's plain version; every output equal
+    bit for bit."""
+    proc, dst, k, t0 = job
+    if proc.wait(timeout=900) != 0:
+        fail(f"plain ACS child exited {proc.returncode}")
+    r = torch.load(dst)
+    for name, a, b in zip(("metric", "path", "us", "q"), k, r):
+        if not torch.equal(a, b):
+            fail(f"ACS N={NCHAN} T={ACS_LONG_T} cheap_q: {name} differs "
+                 f"from the plain version in {int((a != b).sum())} entries")
+    print(f"acs cheap_q=True  N={NCHAN} T={ACS_LONG_T} costs ties (one "
+          f"TRACK decode, live state): bit-equal to the plain version on "
+          f"the host CPU ({time.perf_counter() - t0:.0f} s since launch)")
+
+
+def plain_acs_job(src, dst):
+    """The child of start_long_acs: viterbi_acs_ref on the host CPU, on
+    one thread at the lowest priority (the parent's host stages are
+    being timed meanwhile)."""
+    os.nice(19)
+    torch.set_num_threads(1)
+    from leansdr_tpu_torch.fec import viterbi_device as vd
+    a = torch.load(src)
+    torch.save(vd.viterbi_acs_ref("1/2", a["m"], a["p"], a["cs"], a["cost"],
+                                  cheap_q=True), dst)
 
 
 def sc_lanes(rate, dev):
@@ -423,10 +595,12 @@ def check_acs_banked(dev, gen):
 def check_fir(dev, gen):
     """cfir == cfir_ref and fir == fir_ref bit for bit (both built with
     --fmad=false) at nt in {21, 79, 2048}, at lengths that are not
-    multiples of the kernel's 256-sample tile, from a stream head (zeros
-    before it) and from mid-stream; fir on 128 rows. Returns (max |diff|,
-    plain cfir ms and plain fir ms at nt=79, n=2^17+85, the --resample
-    path's shape)."""
+    multiples of the kernels' tiles, from a stream head (zeros before it)
+    and from mid-stream; fir on 128 rows; cfir also decimated
+    (CFIR_DECIMATED: the --resample stage's launch, start nt, step 7,
+    every output it keeps, at its shape; ragged counts and other steps
+    at the other filter lengths). Returns (max |diff|, plain cfir ms and
+    plain fir ms at nt=79, n=2^17+85, the --resample path's shape)."""
     from leansdr_tpu_torch.dsp import fir_kernel as fk
     err, plain = 0.0, {}
     for nt, n in ((21, 50001), (79, (1 << 17) + 85), (2048, 9000)):
@@ -435,16 +609,20 @@ def check_fir(dev, gen):
             if head:
                 x[:, :nt] = 0
             w = torch.randn((2, nt), device=dev, generator=gen) / nt ** 0.5
-            k = fk.cfir(x, w[0].contiguous(), w[1].contiguous())
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r = fk.cfir_ref(x, w[0], w[1])
-            torch.cuda.synchronize()
-            plain["cfir", nt] = (time.perf_counter() - t0) * 1e3
-            if not torch.equal(k, r):
-                fail(f"cfir nt={nt} n={n} head={head}: "
-                     f"{int((k != r).sum())} outputs differ")
-            err = max(err, float((k - r).abs().max()))
+            tr, ti = w[0].contiguous(), w[1].contiguous()
+            for start, step, count in ((0, 1, None),) + CFIR_DECIMATED[nt]:
+                k = fk.cfir(x, tr, ti, start, step, count)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = fk.cfir_ref(x, tr, ti, start, step, count)
+                torch.cuda.synchronize()
+                if step == 1:
+                    plain["cfir", nt] = (time.perf_counter() - t0) * 1e3
+                if not torch.equal(k, r):
+                    fail(f"cfir nt={nt} n={n} head={head} start={start} "
+                         f"step={step} count={count}: "
+                         f"{int((k != r).sum())} outputs differ")
+                err = max(err, float((k - r).abs().max()))
         xr = 40 * torch.randn((128, n), device=dev, generator=gen)
         tr = torch.randn(nt, device=dev, generator=gen) / nt ** 0.5
         k = fk.fir(xr, tr)
@@ -456,8 +634,10 @@ def check_fir(dev, gen):
         if not torch.equal(k, r):
             fail(f"fir nt={nt} n={n}: {int((k != r).sum())} outputs differ")
         err = max(err, float((k - r).abs().max()))
-        print(f"cfir/fir nt={nt} n={n}: bit-equal (head and mid-stream), "
-              f"plain {plain['cfir', nt]:.0f} / {plain['fir', nt]:.0f} ms")
+        print(f"cfir/fir nt={nt} n={n}: bit-equal (head and mid-stream; "
+              f"cfir also at (start, step, count) "
+              f"{[c for c in CFIR_DECIMATED[nt]]}), plain "
+              f"{plain['cfir', nt]:.0f} / {plain['fir', nt]:.0f} ms")
     return err, plain["cfir", 79], plain["fir", 79]
 
 
@@ -1115,7 +1295,7 @@ def chain_ms(nsamp: int, chain: dict, clock: float) -> dict:
                 * 1e3)
 
 
-def kernel_times(rx, frames, dev, gen, chain):
+def kernel_times(rx, frames, dev, gen, chain, acs_chain_res):
     from leansdr_tpu_torch.dsp import mf_prefilter, receiver_kernel as rk
     from leansdr_tpu_torch.fec import viterbi_device as vd
     C, n = NCHAN, CHUNK_SAMPLES
@@ -1145,25 +1325,43 @@ def kernel_times(rx, frames, dev, gen, chain):
             shape=f"C={Cw} nsamp={nw}", **chain_ms(nw, chain, clock))
         del xw, pw
     T = rx.deconv.plan.nblocks
-    for N, cheap_q, key in ((C * vd.NSYNCS, False, "acs"),
-                            (C, True, "acs_track")):
-        cs = torch.randint(0, 4, (T, N), device=dev, dtype=torch.int32,
+    # ACQUIRE (N=256) and TRACK (N=64, cheap_q) of the fleet, one decode
+    # of T=2^17 blocks; the hq 1/2 single carrier's N=4 replica lanes over
+    # one 128-block chunk (device time from graph replays of 50 calls:
+    # the host paces back-to-back calls of a kernel this short).
+    for N, cheap_q, Tk, key in ((C * vd.NSYNCS, False, T, "acs"),
+                                (C, True, T, "acs_track"),
+                                (sc_lanes("1/2", dev), False, 128, "acs_sc")):
+        cs = torch.randint(0, 4, (Tk, N), device=dev, dtype=torch.int32,
                            generator=gen)
-        cost = -torch.randint(0, 40, (T, N), device=dev, dtype=torch.int32,
+        cost = -torch.randint(0, 40, (Tk, N), device=dev, dtype=torch.int32,
                               generator=gen)
         z = torch.zeros((64, N), dtype=torch.int32, device=dev)
-        ms = cuda_time(lambda: vd.viterbi_acs("1/2", z, z, cs, cost,
-                                              cheap_q=cheap_q), reps=3)
-        a_bytes = T * N * 16 + 4 * 64 * N * 4
-        a_ops = T * N * 64 * 16.0        # ~16 integer ops per state
-        out[key] = dict(ms=ms, bound=bound_ms(a_bytes, a_ops,
-                                              int32_ops_per_s(clock)),
-                        shape=f"N={N} T={T} cheap_q={cheap_q}")
+
+        def call():
+            return vd.viterbi_acs("1/2", z, z, cs, cost, cheap_q=cheap_q)
+        ms = (float(np.median(graph_ms({"acs": call})["acs"])) if Tk == 128
+              else cuda_time(call, reps=3))
+        a_bytes = Tk * N * 16 + 4 * 64 * N * 4
+        a_ops = Tk * N * 64 * 16.0       # ~16 integer ops per state
+        ops_b = bound_ms(a_bytes, a_ops, int32_ops_per_s(clock))
+        mode = "track" if cheap_q else "acquire"
+        cyc = acs_chain_res[mode]["cycles_per_step"]
+        chain_b = Tk * cyc / clock * 1e3
+        out[key] = dict(ms=ms, bound=ops_b, chain_bound_ms=chain_b,
+                        chain_cycles_per_block=cyc,
+                        cycles_per_block=ms * 1e-3 * clock / Tk,
+                        shape=f"N={N} T={Tk} cheap_q={cheap_q}")
     for k, v in out.items():
         note = (f", serial chain bound {v['chain_bound_ms']:.3f} ms (the "
                 f"assumed count, superseded: "
                 f"{v['chain_bound_ms_assumed']:.3f})"
-                if "chain_bound_ms" in v else "")
+                if "chain_bound_ms_assumed" in v else
+                f", {v['cycles_per_block']:.1f} cycles per block; SASS chain"
+                f" {v['chain_cycles_per_block']:.1f} cycles per block, "
+                f"{v['chain_bound_ms']:.4f} ms (the bound: the larger of "
+                f"the two)"
+                if "chain_cycles_per_block" in v else "")
         print(f"kernel {k:10s} {v['shape']}: {v['ms']:.3f} ms, bound "
               f"{v['bound'][0]:.4f} ms ({v['bound'][1]}){note}")
     print(f"demod rate: {C * n / out['demod']['ms'] / 1e3:.1f} Msamples/s "
@@ -1231,34 +1429,83 @@ def banked_times(dev, gen):
     return out
 
 
+def graph_ms(fns: dict, reps: int = 50, rounds: int = 3) -> dict:
+    """Device ms per call of each fn() without host pacing: `reps` calls
+    of each captured in one torch.cuda.CUDAGraph (the ctypes launches on
+    the capturing stream are captured with it), the replays timed with
+    CUDA events in turns a, b, b, a (for two fns), `rounds` times.
+    Returns {name: [ms per call, one per replay]}."""
+    graphs = {}
+    for name, fn in fns.items():
+        fn()                                     # warm up (and build)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                fn()
+        g.replay()
+        graphs[name] = g
+    torch.cuda.synchronize()
+    names = list(fns)
+    order = names + names[::-1]
+    out = {k: [] for k in names}
+    s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(rounds):
+        for k in order:
+            s.record()
+            graphs[k].replay()
+            e.record()
+            torch.cuda.synchronize()
+            out[k].append(s.elapsed_time(e) / reps)
+    return out
+
+
 def fir_times(dev, gen):
     """cfir at the --resample path's shape (one 2^17-sample read plus the
-    filter history, 79 taps) and fir at the bench baseline's shape (64
-    channels' re/im rows, 2^18 samples, 65 RRC taps,
+    filter history, 79 taps), full rate and decimated as the stage
+    launches it (start nt, step 7), and fir at the bench baseline's shape
+    (64 channels' re/im rows, 2^18 samples, 65 RRC taps,
     tools/bench_kernels.py:82-107), with bounds (bytes: input and output
     once; operations: 4 multiplies and 4 adds per complex tap, 1 and 1
     per real tap) and the library yardstick: one conv1d computing the
-    same FIR (TF32 off), zero-padded for causality."""
+    same FIR (TF32 off), zero-padded for causality (stride 7 for the
+    decimated outputs). Each cfir and its conv1d: device time per call
+    from CUDA-graph replays in turns (graph_ms, the medians; the table's)
+    and, as this script timed them before, CUDA events over 50
+    back-to-back calls from the host (`host_paced`)."""
     import torch.nn.functional as F
     from leansdr_tpu_torch.dsp import fir_kernel as fk
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     out = {}
-    nt, n = 79, (1 << 17) + 85
+    nt, n, dec = RESAMPLE_NT, RESAMPLE_N, RESAMPLE_DECIM
     x = 40 * torch.randn((2, n), device=dev, generator=gen)
     tr, ti = (torch.randn(nt, device=dev, generator=gen) for _ in range(2))
-    ms = cuda_time(lambda: fk.cfir(x, tr, ti), reps=50)
     # conv1d is a cross-correlation: flip the taps. Output channel 0 =
     # re (tr*xr - ti*xi), 1 = im (ti*xr + tr*xi).
     w = torch.stack([torch.stack([tr, -ti]), torch.stack([ti, tr])]).flip(-1)
     xp = F.pad(x, (nt - 1, 0))[None]
-    lib = F.conv1d(xp, w)[0]
-    ref = fk.cfir(x, tr, ti)
-    lib_err = float((lib - ref).abs().max())
-    lib_ms = cuda_time(lambda: F.conv1d(xp, w), reps=50)
-    out["cfir"] = dict(ms=ms, library_ms=lib_ms, lib_err=lib_err,
-                       bound=bound_ms(4 * n * 4 + 2 * nt * 4, 8.0 * nt * n),
-                       shape=f"n={n} nt={nt}")
+    count = (n - nt) // dec
+    for key, args, lib in (
+            ("cfir", (0, 1, None), lambda: F.conv1d(xp, w)),
+            ("cfir_decimated", (nt, dec, count),
+             lambda: F.conv1d(xp[..., nt:], w, stride=dec))):
+        ref = fk.cfir(x, tr, ti, *args)
+        lib_err = float((lib()[0, :, :ref.shape[1]] - ref).abs().max())
+        g = graph_ms({"conv1d": lib, "cfir": lambda: fk.cfir(x, tr, ti,
+                                                             *args)})
+        ms, lib_ms = (float(np.median(g[k])) for k in ("cfir", "conv1d"))
+        paced = cuda_time(lambda: fk.cfir(x, tr, ti, *args), reps=50)
+        lib_paced = cuda_time(lib, reps=50)
+        c = ref.shape[1]
+        b = (bound_ms(2 * n * 4 + 2 * c * 4 + 2 * nt * 4, 8.0 * nt * c)
+             if key == "cfir_decimated" else
+             bound_ms(4 * n * 4 + 2 * nt * 4, 8.0 * nt * n))
+        out[key] = dict(ms=ms, library_ms=lib_ms, lib_err=lib_err, bound=b,
+                        graph_ms=g["cfir"], library_graph_ms=g["conv1d"],
+                        host_paced_ms=paced, library_host_paced_ms=lib_paced,
+                        shape=f"n={n} nt={nt} start={args[0]} step={args[1]}"
+                              f" count={c}")
     R, n, nt = 128, 1 << 18, 65
     x = torch.randn((R, n), device=dev, generator=gen)
     taps = torch.randn(nt, device=dev, generator=gen)
@@ -1271,9 +1518,19 @@ def fir_times(dev, gen):
                       bound=bound_ms(2 * R * n * 4 + nt * 4, 2.0 * nt * R * n),
                       shape=f"R={R} n={n} nt={nt}")
     for k, v in out.items():
-        print(f"kernel {k:10s} {v['shape']}: {v['ms']:.4f} ms, bound "
+        timing = (f"device time per call from CUDA-graph replays in turns "
+                  f"(conv1d, cfir, cfir, conv1d) x 3: cfir "
+                  + " ".join(f"{t:.4f}" for t in v["graph_ms"])
+                  + ", conv1d " + " ".join(f"{t:.4f}" for t in
+                                           v["library_graph_ms"])
+                  + f"; host-paced (50 back-to-back calls, CUDA events): "
+                  f"cfir {v['host_paced_ms']:.4f}, conv1d "
+                  f"{v['library_host_paced_ms']:.4f}"
+                  if "graph_ms" in v else "back-to-back calls")
+        print(f"kernel {k:14s} {v['shape']}: {v['ms']:.4f} ms, bound "
               f"{v['bound'][0]:.4f} ms ({v['bound'][1]}); conv1d "
-              f"{v['library_ms']:.4f} ms (max |diff| {v['lib_err']:.3g})")
+              f"{v['library_ms']:.4f} ms (max |diff| {v['lib_err']:.3g}); "
+              f"{timing}")
     return out
 
 
@@ -1378,8 +1635,9 @@ def main() -> int:
         print(f"  {name}: {so.name}: " + " | ".join(lines))
 
     clock = max_sm_clock_hz()
-    lat = latency_table(probe_build, dev)
+    lat, lat_int = latency_table(probe_build, dev)
     chain = demod_chain(built["demod"][0], lat, clock)
+    a_chain = acs_chain(built["acs"][0], lat_int, clock)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -1392,6 +1650,7 @@ def main() -> int:
         if d_plain is None:
             d_plain = p
     a_err, a_plain = check_acs(dev, gen)
+    long_acs = start_long_acs(dev, gen)
     b_err, b_plain, b_plain_n = check_acs_banked(dev, gen)
     f_err, f_plain_c, f_plain_r = check_fir(dev, gen)
 
@@ -1405,7 +1664,7 @@ def main() -> int:
     frames = fleet_frames(dev, gen, "1/2")
     rx, run, piped_rate = main_path(dev, gen, frames)
     launches, stages, rate = run["launches"], run["stages"], run["rate"]
-    times = kernel_times(rx, frames, dev, gen, chain)
+    times = kernel_times(rx, frames, dev, gen, chain, a_chain)
     params, sym_consts = rx.params, rx._sym_consts
     del rx
     seg = {"1/2": segmented_path(dev, frames, "1/2", 8, capture=True)}
@@ -1437,6 +1696,7 @@ def main() -> int:
         del frames
     btimes = banked_times(dev, gen)
     b0 = btimes[0]                      # 3/4 ACQUIRE: the headline shape
+    finish_long_acs(long_acs)            # before the host-timed streams
     rng = np.random.default_rng(SEED)
     stimuli = {}
     single = [single_carrier(dev, rng, stimuli, *p) for p in SC_PATHS]
@@ -1464,6 +1724,7 @@ def main() -> int:
                          "built demod (QPSK loop), latencies from "
                          "tools/latency_probe.cu on this card",
          "chain_cycles_per_sample": chain["cycles_per_step"],
+         "issue_cycles_per_sample": chain["issue_cycles_per_step"],
          "chain_path_instructions": chain["path_instructions_per_step"],
          "hot_instructions_per_sample": chain["instructions_per_step"],
          "latency_cycles": lat,
@@ -1485,6 +1746,21 @@ def main() -> int:
          "shape": times["acs"]["shape"],
          "track_ms": times["acs_track"]["ms"],
          "track_shape": times["acs_track"]["shape"],
+         "track_bound_ms": times["acs_track"]["bound"][0],
+         "sc_ms": times["acs_sc"]["ms"], "sc_shape": times["acs_sc"]["shape"],
+         "cycles_per_block": {k: times[k]["cycles_per_block"]
+                              for k in ("acs", "acs_track", "acs_sc")},
+         "chain_bound_ms": {k: times[k]["chain_bound_ms"]
+                            for k in ("acs", "acs_track", "acs_sc")},
+         "chain_source": "tools/sass_chain.py on cuobjdump -sass of the "
+                         "built acs (ACQUIRE and TRACK loops), latencies "
+                         "from tools/latency_probe.cu on this card",
+         "chain": {m: {k: r[k] for k in ("function", "cycles_per_step",
+                                          "issue_cycles_per_step",
+                                          "path_instructions_per_step",
+                                          "instructions_per_step", "mix")}
+                   for m, r in a_chain.items()},
+         "latency_cycles": lat_int,
          "plain_shape": "N=256 T=2048 cheap_q=False"},
         {"name": "acs_banked", "route": "cuda",
          "source": "leansdr_tpu_torch/csrc/acs_banked.cu",
@@ -1500,12 +1776,24 @@ def main() -> int:
          "source": "leansdr_tpu_torch/csrc/fir.cu",
          "replaces": "leansdr_tpu/dsp/fir_pallas.py:62",
          "launches": resample["launches"]["cfir"], "max_abs_err": f_err,
-         "ms": ftimes["cfir"]["ms"], "plain_ms": f_plain_c,
-         "bound_ms": ftimes["cfir"]["bound"][0],
-         "bound_by": ftimes["cfir"]["bound"][1],
-         "library_ms": ftimes["cfir"]["library_ms"],
-         "shape": ftimes["cfir"]["shape"],
-         "plain_shape": "n=131157 nt=79"},
+         "ms": ftimes["cfir_decimated"]["ms"], "plain_ms": f_plain_c,
+         "bound_ms": ftimes["cfir_decimated"]["bound"][0],
+         "bound_by": ftimes["cfir_decimated"]["bound"][1],
+         "library_ms": ftimes["cfir_decimated"]["library_ms"],
+         "shape": ftimes["cfir_decimated"]["shape"],
+         "timing": "device time per call from CUDA-graph replays of 50 "
+                   "calls, in turns with conv1d, median of 3 rounds",
+         "graph_ms": ftimes["cfir_decimated"]["graph_ms"],
+         "library_graph_ms": ftimes["cfir_decimated"]["library_graph_ms"],
+         "host_paced_ms": ftimes["cfir_decimated"]["host_paced_ms"],
+         "library_host_paced_ms":
+             ftimes["cfir_decimated"]["library_host_paced_ms"],
+         "full_rate": {k: ftimes["cfir"][k] for k in (
+             "ms", "library_ms", "graph_ms", "library_graph_ms",
+             "host_paced_ms", "library_host_paced_ms", "shape")}
+         | {"bound_ms": ftimes["cfir"]["bound"][0],
+            "bound_by": ftimes["cfir"]["bound"][1]},
+         "plain_shape": "n=131157 nt=79 full rate"},
         {"name": "fir", "route": "cuda",
          "source": "leansdr_tpu_torch/csrc/fir.cu",
          "replaces": "leansdr_tpu/dsp/fir_pallas.py:25",
@@ -1547,4 +1835,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--plain-acs"]:     # start_long_acs's child
+        plain_acs_job(*sys.argv[2:4])
+        sys.exit(0)
     sys.exit(main())

@@ -11,67 +11,144 @@
 // `fir_ref` in leansdr_tpu_torch/dsp/fir_kernel.py; the wrappers `cfir`
 // and `fir` there launch this file through `cfir_launch`/`fir_launch`.
 //
-// What bounds it on an H100: per output 4*nt multiplies and adds (nt
-// for real taps), 8 (4) bytes in and out per sample. At the --resample
-// path's shape (~2^17 samples, ~79 taps) the call moves ~2 MB and does
-// ~0.08 GFLOP: both well under 10 us, so launch overhead sets the time.
-// At nt = 2048 it is operation-bound.
+// cfir computes the outputs t = start + j*step, j < count, only (the
+// TPU kernel's contract is start 0, step 1, count n): the --resample
+// stage keeps one output in `decim`, and asks for just those.
 //
-// Design: one CTA per TILE outputs of one row (pair). The tile and its
-// nt-1 samples of history are staged in shared memory once, so each
-// input sample is read from device memory about (TILE+nt-1)/TILE times;
-// the taps sit in shared memory too (<= 16 KB at nt = 2048) and are
-// broadcast to the warp. One output per thread, accumulating k = 0 ..
-// nt-1 in the plain version's order. Taps are a runtime device array:
+// What bounds it on an H100: per output 4*nt multiplies and 4*nt adds
+// (nt for real taps), 8 (4) bytes in and out per sample. At the
+// --resample path's shape (~2^17 samples, 79 taps, decim 7) a decimated
+// call reads ~1 MB and does ~0.012 GFLOP: both well under 1 us, so the
+// launch and one round trip to device memory set the time. At nt = 2048
+// it is operation-bound.
+//
+// Design of cfir: a one-warp CTA per CFIR_TILE outputs, OPT per thread.
+// The CTA stages its taps and the input span its outputs read into
+// shared memory, interleaved (re, im) so that one 8-byte load brings a
+// complex value, with 4-byte cp.async copies that are all in flight at
+// once (zero-filled before the stream head and past n). Each tap pair
+// read from shared memory serves all OPT outputs of the thread. At step
+// 1 the thread's outputs are consecutive and its samples slide through
+// registers: one new sample per tap for all OPT outputs (the loop is
+// unrolled by OPT, so the slide is a renaming, not moves). At step > 1
+// the thread's outputs are CFIR_THREADS apart (lanes read samples step
+// apart: no bank conflicts at odd steps) and each reads its own sample.
+// One-warp CTAs of 128 outputs give the decimated --resample launch
+// (~18.7k outputs) 147 CTAs, all SMs in one wave; the full-rate launch
+// has ~1025, ~8 per SM, also one wave. Taps are a runtime device array:
 // a carrier retune uploads new taps and rebuilds nothing.
 //
 // Exactness: built with --fmad=false, so every product and sum rounds
-// once, in the plain version's order, and the kernel equals cfir_ref /
-// fir_ref bit for bit.
+// once, in the plain version's order (k = 0 .. nt-1 per output), and
+// the kernel equals cfir_ref / fir_ref bit for bit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TILE = 256;      // outputs per CTA, one per thread
+constexpr int TILE = 256;          // fir: outputs per CTA, one per thread
+constexpr int OPT = 4;             // cfir: outputs per thread
+constexpr int CFIR_THREADS = 32;   // cfir: one warp per CTA
+constexpr int CFIR_TILE = OPT * CFIR_THREADS;
 
-// Complex taps on one (re, im) row pair: x and y are [2, n].
-__global__ void cfir_kernel(const float* __restrict__ taps_r,
-                            const float* __restrict__ taps_i,
-                            const float* __restrict__ x,
-                            float* __restrict__ y, int n, int nt) {
-  extern __shared__ float sh[];
-  float* tr = sh;                        // [nt]
-  float* ti = tr + nt;                   // [nt]
-  float* xr = ti + nt;                   // [nt - 1 + TILE]
-  float* xi = xr + (nt - 1 + TILE);
-  const int t0 = blockIdx.x * TILE;
-  const int span = nt - 1 + TILE;
-  for (int k = threadIdx.x; k < nt; k += blockDim.x) {
-    tr[k] = taps_r[k];
-    ti[k] = taps_i[k];
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// The shared memory a cfir CTA needs: taps, then the input span of a
+// full tile ((CFIR_TILE - 1) * step + nt samples), as (re, im) pairs.
+size_t cfir_shmem(int nt, int step) {
+  return sizeof(float2) * ((size_t)nt + (size_t)(CFIR_TILE - 1) * step + nt);
+}
+
+// Complex taps on one (re, im) row pair: x is [2, n], y is [2, count],
+// y[:, j] = the FIR at t = start + j * step.
+template <bool UNIT>
+__global__ void __launch_bounds__(CFIR_THREADS)
+cfir_kernel(const float* __restrict__ taps_r, const float* __restrict__ taps_i,
+            const float* __restrict__ x, float* __restrict__ y, int n, int nt,
+            long long start, int step, int count) {
+  extern __shared__ float2 sh2[];
+  float2* tw = sh2;                        // [nt] (wr, wi)
+  float2* xs = sh2 + nt;                   // xs[i] = x[lo + i] as (re, im)
+  const int tid = threadIdx.x;
+  const int j0 = blockIdx.x * CFIR_TILE;   // this CTA's first output
+  const int jn = min(CFIR_TILE, count - j0);
+  const long long lo = start + (long long)j0 * step - (nt - 1);
+  const int span = (jn - 1) * step + nt;
+  for (int k = tid; k < nt; k += CFIR_THREADS) {
+    cp_async4(&tw[k].x, taps_r + k, true);
+    cp_async4(&tw[k].y, taps_i + k, true);
   }
-  // xr[j] holds x[t0 - (nt - 1) + j]; zero before the head and past n.
-  for (int j = threadIdx.x; j < span; j += blockDim.x) {
-    const int s = t0 - (nt - 1) + j;
+  for (int i = tid; i < span; i += CFIR_THREADS) {
+    const long long s = lo + i;
     const bool in = s >= 0 && s < n;
-    xr[j] = in ? x[s] : 0.0f;
-    xi[j] = in ? x[n + s] : 0.0f;
+    const long long sc = in ? s : 0;       // a valid address, not read
+    cp_async4(&xs[i].x, x + sc, in);
+    cp_async4(&xs[i].y, x + n + sc, in);
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
-  const int t = t0 + threadIdx.x;
-  if (t >= n) return;
-  float acc_r = 0.0f, acc_i = 0.0f;
-  const int base = threadIdx.x + nt - 1;   // x[t - k] = xr[base - k]
-  for (int k = 0; k < nt; ++k) {
-    const float wr = tr[k], wi = ti[k];
-    const float sr = xr[base - k], si = xi[base - k];
-    acc_r = acc_r + wr * sr - wi * si;
-    acc_i = acc_i + wr * si + wi * sr;
+
+  float acc_r[OPT], acc_i[OPT];
+#pragma unroll
+  for (int u = 0; u < OPT; ++u) acc_r[u] = acc_i[u] = 0.0f;
+  // Outputs past jn read inside the allocation (a full tile's span) and
+  // are not stored.
+  if constexpr (UNIT) {
+    // Outputs j0 + tid*OPT + u; win[u] = x[t_u - k] at tap k.
+    const int base = tid * OPT + nt - 1;
+    float2 win[OPT];
+#pragma unroll
+    for (int u = 0; u < OPT; ++u) win[u] = xs[base + u];
+#pragma unroll (OPT)
+    for (int k = 0; k < nt; ++k) {
+      const float2 w = tw[k];
+#pragma unroll
+      for (int u = 0; u < OPT; ++u) {
+        acc_r[u] = acc_r[u] + w.x * win[u].x - w.y * win[u].y;
+        acc_i[u] = acc_i[u] + w.x * win[u].y + w.y * win[u].x;
+      }
+#pragma unroll
+      for (int u = OPT - 1; u > 0; --u) win[u] = win[u - 1];
+      // At k = nt-1 this reads one element below xs (the last tap) for
+      // tid 0: inside sh2, and unused.
+      win[0] = xs[base - k - 1];
+    }
+#pragma unroll
+    for (int u = 0; u < OPT; ++u) {
+      const int jl = tid * OPT + u;
+      if (jl < jn) {
+        y[j0 + jl] = acc_r[u];
+        y[(size_t)count + j0 + jl] = acc_i[u];
+      }
+    }
+  } else {
+    // Outputs j0 + tid + u*CFIR_THREADS.
+#pragma unroll 4
+    for (int k = 0; k < nt; ++k) {
+      const float2 w = tw[k];
+#pragma unroll
+      for (int u = 0; u < OPT; ++u) {
+        const float2 v = xs[(tid + u * CFIR_THREADS) * step + nt - 1 - k];
+        acc_r[u] = acc_r[u] + w.x * v.x - w.y * v.y;
+        acc_i[u] = acc_i[u] + w.x * v.y + w.y * v.x;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < OPT; ++u) {
+      const int jl = tid + u * CFIR_THREADS;
+      if (jl < jn) {
+        y[j0 + jl] = acc_r[u];
+        y[(size_t)count + j0 + jl] = acc_i[u];
+      }
+    }
   }
-  y[t] = acc_r;
-  y[n + t] = acc_i;
 }
 
 // Real taps on R independent rows: x and y are [R, n]; grid.y = row.
@@ -102,11 +179,26 @@ __global__ void fir_kernel(const float* __restrict__ taps,
 
 extern "C" int cfir_launch(const void* taps_r, const void* taps_i,
                            const void* x, void* y, int n, int nt,
+                           long long start, int step, int count,
                            void* stream) {
-  const size_t shmem = sizeof(float) * (2 * nt + 2 * (nt - 1 + TILE));
-  cfir_kernel<<<(n + TILE - 1) / TILE, TILE, shmem, (cudaStream_t)stream>>>(
-      (const float*)taps_r, (const float*)taps_i, (const float*)x,
-      (float*)y, n, nt);
+  const size_t shmem = cfir_shmem(nt, step);
+  const int blocks = (count + CFIR_TILE - 1) / CFIR_TILE;
+  const bool unit = step == 1;
+  const void* fn = unit ? (const void*)cfir_kernel<true>
+                        : (const void*)cfir_kernel<false>;
+  if (shmem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (unit)
+    cfir_kernel<true><<<blocks, CFIR_THREADS, shmem, (cudaStream_t)stream>>>(
+        (const float*)taps_r, (const float*)taps_i, (const float*)x,
+        (float*)y, n, nt, start, step, count);
+  else
+    cfir_kernel<false><<<blocks, CFIR_THREADS, shmem, (cudaStream_t)stream>>>(
+        (const float*)taps_r, (const float*)taps_i, (const float*)x,
+        (float*)y, n, nt, start, step, count);
   return (int)cudaGetLastError();
 }
 

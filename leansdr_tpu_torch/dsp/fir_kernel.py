@@ -1,7 +1,9 @@
 """Causal FIR with runtime taps, and the streaming --resample filter on it
 (the counterpart of leansdr_tpu/dsp/fir_pallas.py).
 
-  cfir(x, taps_r, taps_i)  complex taps on one (re, im) row pair [2, n]
+  cfir(x, taps_r, taps_i, start=0, step=1, count=None)
+                           complex taps on one (re, im) row pair [2, n],
+                           the outputs t = start + j*step, j < count
   fir(x, taps)             real taps on R rows [R, n]
 
 y[r, t] = sum_k taps[k] * x[r, t - k], zeros before the stream head. For
@@ -27,12 +29,28 @@ from .. import device as _dev
 MAX_TAPS = 2048          # the taps sit in the kernel's shared memory
 
 
-def cfir_ref(x: torch.Tensor, taps_r: torch.Tensor,
-             taps_i: torch.Tensor) -> torch.Tensor:
+def _outputs(n: int, start: int, step: int, count) -> int:
+    """The number of outputs of cfir's (start, step, count), checked
+    against the input length n (count None: every t < n from start)."""
+    if start < 0 or step < 1:
+        raise ValueError(f"start={start}, step={step}: need start >= 0 "
+                         "and step >= 1")
+    if count is None:
+        count = max(0, -(-(n - start) // step))
+    if count < 0 or (count and start + (count - 1) * step >= n):
+        raise ValueError(f"start={start}, step={step}, count={count}: "
+                         f"past the {n} input samples")
+    return count
+
+
+def cfir_ref(x: torch.Tensor, taps_r: torch.Tensor, taps_i: torch.Tensor,
+             start: int = 0, step: int = 1, count=None) -> torch.Tensor:
     """Plain PyTorch complex-tap causal FIR: x [2, n] float32 (re, im
-    rows), taps_r/taps_i [nt] float32. Returns [2, n]."""
+    rows), taps_r/taps_i [nt] float32. Returns [2, count], the outputs at
+    t = start + j*step (the full-rate output, sliced)."""
     nt = taps_r.shape[0]
     n = x.shape[1]
+    count = _outputs(n, start, step, count)
     ext = torch.cat([x.new_zeros((2, nt - 1)), x], dim=1)
     acc_r = x.new_zeros(n)
     acc_i = x.new_zeros(n)
@@ -42,7 +60,8 @@ def cfir_ref(x: torch.Tensor, taps_r: torch.Tensor,
         wr, wi = taps_r[k], taps_i[k]
         acc_r = acc_r + wr * sr - wi * si
         acc_i = acc_i + wr * si + wi * sr
-    return torch.stack([acc_r, acc_i])
+    return torch.stack([acc_r, acc_i])[
+        :, start:start + count * step:step].contiguous()
 
 
 def fir_ref(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
@@ -66,7 +85,8 @@ def _kernel():
         lib = _dev.load("fir")
         lib.cfir_launch.restype = ctypes.c_int
         lib.cfir_launch.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p]
         lib.fir_launch.restype = ctypes.c_int
         lib.fir_launch.argtypes = [ctypes.c_void_p] * 3 + [
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
@@ -79,23 +99,27 @@ def _check_taps(nt: int):
         raise ValueError(f"{nt} taps: the FIR kernel takes 1..{MAX_TAPS}")
 
 
-def cfir(x: torch.Tensor, taps_r: torch.Tensor,
-         taps_i: torch.Tensor) -> torch.Tensor:
-    """Causal complex FIR (same contract as cfir_ref). CPU tensors run
-    `cfir_ref`; CUDA tensors launch csrc/fir.cu."""
+def cfir(x: torch.Tensor, taps_r: torch.Tensor, taps_i: torch.Tensor,
+         start: int = 0, step: int = 1, count=None) -> torch.Tensor:
+    """Causal complex FIR at t = start + j*step, j < count (same
+    contract as cfir_ref; the defaults are every output). CPU tensors run
+    `cfir_ref`; CUDA tensors launch csrc/fir.cu, which computes only
+    those outputs."""
     if x.device.type == "cpu":
-        return cfir_ref(x, taps_r, taps_i)
+        return cfir_ref(x, taps_r, taps_i, start, step, count)
     nt = taps_r.shape[0]
     _check_taps(nt)
     n = x.shape[1]
+    count = _outputs(n, start, step, count)
     dev = x.device
     _dev.check_tensor("x", x, torch.float32, (2, n), dev)
     _dev.check_tensor("taps_r", taps_r, torch.float32, (nt,), dev)
     _dev.check_tensor("taps_i", taps_i, torch.float32, (nt,), dev)
-    y = torch.empty_like(x)
-    if n:
+    y = torch.empty((2, count), dtype=torch.float32, device=dev)
+    if count:
         err = _kernel().cfir_launch(taps_r.data_ptr(), taps_i.data_ptr(),
                                     x.data_ptr(), y.data_ptr(), n, nt,
+                                    start, step, count,
                                     _dev.stream_handle(x))
         _dev.check_launch("cfir", err)
         _CFIR.launches += 1
@@ -136,9 +160,8 @@ _FIR = fir
 class FirFilterDevice:
     """Streaming fir_filter (dsp.h:219-285) on the complex FIR kernel:
     carrier-re-modulated complex taps, decimation, history (the
-    --resample stage of the single-carrier receiver). The FIR runs at the
-    full input rate; decimation is a strided gather of its output on the
-    device.
+    --resample stage of the single-carrier receiver). The kernel computes
+    only the outputs that decimation keeps.
 
     Contract of leansdr_tpu/dsp/fir_pallas.py:103-157: taps re-modulated
     on the host in float64 and cast to float32 when the tracked carrier
@@ -193,9 +216,8 @@ class FirFilterDevice:
             return np.empty(0, np.complex64)
         planes = np.stack([buf.real, buf.imag]).astype(np.float32)
         xd = torch.from_numpy(planes).to(self.device)
-        y = cfir(xd, self.taps_r, self.taps_i)
-        idx = self.n + torch.arange(count, device=self.device) * self.decim
-        yv = y[:, idx].cpu().numpy()
+        yv = cfir(xd, self.taps_r, self.taps_i, start=self.n,
+                  step=self.decim, count=count).cpu().numpy()
         out = (yv[0] + 1j * yv[1]).astype(np.complex64)
         self.hist = buf[count * self.decim:]
         return out

@@ -1,28 +1,46 @@
 """The port's FIR module (leansdr_tpu_torch/dsp/fir_kernel.py): `cfir_ref`
 and `fir_ref`, the plain versions of csrc/fir.cu, against the JAX Pallas
-kernels `cfir_pallas` / `fir_pallas` in interpret mode, and the streaming
-`FirFilterDevice` against JAX's across chunks, decimation and a
+kernels `cfir_pallas` / `fir_pallas` in interpret mode, cfir's decimated
+contract (start, step, count) against slicing its full output, and the
+streaming `FirFilterDevice` against JAX's across chunks, decimation and a
 mid-stream carrier retune.
 
-Tolerance: 2e-4 * max|x| for the kernels' outputs (float32 sums of up to
-nt products in the same order; XLA may contract multiply-adds, PyTorch
-rounds each operation); the streaming filter's outputs 2e-4 * max|x| as
-well. The re-modulated taps are computed on the host in float64 and cast
-to float32 on both sides, so they are equal bit for bit.
+The JAX side runs in one child process for the whole module, with
+multiply-add contraction off in XLA (XLA_FLAGS=--xla_cpu_max_isa=AVX: no
+FMA instructions), so both sides round each product and sum once in the
+same order, as the CUDA kernel (built with --fmad=false) does.
+
+Tolerance: none against JAX. Every output is equal bit for bit; the
+re-modulated taps are computed on the host in float64 and cast to
+float32 on both sides. The longest filter (2048 taps) is held against
+np.convolve in float64 within 2e-4 * max|x| (float32 sums of 2048
+products).
 """
 
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
-import jax.numpy as jnp
 import pytest
 import torch
-
-from leansdr_tpu.dsp import fir_pallas as jfir
 
 from leansdr_tpu_torch.dsp import fir_kernel as tfir
 
 # Single-threaded torch: the plain versions run many small ops, which
 # OpenMP threads only slow down, most of all beside other test workers.
 torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parent.parent
+FMA_OFF = "--xla_cpu_max_isa=AVX"
+CFIR_CASES = ((21, 3 * 2048, 0), (79, 2 * 2048, 500))
+FIR_TAPS = (21, 79)
+# The streaming filter: chunk boundaries and the carrier tap per chunk
+# (None keeps it; 0.0115 is inside freq_tol of 0.011 and must not retune).
+STREAM_CUTS = (0, 5, 2100, 4096 + 2100, 9000, 3 * 4096 + 1234)
+STREAM_TAPS = (None, 0.0, 0.011, 0.0115, -0.02)
 
 
 def _planes(rng, rows, n, head_zeros=0):
@@ -31,22 +49,82 @@ def _planes(rng, rows, n, head_zeros=0):
     return x
 
 
-@pytest.mark.parametrize("nt,n,head", [(21, 3 * 2048, 0), (79, 2 * 2048, 500)])
-def test_cfir_ref_matches_jax_kernel(nt, n, head):
+def _cfir_case(nt, n, head):
+    rng = np.random.default_rng(nt)
+    x = _planes(rng, 2, n, head)
+    return (x, rng.normal(size=nt).astype(np.float32),
+            rng.normal(size=nt).astype(np.float32))
+
+
+def _fir_case(nt):
+    rng = np.random.default_rng(100 + nt)
+    return _planes(rng, 8, 2 * 2048), rng.normal(size=nt).astype(np.float32)
+
+
+def _stream():
+    """(coeffs, complex64 stream) of the streaming-filter test."""
+    from leansdr_tpu_torch.dsp import filtergen
+    rng = np.random.default_rng(7)
+    n = STREAM_CUTS[-1]
+    z = ((rng.normal(size=n) + 1j * rng.normal(size=n)) * 40
+         ).astype(np.complex64)
+    return filtergen.lowpass(78, 0.025), z
+
+
+def _jax_outputs() -> dict:
+    """Every JAX output the module compares with. Runs in the child
+    process (see jax_side)."""
+    import jax.numpy as jnp
+    from leansdr_tpu.dsp import fir_pallas as jfir
+    out = {}
+    for nt, n, head in CFIR_CASES:
+        x, tr, ti = _cfir_case(nt, n, head)
+        out["cfir", nt] = np.asarray(jfir.cfir_pallas(
+            jnp.asarray(x), jnp.asarray(tr), jnp.asarray(ti), nt,
+            interpret=True))
+    for nt in FIR_TAPS:
+        x, taps = _fir_case(nt)
+        out["fir", nt] = np.asarray(jfir.fir_pallas(
+            jnp.asarray(x), tuple(float(t) for t in taps), interpret=True))
+    coeffs, z = _stream()
+    j = jfir.FirFilterDevice(coeffs, decim=7, freq_tol=0.002,
+                             interpret=True)
+    steps = []
+    for a, b, f in zip(STREAM_CUTS[:-1], STREAM_CUTS[1:], STREAM_TAPS):
+        y = j.process(z[a:b], f)
+        steps.append((y, np.asarray(j.taps_r), np.asarray(j.taps_i),
+                      j.current_freq, j.hist.copy()))
+    out["stream"] = steps
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_side(tmp_path_factory):
+    """_jax_outputs() in one child process with FMA contraction off in
+    XLA."""
+    dst = tmp_path_factory.mktemp("jax_fir") / "out.pkl"
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=f"{os.environ.get('XLA_FLAGS', '')} {FMA_OFF}",
+               PYTHONPATH=os.pathsep.join(
+                   [str(REPO)] + [p for p in [os.environ.get("PYTHONPATH")]
+                                  if p]))
+    r = subprocess.run([sys.executable, __file__, str(dst)], env=env,
+                       cwd=str(REPO), capture_output=True, timeout=600)
+    assert r.returncode == 0, r.stdout.decode()[-4000:] + \
+        r.stderr.decode()[-4000:]
+    return pickle.loads(dst.read_bytes())
+
+
+@pytest.mark.parametrize("nt,n,head", CFIR_CASES)
+def test_cfir_ref_matches_jax_kernel(nt, n, head, jax_side):
     """Complex taps from a stream head (zeros before it) and from
     mid-stream (no leading zeros), short and long filters; the port also
     takes lengths that are not block multiples (checked against its own
     output on the padded length)."""
-    rng = np.random.default_rng(nt)
-    x = _planes(rng, 2, n, head)
-    tr = rng.normal(size=nt).astype(np.float32)
-    ti = rng.normal(size=nt).astype(np.float32)
-    want = np.asarray(jfir.cfir_pallas(jnp.asarray(x), jnp.asarray(tr),
-                                       jnp.asarray(ti), nt, interpret=True))
+    x, tr, ti = _cfir_case(nt, n, head)
     got = tfir.cfir(torch.from_numpy(x), torch.from_numpy(tr),
                     torch.from_numpy(ti)).numpy()
-    np.testing.assert_allclose(got, want, rtol=0,
-                               atol=2e-4 * np.abs(x).max())
+    np.testing.assert_array_equal(got, jax_side["cfir", nt])
     m = n - 777                       # ragged length: a causal prefix
     part = tfir.cfir_ref(torch.from_numpy(x[:, :m]), torch.from_numpy(tr),
                          torch.from_numpy(ti)).numpy()
@@ -70,54 +148,66 @@ def test_cfir_ref_longest_filter_matches_convolve():
                                atol=2e-4 * np.abs(x).max())
 
 
-@pytest.mark.parametrize("nt", [21, 79])
-def test_fir_ref_matches_jax_kernel(nt):
+@pytest.mark.parametrize("start,step,count", [
+    (0, 1, None), (79, 7, None), (79, 7, 1), (79, 7, 300), (5, 3, 1001),
+    (0, 128, 32), (3000, 1, 97), (4095, 5, 1), (0, 1, 0)])
+def test_cfir_decimated_outputs_are_the_full_outputs_sliced(start, step,
+                                                            count):
+    """cfir at t = start + j*step, j < count: the full-rate output sliced
+    (count None: every t < n from start; ragged counts that end off any
+    tile; one output; none)."""
+    x, tr, ti = (torch.from_numpy(a) for a in _cfir_case(79, 4096, 0))
+    full = tfir.cfir_ref(x, tr, ti)
+    got = tfir.cfir(x, tr, ti, start=start, step=step, count=count)
+    want = full[:, start::step]
+    want = want if count is None else want[:, :count]
+    assert got.shape == want.shape and got.is_contiguous()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("start,step,count", [
+    (-1, 1, None), (0, 0, None), (4096, 1, 1), (0, 7, 587), (0, 1, -1)])
+def test_cfir_refuses_outputs_past_the_input(start, step, count):
+    """start < 0, step < 1, a negative count, or an output past the last
+    input sample is refused before any launch."""
+    x, tr, ti = (torch.from_numpy(a) for a in _cfir_case(21, 4096, 0))
+    with pytest.raises(ValueError, match="start"):
+        tfir.cfir(x, tr, ti, start=start, step=step, count=count)
+
+
+@pytest.mark.parametrize("nt", FIR_TAPS)
+def test_fir_ref_matches_jax_kernel(nt, jax_side):
     """Real taps on 8 rows (the zero-imaginary case of the same kernel)."""
-    rng = np.random.default_rng(100 + nt)
-    x = _planes(rng, 8, 2 * 2048)
-    taps = rng.normal(size=nt).astype(np.float32)
-    want = np.asarray(jfir.fir_pallas(jnp.asarray(x),
-                                      tuple(float(t) for t in taps),
-                                      interpret=True))
+    x, taps = _fir_case(nt)
     got = tfir.fir(torch.from_numpy(x), torch.from_numpy(taps)).numpy()
-    np.testing.assert_allclose(got, want, rtol=0,
-                               atol=2e-4 * np.abs(x).max())
+    np.testing.assert_array_equal(got, jax_side["fir", nt])
     # fir_ref is cfir_ref with zero imaginary taps, row pair by row pair.
     c = tfir.cfir_ref(torch.from_numpy(x[:2]), torch.from_numpy(taps),
                       torch.zeros(nt)).numpy()
     np.testing.assert_array_equal(c[0], got[0])
 
 
-def test_fir_filter_device_matches_jax():
-    """Streaming --resample filter: the port's FirFilterDevice against
-    JAX's over uneven chunks, decimation 7 and two carrier retunes (one
-    inside freq_tol, which must not retune); taps bit-equal after each."""
-    from leansdr_tpu.dsp import filtergen
-    rng = np.random.default_rng(7)
-    coeffs = filtergen.lowpass(78, 0.025)
-    j = jfir.FirFilterDevice(coeffs, decim=7, freq_tol=0.002,
-                             interpret=True)
+def test_fir_filter_device_matches_jax(jax_side):
+    """Streaming --resample filter: the port's FirFilterDevice (one
+    decimated cfir per chunk) against JAX's (the full-rate kernel and a
+    gather) over uneven chunks, decimation 7 and two carrier retunes (one
+    inside freq_tol, which must not retune): outputs, taps, tracked
+    carrier and history equal after each chunk."""
+    coeffs, z = _stream()
     t = tfir.FirFilterDevice(coeffs, decim=7, freq_tol=0.002, device="cpu")
-    n = 3 * 4096 + 1234
-    z = ((rng.normal(size=n) + 1j * rng.normal(size=n)) * 40
-         ).astype(np.complex64)
-    cuts = [0, 5, 2100, 4096 + 2100, 9000, n]
-    taps = [None, 0.0, 0.011, 0.0115, -0.02]
-    outs_j, outs_t = [], []
-    for (a, b), f in zip(zip(cuts[:-1], cuts[1:]), taps):
-        outs_j.append(j.process(z[a:b], f))
-        outs_t.append(t.process(z[a:b], f))
-        np.testing.assert_array_equal(np.asarray(j.taps_r),
-                                      t.taps_r.numpy())
-        np.testing.assert_array_equal(np.asarray(j.taps_i),
-                                      t.taps_i.numpy())
-        assert j.current_freq == t.current_freq
-        np.testing.assert_array_equal(j.hist, t.hist)
+    outs = []
+    for (a, b, f), (yj, trj, tij, fj, hj) in zip(
+            zip(STREAM_CUTS[:-1], STREAM_CUTS[1:], STREAM_TAPS),
+            jax_side["stream"]):
+        y = t.process(z[a:b], f)
+        np.testing.assert_array_equal(y, yj)
+        np.testing.assert_array_equal(trj, t.taps_r.numpy())
+        np.testing.assert_array_equal(tij, t.taps_i.numpy())
+        assert fj == t.current_freq
+        np.testing.assert_array_equal(hj, t.hist)
+        outs.append(y)
     assert t.current_freq == -0.02
-    oj, ot = np.concatenate(outs_j), np.concatenate(outs_t)
-    assert len(oj) == len(ot) > 1500
-    np.testing.assert_allclose(ot, oj, rtol=0,
-                               atol=2e-4 * np.abs(z).max())
+    assert len(np.concatenate(outs)) > 1500
 
 
 def test_kernel_wrappers_take_the_plain_version_on_cpu():
@@ -128,7 +218,14 @@ def test_kernel_wrappers_take_the_plain_version_on_cpu():
     w = torch.ones(3)
     before = (tfir.cfir.launches, tfir.fir.launches)
     assert torch.equal(tfir.cfir(x, w, w), tfir.cfir_ref(x, w, w))
+    assert torch.equal(tfir.cfir(x, w, w, 2, 3),
+                       tfir.cfir_ref(x, w, w, 2, 3))
     assert torch.equal(tfir.fir(x, w), tfir.fir_ref(x, w))
     assert (tfir.cfir.launches, tfir.fir.launches) == before
     with pytest.raises(ValueError, match="taps"):
         tfir._check_taps(tfir.MAX_TAPS + 1)
+
+
+if __name__ == "__main__":
+    # The JAX side of jax_side: python test_torch_fir.py OUT.pkl
+    Path(sys.argv[1]).write_bytes(pickle.dumps(_jax_outputs()))

@@ -1,5 +1,5 @@
-"""Time the demod and fft4096 kernels of two checkouts of the port in one
-process on one card: a parent checkout and this tree.
+"""Time the demod, fft4096, acs and cfir kernels of two checkouts of the
+port in one process on one card: a parent checkout and this tree.
 
     git archive <parent> | tar -x -C .chip_archive/parent
     python3 tools/kernel_ab.py --parent .chip_archive/parent
@@ -17,14 +17,24 @@ main paths' shapes: 64 carriers x 2^18 (the S=1 fleet chunk), 512 x
 (2^15 + 128) and 448 x 2048 (the S=8 passes), 8192 x 2^15 (every SM),
 one carrier x 2^17 (a leandvb read, omega 1.2). fft4096 runs at B=1024
 over six inputs in turn (192 MB, more than the L2), with torch.fft.fft
-timed after each pair. A time is the wrapper's: kernel, input transpose
-and the parent's per-call table copy. Prints one line per shape and a
-JSON line.
+timed after each pair. acs runs at the main paths' shapes: the fleet's
+ACQUIRE decode (N=256 lanes, T=2^17 blocks), its TRACK decode (N=64,
+cheap_q) and the hq 1/2 single carrier's 128-block chunk (N=4), costs
+0..-39; outputs equal. cfir runs at the --resample stage's shape (79
+taps, 2^17 + 85 samples), full rate and decimated by 7 from sample 79
+(a parent without the decimated launch: its full-rate launch and the
+gather the stage made of it); outputs equal. A time is the wrapper's:
+kernel, input transpose and the parent's per-call table copy (cfir and
+the N=4 acs: the mean over 50 calls from CUDA-graph replays, as
+chip_smoke.py times them, so the host does not pace them). Also counts each side's acs loop chain
+per block from its SASS (tools/sass_chain.py, latencies from
+tools/latency_probe.cu). Prints one line per shape and a JSON line.
 """
 
 import argparse
 import importlib
 import importlib.util
+import inspect
 import json
 import subprocess
 import sys
@@ -34,10 +44,18 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+import chip_smoke  # noqa: E402  (its latency and SASS helpers)
+
 SEED = 20261017
 DEMOD_SHAPES = ((64, 1 << 18, 2.0, 2), (512, (1 << 15) + 128, 2.0, 3),
                 (448, 2048, 2.0, 10), (8192, 1 << 15, 2.0, 3),
                 (1, 1 << 17, 1.2, 2))
+# (lanes, blocks, cheap_q, calls per timing; GRAPH_CALLS: captured in a
+# CUDA graph and replayed)
+GRAPH_CALLS = 50
+ACS_SHAPES = ((256, 1 << 17, False, 2), (64, 1 << 17, True, 2),
+              (4, 128, False, GRAPH_CALLS))
 
 
 def load_port(root: Path, alias: str):
@@ -51,7 +69,8 @@ def load_port(root: Path, alias: str):
     spec.loader.exec_module(mod)
     return {m: importlib.import_module(f"{alias}.{m}")
             for m in ("device", "dsp.receiver", "dsp.receiver_kernel",
-                      "dsp.fft_kernel", "dsp.cstln")}
+                      "dsp.fft_kernel", "dsp.cstln", "dsp.fir_kernel",
+                      "fec.viterbi_device")}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -153,6 +172,89 @@ def fft_case(ports, gen, pairs, reps=60):
                 **summary(paired(fns, reps, pairs)))
 
 
+def acs_case(ports, N, T, cheap_q, reps, gen, pairs):
+    cs = torch.randint(0, 4, (T, N), device=gen.device, dtype=torch.int32,
+                       generator=gen)
+    cost = -torch.randint(0, 40, (T, N), device=gen.device,
+                          dtype=torch.int32, generator=gen)
+    z = torch.zeros((64, N), dtype=torch.int32, device=gen.device)
+    fns, outs = {}, {}
+    for tag in ("parent", "change"):
+        fn = ports[tag]["fec.viterbi_device"].viterbi_acs
+        args = ("1/2", z, z, cs, cost, cheap_q)
+        outs[tag] = fn(*args)
+        fns[tag] = (lambda f, a: lambda: f(*a))(fn, args)
+        if reps == GRAPH_CALLS:             # too short: no host pacing
+            fns[tag] = graph_call(fns[tag])
+    equal = all(torch.equal(a, b) for a, b in zip(outs["parent"],
+                                                   outs["change"]))
+    runs = paired(fns, 1 if reps == GRAPH_CALLS else reps, pairs)
+    if reps == GRAPH_CALLS:
+        runs = {k: [v / GRAPH_CALLS for v in r] for k, r in runs.items()}
+    return dict(kernel="acs", shape=f"N={N} T={T} cheap_q={cheap_q}",
+                equal=equal, **summary(runs))
+
+
+def graph_call(fn, reps=GRAPH_CALLS):
+    """A function that replays `reps` calls of fn captured in one CUDA
+    graph (device time without host pacing; cuda_ms divides by 1)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    return g.replay
+
+
+def cfir_case(ports, gen, pairs, decimated):
+    nt, n, dec = 79, (1 << 17) + 85, 7
+    x = 40 * torch.randn((2, n), device=gen.device, generator=gen)
+    tr, ti = (torch.randn(nt, device=gen.device, generator=gen)
+              for _ in range(2))
+    count = (n - nt) // dec
+    fns, outs = {}, {}
+    for tag in ("parent", "change"):
+        fk = ports[tag]["dsp.fir_kernel"]
+        takes_step = "step" in inspect.signature(fk.cfir).parameters
+        if not decimated:
+            fn = (lambda f: lambda: f(x, tr, ti))(fk.cfir)
+        elif takes_step:
+            fn = (lambda f: lambda: f(x, tr, ti, nt, dec, count))(fk.cfir)
+        else:                     # the stage's full-rate launch and gather
+            idx = nt + torch.arange(count, device=gen.device) * dec
+            fn = (lambda f: lambda: f(x, tr, ti)[:, idx])(fk.cfir)
+        outs[tag] = fn()
+        fns[tag] = graph_call(fn)
+    equal = torch.equal(outs["parent"], outs["change"])
+    runs = paired(fns, 1, pairs)
+    runs = {k: [v / GRAPH_CALLS for v in r] for k, r in runs.items()}
+    shape = (f"n={n} nt={nt}" + (f" start={nt} step={dec} count={count}"
+                                 if decimated else " full rate"))
+    return dict(kernel="cfir", shape=shape, equal=equal, **summary(runs))
+
+
+def acs_chains(ports, dev) -> dict:
+    """Each side's acs loop chain per block from its SASS: the parent's
+    (shuffle reductions: ACS_LEGACY_FUNCTIONS) where it has no REDUX."""
+    clock = chip_smoke.max_sm_clock_hz()
+    lat, lat_int = chip_smoke.latency_table(chip_smoke.start_probe_build(),
+                                            dev)
+    out = {}
+    for tag in ("parent", "change"):
+        so = ports[tag]["device"].build(["acs"])["acs"][0]
+        fns = (chip_smoke.ACS_FUNCTIONS
+               if "REDUX" in chip_smoke.sass_of(so)
+               else chip_smoke.ACS_LEGACY_FUNCTIONS)
+        print(f"[{tag}]")
+        out[tag] = {m: {k: r[k] for k in (
+            "function", "unroll", "cycles_per_step", "issue_cycles_per_step",
+            "path_instructions_per_step", "instructions_per_step", "mix")}
+            for m, r in chip_smoke.acs_chain(so, lat_int, clock,
+                                             fns).items()}
+    return dict(latency_cycles=lat_int, clock_hz=clock, chains=out)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True, type=Path,
@@ -169,11 +271,15 @@ def main(argv=None) -> int:
     ports = {"parent": load_port(a.parent.resolve(), "port_parent"),
              "change": load_port(REPO, "port_change")}
     for m in ports.values():
-        m["device"].build(["demod", "fft4096"])
+        m["device"].build(["demod", "fft4096", "acs", "fir"])
+    chains = acs_chains(ports, torch.device("cuda", 0))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
-    rows = [demod_case(ports, C, n, om, reps, gen, a.pairs)
-            for C, n, om, reps in DEMOD_SHAPES]
+    rows = [acs_case(ports, N, T, cq, reps, gen, a.pairs)
+            for N, T, cq, reps in ACS_SHAPES]
+    rows += [cfir_case(ports, gen, a.pairs, d) for d in (False, True)]
+    rows += [demod_case(ports, C, n, om, reps, gen, a.pairs)
+             for C, n, om, reps in DEMOD_SHAPES]
     rows.append(fft_case(ports, gen, a.pairs))
     for r in rows:
         sides = "; ".join(
@@ -182,7 +288,7 @@ def main(argv=None) -> int:
         print(f"{r['kernel']} {r['shape']}: {sides}; change faster in "
               f"{r['change_wins']} of {a.pairs} pairs; outputs "
               f"{'agree' if r['equal'] else 'DIFFER'}")
-    print(json.dumps({"card": card, "rows": rows}))
+    print(json.dumps({"card": card, "acs_chains": chains, "rows": rows}))
     return 0 if all(r["equal"] for r in rows) else 1
 
 

@@ -2,12 +2,16 @@
 from `cuobjdump -sass` text.
 
     python tools/sass_chain.py KERNEL.sass FUNCTION_SUBSTRING \\
-        [--latency LAT.json] [--marker STS]
+        [--latency LAT.json] [--marker STS] [--also MUFU|none]
+        [--per-step 1]
 
 The inner loop is the smallest backward branch of the function whose
-body holds both a `MUFU` and the marker opcode (one per loop step: the
-demod's store of its packed word, `STS`); the number of markers in the
-body is its unroll factor. The hot path leaves out each block that a
+body holds both the marker opcode and the `also` opcode (the demod: its
+store of its packed word, `STS`, once per sample, and `MUFU`; the ACS
+kernels hold no MUFU, so `also` is none there and the marker is their
+warp reduction, `REDUX`); the number of markers in the body over
+`per_step`, the markers per loop step, is its unroll factor. The hot
+path leaves out each block that a
 forward branch jumps over and that holds a call, a global or local
 memory access or a loop of its own, but no `MUFU`: the slow paths of
 IEEE cosf/sinf (Payne-Hanek reduction) and of division. (The division's
@@ -22,8 +26,11 @@ destination) and takes its opcode's latency. The growth of the finish
 time per pass, over the unroll factor, is the chain per loop step in
 cycles: the least time one step can take however the instructions are
 scheduled, since only data dependencies are kept (not issue slots, not
-branches). Latencies come from a table keyed by opcode family, or family
-and first modifier ("MUFU.RCP"); chip_smoke.py measures one on the card
+branches). Beside it, `issue_cycles_per_step`: the same instructions
+issued in their compiled order by one warp alone on its scheduler, one
+per cycle at most, each waiting for its operands (what the compiled
+schedule costs such a warp). Latencies come from a table keyed by opcode
+family, or family and first modifier ("MUFU.RCP"); chip_smoke.py measures one on the card
 with tools/latency_probe.cu. A family missing from the table is priced
 at the table's `fixed` entry and reported.
 """
@@ -141,9 +148,13 @@ def dests_sources(ins: Instr) -> tuple:
         while ops and _PRED.fullmatch(ops[0]):
             dests += _regs(ops.pop(0))
     elif ops:
+        # A leading predicate is a destination too (SHFL PT, R1, ...;
+        # LOP3.LUT P0, RZ, ...).
+        while ops and _PRED.fullmatch(ops[0]):
+            dests += _regs(ops.pop(0))
         width = (2 if ".64" in ins.op or ".WIDE" in ins.op
                  else 4 if ".128" in ins.op else 1)
-        for r in _regs(ops.pop(0)):
+        for r in _regs(ops.pop(0) if ops else ""):
             kind = r.rstrip("0123456789")
             dests += [f"{kind}{int(r[len(kind):]) + i}" for i in range(width)]
         while ops and _PRED.fullmatch(ops[0]):
@@ -154,9 +165,13 @@ def dests_sources(ins: Instr) -> tuple:
     return dests, srcs
 
 
-def inner_loop(instrs, labels, marker="STS", also="MUFU") -> tuple:
-    """(first, last) indices of the smallest loop holding both a `marker`
-    and an `also` opcode."""
+def inner_loop(instrs, labels, marker="STS", also="MUFU",
+               min_markers=1) -> tuple:
+    """(first, last) indices of the smallest loop holding at least
+    `min_markers` `marker` opcodes and (unless `also` is None) an `also`
+    opcode. (A compiler that versions a loop on a flag, as the parent ACS
+    kernel's on cheap_q, leaves two such loops: min_markers picks the
+    larger.)"""
     index = {ins.addr: i for i, ins in enumerate(instrs)}
     best = None
     for j, ins in enumerate(instrs):
@@ -165,7 +180,8 @@ def inner_loop(instrs, labels, marker="STS", also="MUFU") -> tuple:
             continue
         i = index[t]
         fams = {x.family for x in instrs[i:j + 1]}
-        if marker in fams and also in fams and (
+        count = sum(x.family == marker for x in instrs[i:j + 1])
+        if count >= min_markers and (also is None or also in fams) and (
                 best is None or j - i < best[1] - best[0]):
             best = (i, j)
     if best is None:
@@ -223,17 +239,38 @@ def chain_cycles(body, latency: dict, passes: int = 24) -> tuple:
             (finish[-1][1] - finish[half - 1][1]) / span)
 
 
-def analyse(text: str, function: str, latency: dict, marker="STS") -> dict:
+def issue_cycles(body, latency: dict, passes: int = 24) -> float:
+    """Cycles per pass of `body` for one warp issuing alone, in order:
+    one instruction per cycle at most, each waiting for the registers
+    and predicates it reads (the compiled schedule's own bound, which a
+    warp without a neighbour on its scheduler cannot beat)."""
+    deps = [dests_sources(i) + (latency_of(i, latency),) for i in body]
+    ready, t, ends = {}, 0.0, []
+    for _ in range(passes):
+        for dsts, srcs, lat in deps:
+            t = max([t + 1.0] + [ready.get(r, 0.0) for r in srcs])
+            for r in dsts:
+                if r not in _CONST:
+                    ready[r] = t + lat
+        ends.append(t)
+    half = passes // 2
+    return (ends[-1] - ends[half - 1]) / (passes - half)
+
+
+def analyse(text: str, function: str, latency: dict, marker="STS",
+            also="MUFU", per_step=1.0, min_markers=1) -> dict:
     """The chain per loop step of `function` (a substring of its mangled
-    name) in a cuobjdump -sass listing, with the loop's instruction mix."""
+    name) in a cuobjdump -sass listing, with the loop's instruction mix.
+    The loop holds at least `min_markers` of `marker` (and `also`,
+    unless None); `per_step` markers make one step."""
     funcs = functions(text)
     names = [f for f in funcs if function in f]
     if len(names) != 1:
         raise ValueError(f"{len(names)} functions match {function!r}")
     instrs, labels = parse(funcs[names[0]])
-    first, last = inner_loop(instrs, labels, marker)
+    first, last = inner_loop(instrs, labels, marker, also, min_markers)
     body = hot_path(instrs, labels, first, last)
-    unroll = sum(i.family == marker for i in body)
+    unroll = sum(i.family == marker for i in body) / per_step
     mix = {}
     for i in body:
         mix[i.family] = mix.get(i.family, 0) + 1
@@ -243,6 +280,7 @@ def analyse(text: str, function: str, latency: dict, marker="STS") -> dict:
                 loop=[f"{instrs[first].addr:#x}", f"{instrs[last].addr:#x}"],
                 hot_instructions=len(body), unroll=unroll,
                 cycles_per_step=cycles / unroll,
+                issue_cycles_per_step=issue_cycles(body, latency) / unroll,
                 path_instructions_per_step=on_path / unroll,
                 instructions_per_step=len(body) / unroll, mix=mix,
                 priced_as_fixed=sorted(set(mix) - known))
@@ -255,10 +293,15 @@ def main(argv) -> int:
     ap.add_argument("function")
     ap.add_argument("--latency", help="JSON {family: cycles, 'fixed': c}")
     ap.add_argument("--marker", default="STS")
+    ap.add_argument("--also", default="MUFU",
+                    help="an opcode the loop also holds, or 'none'")
+    ap.add_argument("--per-step", type=float, default=1.0,
+                    help="markers per loop step")
     a = ap.parse_args(argv)
     lat = json.load(open(a.latency)) if a.latency else {"fixed": 4.0}
+    also = None if a.also.lower() == "none" else a.also
     print(json.dumps(analyse(open(a.sass).read(), a.function, lat,
-                             a.marker), indent=1))
+                             a.marker, also, a.per_step), indent=1))
     return 0
 
 
