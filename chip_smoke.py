@@ -18,10 +18,11 @@ TS packets that were sent.
 Phases (any failure exits non-zero):
   1. card name and power limit, versions, kernel build time; dependent
      instruction latencies on the card (tools/latency_probe.cu) and the
-     serial chains of the demod (per sample) and of the ACS kernel (per
-     trellis block, ACQUIRE and TRACK) counted from their SASS
-     (tools/sass_chain.py on `cuobjdump -sass` of the built libraries),
-     each also as one warp issuing it in order;
+     serial chains of the demod (per sample), of the ACS kernel (per
+     trellis block, ACQUIRE and TRACK) and of the banked ACS kernel (per
+     block at each B, through its shared-memory exchange and barrier)
+     counted from their SASS (tools/sass_chain.py on `cuobjdump -sass` of
+     the built libraries), each also as one warp issuing it in order;
   2. the demod's rotation (sincosf) == torch.cos / torch.sin bit for bit
      on all 65536 u16 angles; demod kernel == demod_ref, every packed
      word and every state plane bit for bit (DEMOD_CHECKS: QPSK at C=64
@@ -39,9 +40,13 @@ Phases (any failure exits non-zero):
      banked ACS kernel == viterbi_acs_banked_ref bit for bit at 4/6,
      3/4, 5/6 and 7/8 (ties forced, from zero and from a live state;
      T=1024 at each rate's fleet ACQUIRE lanes, at TRACK's 64 and at
-     N=200; T=128 at the single carrier's nsyncs lanes, 8 to 16);
+     N=200; T=128 at the single carrier's nsyncs lanes, 8 to 16; the
+     int16-sum cost extremes at the ACQUIRE and TRACK lanes; one full
+     TRACK decode at 3/4 and at 7/8, N=64 at the fleet's T, against its
+     plain version on the host CPU in a child process);
      cfir == cfir_ref and fir == fir_ref bit for bit (nt 21, 79, 2048;
-     lengths off the tile; from a zero head and mid-stream; cfir also
+     lengths off the tile; fir also at its tile's edges, FIR_EDGE_*;
+     from a zero head and mid-stream; cfir also
      decimated: the --resample stage's launch at its shape, ragged
      counts, other steps); fft4096
      within max|dy| / max|y| < 2e-5 of fft4096_ref and of torch.fft.fft
@@ -73,11 +78,13 @@ Phases (any failure exits non-zero):
      per sample on the card);
   5. kernel times at the main path's shapes (the demod also at the
      segmented launches' shapes and at one carrier; the ACS at N=256,
-     N=64 and N=4), bounds (the demod's and the ACS's serial bounds from
-     phase 1), one `kernels` line (cfir full rate and decimated, and fir,
-     beside one conv1d computing the same FIR, TF32 off, cfir and its
-     conv1d as device time from CUDA-graph replays in turns and as
-     host-paced calls; fft4096 beside one torch.fft.fft, in turns over
+     N=64 and N=4; the banked ACS at every rate's ACQUIRE and TRACK
+     lanes and the hq 3/4 launch, with cycles per block beside its SASS
+     chain and in-order issue), bounds (the demod's and the ACS's serial
+     bounds from phase 1), one `kernels` line (cfir full rate and
+     decimated, and fir, beside one conv1d computing the same FIR, TF32
+     off, each with its conv1d as device time from CUDA-graph replays in
+     turns and as host-paced calls; fft4096 beside one torch.fft.fft, in turns over
      inputs that exceed the L2, timed in phase 3 right after its check);
   6. last line: {"ok": true, "device": {...}}.
 
@@ -135,7 +142,7 @@ DEMOD_CHECKS = (
 ASSUMED_CHAIN_CYCLES = 90 * 4
 DEMOD_QPSK_FUNCTION = "demod_kernelILb1E"     # demod_kernel<true>
 TOOLS = Path(__file__).resolve().parent / "tools"
-LATENCY_PROBES = 21                           # tools/latency_probe.cu
+LATENCY_PROBES = 24                           # tools/latency_probe.cu
 # The ACS kernel's per-block chain, from its SASS the same way: per
 # mode (function, marker, markers per block, least markers in the
 # loop). This kernel's loops hold its warp reductions (REDUX, no MUFU):
@@ -166,6 +173,10 @@ CFIR_DECIMATED = {
     79: ((79, 7, (RESAMPLE_N - 79) // 7), (79, 7, 1000), (2, 2, 65535)),
     2048: ((2048, 7, 993), (0, 11, 817)),
 }
+# fir against fir_ref at its tile's edges (FIR_TILE = 512 outputs, taps
+# in groups of 4): tap counts and row lengths.
+FIR_EDGE_TAPS = (1, 3, 4, 65)
+FIR_EDGE_LENGTHS = (1, 5, 511, 512, 513, 1024, 1025)
 CHILDREN = []                    # processes this script started
 
 
@@ -230,8 +241,11 @@ def latency_table(build, dev) -> tuple:
     SHF and IMAD; FSETP, MUFU.RCP, MUFU.SIN and MUFU.RSQ are their pair
     less the partner; F2I and I2F(P) half their pair. Returns (the
     demod's table, the keys its chain count uses; the integer table for
-    the ACS: that plus SHFL.IDX, SHFL.BFLY, IMNMX/VIMNMX, SEL, ISETP (its
-    pair less SEL) and REDUX)."""
+    the ACS kernels: that plus SHFL.IDX, SHFL.BFLY, IMNMX/VIMNMX/VIMNMX3,
+    SEL, ISETP (its pair less SEL), REDUX, VIADDMNMX, and the shared-memory
+    exchange: STS priced 0 and BAR (or WARPSYNC) as the measured round
+    STS + BAR.SYNC + LDS (STS + __syncwarp + LDS) less the LDS, the
+    rounds themselves beside them)."""
     proc, so = build
     text, _ = proc.communicate(timeout=600)
     if proc.returncode != 0:
@@ -252,7 +266,8 @@ def latency_table(build, dev) -> tuple:
             fail(f"latency probe: CUDA error {err}")
     (fadd, fmul, ffma, fmnmx, fsel, fsetp_fsel, shf, imad, conv_pair, trunc,
      floor, rcp_fadd, sin_pair, rsq_fadd, lds, shfl_idx, shfl_bfly, imnmx,
-     sel, isetp_sel, redux) = (cyc.cpu().double() / lib.probe_rep()).tolist()
+     sel, isetp_sel, redux, xchg_bar, xchg_warp, viaddmnmx) = (
+        cyc.cpu().double() / lib.probe_rep()).tolist()
     lat = {"fixed": max(fadd, fmul, ffma, fmnmx, fsel, shf, imad),
            "FSETP": fsetp_fsel - fsel, "F2I": conv_pair / 2,
            "I2F": conv_pair / 2, "I2FP": conv_pair / 2, "FRND.TRUNC": trunc,
@@ -261,8 +276,14 @@ def latency_table(build, dev) -> tuple:
            "MUFU.COS": sin_pair - fmul, "MUFU.RSQ": rsq_fadd - fadd,
            "LDS": lds}
     lat_int = dict(lat, **{"SHFL.IDX": shfl_idx, "SHFL.BFLY": shfl_bfly,
-                           "IMNMX": imnmx, "VIMNMX": imnmx, "SEL": sel,
-                           "ISETP": isetp_sel - sel, "REDUX": redux})
+                           "IMNMX": imnmx, "VIMNMX": imnmx,
+                           "VIMNMX3": imnmx, "SEL": sel,
+                           "ISETP": isetp_sel - sel, "REDUX": redux,
+                           "VIADDMNMX": viaddmnmx, "STS": 0.0,
+                           "BAR": xchg_bar - lds,
+                           "WARPSYNC": xchg_warp - lds,
+                           "round STS+BAR.SYNC+LDS": xchg_bar,
+                           "round STS+__syncwarp+LDS": xchg_warp})
     print("dependent latency, cycles (tools/latency_probe.cu): "
           + ", ".join(f"{k} {v:.2f}" for k, v in lat_int.items()))
     return lat, lat_int
@@ -471,14 +492,55 @@ def acs_costs(kind, T, N, dev, gen):
     return torch.where(pick < 3, ext[pick.clamp(max=2)], any16)
 
 
-def start_long_acs(dev, gen):
-    """acs over one full TRACK decode of the main path (N=64 lanes,
-    T=2^17 blocks, cheap_q, ties) from a live state; its plain version
-    runs on this host's CPU in a child process (`--plain-acs`) while the
+def start_plain(what, fn, args, kwargs, k, names):
+    """Run leansdr_tpu_torch.<fn>(*args, **kwargs), a kernel's plain
+    version, on this host's CPU in a child process (`--plain`) while the
     later phases run: on the card it costs ~0.5 ms of small ops per
     block, and integer arithmetic gives the same bits on either device.
-    Returns what finish_long_acs needs."""
+    `k` are the kernel's outputs on the same inputs, `names` theirs.
+    Returns what finish_plain needs."""
     from leansdr_tpu_torch import device as kdev
+    src = kdev.BUILD / f"plain_{len(CHILDREN)}_in.pt"
+    dst = kdev.BUILD / f"plain_{len(CHILDREN)}_out.pt"
+    dst.unlink(missing_ok=True)
+    torch.save(dict(fn=fn, args=[a.cpu() if torch.is_tensor(a) else a
+                                 for a in args], kwargs=kwargs), src)
+    proc = subprocess.Popen([sys.executable, __file__, "--plain", str(src),
+                             str(dst)])
+    CHILDREN.append(proc)
+    return what, names, proc, dst, [v.cpu() for v in k], time.perf_counter()
+
+
+def finish_plain(job):
+    """Wait for a start_plain child; every output equal bit for bit."""
+    what, names, proc, dst, k, t0 = job
+    if proc.wait(timeout=900) != 0:
+        fail(f"{what}: plain child exited {proc.returncode}")
+    r = torch.load(dst)
+    for name, a, b in zip(names, k, r):
+        if not torch.equal(a, b):
+            fail(f"{what}: {name} differs from the plain version in "
+                 f"{int((a != b).sum())} entries")
+    print(f"{what}: bit-equal to the plain version on the host CPU "
+          f"({time.perf_counter() - t0:.0f} s since launch)")
+
+
+def plain_job(src, dst):
+    """The child of start_plain, on one thread at the lowest priority (the
+    parent's host stages are being timed meanwhile)."""
+    import importlib
+    os.nice(19)
+    torch.set_num_threads(1)
+    a = torch.load(src)
+    mod, name = a["fn"].rsplit(".", 1)
+    fn = getattr(importlib.import_module(f"leansdr_tpu_torch.{mod}"), name)
+    torch.save(fn(*a["args"], **a["kwargs"]), dst)
+
+
+def start_long_acs(dev, gen):
+    """acs over one full TRACK decode of the main path (N=64 lanes,
+    T=2^17 blocks, cheap_q, ties) from a live state, against its plain
+    version in a start_plain child."""
     from leansdr_tpu_torch.fec import viterbi_device as vd
     N, T = NCHAN, ACS_LONG_T
     z = torch.zeros((64, N), dtype=torch.int32, device=dev)
@@ -491,43 +553,11 @@ def start_long_acs(dev, gen):
                        generator=gen)
     cost = acs_costs("ties", T, N, dev, gen)
     k = vd.viterbi_acs("1/2", m0, p0, cs, cost, cheap_q=True)
-    src = kdev.BUILD / "long_acs_in.pt"
-    dst = kdev.BUILD / "long_acs_out.pt"
-    dst.unlink(missing_ok=True)
-    torch.save(dict(m=m0.cpu(), p=p0.cpu(), cs=cs.cpu(), cost=cost.cpu()),
-               src)
-    proc = subprocess.Popen([sys.executable, __file__, "--plain-acs",
-                             str(src), str(dst)])
-    CHILDREN.append(proc)
-    return proc, dst, [v.cpu() for v in k], time.perf_counter()
-
-
-def finish_long_acs(job):
-    """Wait for the long TRACK launch's plain version; every output equal
-    bit for bit."""
-    proc, dst, k, t0 = job
-    if proc.wait(timeout=900) != 0:
-        fail(f"plain ACS child exited {proc.returncode}")
-    r = torch.load(dst)
-    for name, a, b in zip(("metric", "path", "us", "q"), k, r):
-        if not torch.equal(a, b):
-            fail(f"ACS N={NCHAN} T={ACS_LONG_T} cheap_q: {name} differs "
-                 f"from the plain version in {int((a != b).sum())} entries")
-    print(f"acs cheap_q=True  N={NCHAN} T={ACS_LONG_T} costs ties (one "
-          f"TRACK decode, live state): bit-equal to the plain version on "
-          f"the host CPU ({time.perf_counter() - t0:.0f} s since launch)")
-
-
-def plain_acs_job(src, dst):
-    """The child of start_long_acs: viterbi_acs_ref on the host CPU, on
-    one thread at the lowest priority (the parent's host stages are
-    being timed meanwhile)."""
-    os.nice(19)
-    torch.set_num_threads(1)
-    from leansdr_tpu_torch.fec import viterbi_device as vd
-    a = torch.load(src)
-    torch.save(vd.viterbi_acs_ref("1/2", a["m"], a["p"], a["cs"], a["cost"],
-                                  cheap_q=True), dst)
+    return start_plain(f"acs cheap_q=True  N={N} T={T} costs ties (one "
+                       f"TRACK decode, live state)",
+                       "fec.viterbi_device.viterbi_acs_ref",
+                       ("1/2", m0, p0, cs, cost), dict(cheap_q=True), k,
+                       ("metric", "path", "us", "q"))
 
 
 def sc_lanes(rate, dev):
@@ -547,12 +577,27 @@ def fleet_plan(rate, dev):
                                device=dev).plan
 
 
+def banked_costs(kind, rate, T, N, dev, gen):
+    """Banked ACS block costs [T, N] int32: "ties", 0, -3, -6 or -9
+    (metric ties on most blocks); "int16", the sum of the rate's nshifts
+    symbols' costs (bits_out / 2 QPSK symbols per block), each at the
+    callers' extremes -2^15, 2^15 - 1, 0 or anything between (acs_costs):
+    the headroom of the kernel's normalisation."""
+    from leansdr_tpu_torch.fec.viterbi import make_trellis
+    if kind == "ties":
+        return -3 * torch.randint(0, 4, (T, N), device=dev,
+                                  dtype=torch.int32, generator=gen)
+    return sum(acs_costs("int16", T, N, dev, gen)
+               for _ in range(make_trellis(rate).bits_out // 2))
+
+
 def check_acs_banked(dev, gen):
     """acs_banked == viterbi_acs_banked_ref bit for bit at every fleet
-    punctured rate, coarse costs forcing metric ties: T=1024 at the fleet
-    main path's lane counts (the rate's ACQUIRE lanes, 64 carriers x
-    nsyncs, and TRACK's 64) and at N=200 (not a multiple of 32); T=128
-    (one single-carrier chunk) at the single carrier's nsyncs lanes;
+    punctured rate: T=1024 at the fleet main path's lane counts (the
+    rate's ACQUIRE lanes, 64 carriers x nsyncs, and TRACK's 64) and at
+    N=200 (not a multiple of 32), coarse costs forcing metric ties; T=128
+    (one single-carrier chunk) at the single carrier's nsyncs lanes; and
+    the int16-sum cost extremes at the fleet's ACQUIRE and TRACK lanes;
     round 0 from zero planes, round 1 from the kernel's end state.
     Returns (max |diff|, plain ms at 3/4 ACQUIRE round 0, its N)."""
     from leansdr_tpu_torch.fec import viterbi_banked as vb
@@ -561,15 +606,16 @@ def check_acs_banked(dev, gen):
     for rate in vb.FLEET_RATES:
         ncs = make_trellis(rate).ncs
         n_acq = fleet_plan(rate, dev).n_lanes
-        for N, T in ((n_acq, 1024), (NCHAN, 1024), (200, 1024),
-                     (sc_lanes(rate, dev), 128)):
+        for N, T, costs in ((n_acq, 1024, "ties"), (NCHAN, 1024, "ties"),
+                            (200, 1024, "ties"),
+                            (sc_lanes(rate, dev), 128, "ties"),
+                            (n_acq, 1024, "int16"), (NCHAN, 1024, "int16")):
             z = torch.zeros((64, N), dtype=torch.int32, device=dev)
             planes = (z, z, z)
             for rnd in range(2):
                 cs = torch.randint(0, ncs, (T, N), device=dev,
                                    dtype=torch.int32, generator=gen)
-                cost = -3 * torch.randint(0, 4, (T, N), device=dev,
-                                          dtype=torch.int32, generator=gen)
+                cost = banked_costs(costs, rate, T, N, dev, gen)
                 k = vb.viterbi_acs_banked(rate, *planes, cs, cost)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -579,17 +625,42 @@ def check_acs_banked(dev, gen):
                 for name, a, b in zip(("metric", "hi", "lo", "us", "q"), k,
                                       r):
                     if not torch.equal(a, b):
-                        fail(f"acs_banked {rate} N={N} round {rnd}: {name} "
-                             f"differs in {int((a != b).sum())} entries")
+                        fail(f"acs_banked {rate} N={N} costs {costs} round "
+                             f"{rnd}: {name} differs in "
+                             f"{int((a != b).sum())} entries")
                 err = max(err, max(float((a.to(torch.int64)
                                           - b.to(torch.int64)).abs().max())
                                    for a, b in zip(k, r)))
-                print(f"acs_banked {rate} N={N} T={T} round {rnd}: "
-                      f"bit-equal, plain {plain_ms:.0f} ms")
-                if rate == "3/4" and N == n_acq and rnd == 0:
+                print(f"acs_banked {rate} N={N} T={T} costs {costs} round "
+                      f"{rnd}: bit-equal, plain {plain_ms:.0f} ms")
+                if rate == "3/4" and N == n_acq and rnd == 0 and plain is None:
                     plain = (plain_ms, N)
                 planes = k[:3]
     return err, plain[0], plain[1]
+
+
+def start_long_banked(dev, gen, rate):
+    """acs_banked over one full TRACK decode of the fleet's main path at
+    `rate` (N=64 lanes, the plan's T blocks, ties) from a live state,
+    against its plain version in a start_plain child."""
+    from leansdr_tpu_torch.fec import viterbi_banked as vb
+    N, T = NCHAN, fleet_plan(rate, dev).nblocks
+    ncs = vb.bank_geometry(rate).ncs
+    z = torch.zeros((64, N), dtype=torch.int32, device=dev)
+    cs0 = torch.randint(0, ncs, (64, N), device=dev, dtype=torch.int32,
+                        generator=gen)
+    planes = vb.viterbi_acs_banked(rate, z, z, z, cs0,
+                                   banked_costs("ties", rate, 64, N, dev,
+                                                gen))[:3]
+    cs = torch.randint(0, ncs, (T, N), device=dev, dtype=torch.int32,
+                       generator=gen)
+    cost = banked_costs("ties", rate, T, N, dev, gen)
+    k = vb.viterbi_acs_banked(rate, *planes, cs, cost)
+    return start_plain(f"acs_banked {rate} N={N} T={T} costs ties (one "
+                       f"TRACK decode, live state)",
+                       "fec.viterbi_banked.viterbi_acs_banked_ref",
+                       (rate, *planes, cs, cost), {}, k,
+                       ("metric", "hi", "lo", "us", "q"))
 
 
 def check_fir(dev, gen):
@@ -638,6 +709,20 @@ def check_fir(dev, gen):
               f"cfir also at (start, step, count) "
               f"{[c for c in CFIR_DECIMATED[nt]]}), plain "
               f"{plain['cfir', nt]:.0f} / {plain['fir', nt]:.0f} ms")
+    # fir's tile edges: one and a few outputs, one short of, at and one
+    # past its 512-output tile and two, tap counts off and on its 4-tap
+    # groups.
+    for nt in FIR_EDGE_TAPS:
+        tr = torch.randn(nt, device=dev, generator=gen) / nt ** 0.5
+        for n in FIR_EDGE_LENGTHS:
+            xr = 40 * torch.randn((3, n), device=dev, generator=gen)
+            k, r = fk.fir(xr, tr), fk.fir_ref(xr, tr)
+            if not torch.equal(k, r):
+                fail(f"fir nt={nt} n={n}: {int((k != r).sum())} outputs "
+                     f"differ")
+            err = max(err, float((k - r).abs().max()))
+    print(f"fir tile edges: bit-equal at nt {FIR_EDGE_TAPS} x n "
+          f"{FIR_EDGE_LENGTHS} (3 rows)")
     return err, plain["cfir", 79], plain["fir", 79]
 
 
@@ -1376,56 +1461,102 @@ def kernel_times(rx, frames, dev, gen, chain, acs_chain_res):
 
 
 def banked_ops(rate: str, T: int, N: int) -> float:
-    """Integer operations the banked ACS function needs for T blocks over
-    N lanes, per block and lane (what the function computes, not the
-    kernel's own instruction mix):
+    """The least integer instructions the banked ACS function needs for
+    T blocks over N lanes (what the function computes, each step counted
+    at one instruction of the card, not the kernel's own mix), per block
+    and lane:
       * 2 for the block: the rank ncs-1-cs of its coded symbol and its
         cost << RB;
-      * 3 per predecessor state (64): its key base m << RB and its
-        provided-branch key (base + cost << RB) | ncs, shared by every
-        row it feeds;
-      * 4 per branch candidate (64 rows x K slots; 7/8 has two coded
-        symbols per slot, 8): the plain key base | rank, the test of its
-        coded symbol against the block's, the select of the provided
-        key, the running min;
-      * 11 per row (16 at 7/8): the winner's path shift (hi: shift,
-        shift, or; lo: shift, or), its metric key >> RB, the best-state
-        key (shift, or), one step each of the best and second-best
-        64-way mins, the normalisation; at 7/8 the choice of the uncoded
-        symbol of the winning branch (mask, two tests, two selects)."""
+      * 1 per predecessor state (64): its key base m << RB, shared by
+        every row it feeds;
+      * 1 per candidate (64 rows x K predecessors; at 7/8 a
+        predecessor's two branches share its metric, so only the smaller
+        of their static ranks can win, and the candidates are 64 x 64):
+        one fused add-min (Hopper's VIADDMNMX) forms the key and folds it
+        into the row's minimum;
+      * 8 per row (9 at 7/8): the provided branch's key (add, min), the
+        winner's path (hi: one funnel shift; lo: shift and or in one),
+        its metric word (mask), its best-state key (shift and or in one),
+        one step each of the best and second-best 64-way mins; at 7/8 the
+        choice of the winning branch's uncoded symbol.
+    (An earlier count, 3 per predecessor, 4 per slot (8 at 7/8) and 11
+    per row (16 at 7/8), was more than the function needs.)"""
     from leansdr_tpu_torch.fec.viterbi_banked import bank_geometry
     geo = bank_geometry(rate)
-    per_slot, per_row = (8, 16) if geo.B == 7 else (4, 11)
-    return float(T) * N * (2 + 64 * 3 + 64 * geo.K * per_slot
-                           + 64 * per_row)
+    per_row = 9 if geo.B == 7 else 8
+    return float(T) * N * (2 + 64 + 64 * geo.K + 64 * per_row)
 
 
-def banked_times(dev, gen):
+def banked_chain(so, lat_int, clock) -> dict:
+    """The banked ACS kernel's per-block chain and one warp's in-order
+    issue, per B (3: 3/4, 4: 4/6, 5: 5/6, 7: 7/8), from its built
+    library's SASS: tools/sass_chain.py on the block loop (one barrier
+    per block; the ring reduction, once per 64 blocks behind a branch,
+    left out), the shared-memory exchange counted (exchange=True)."""
+    sys.path.insert(0, str(TOOLS))
+    import sass_chain
+    text = sass_of(so)
+    out = {}
+    for B in (3, 4, 5, 7):
+        res = sass_chain.analyse(text, f"acs_banked_kernelILi{B}E", lat_int,
+                                 "BAR", None, 1.0, 1, exchange=True)
+        out[B] = res
+        print(f"acs_banked chain B={B} (tools/sass_chain.py on cuobjdump "
+              f"-sass {Path(so).name}, {res['function'][:60]}... loop "
+              f"{res['loop'][0]}-{res['loop'][1]}, {res['unroll']:g} blocks "
+              f"per pass): {res['cycles_per_step']:.1f} cycles per block on "
+              f"the chain (through the barrier), "
+              f"{res['issue_cycles_per_step']:.1f} issued in order by one "
+              f"warp, {res['instructions_per_step']:.1f} instructions per "
+              f"block; mix {res['mix']}; priced as fixed-pipe: "
+              f"{', '.join(res['priced_as_fixed'])}")
+    return out
+
+
+def banked_times(dev, gen, chain, clock):
     """acs_banked at the main path's shapes (64 carriers, chunk 2^18):
     ACQUIRE (64 x nsyncs lanes) and TRACK (64 lanes), at every fleet
-    punctured rate, with bounds at the INT32 issue rate."""
+    punctured rate (CUDA events, 2 calls), and the hq 3/4 single
+    carrier's launch (its nsyncs lanes, T=128; device time from CUDA-graph
+    replays of 50 calls), with bounds at the INT32 issue rate
+    (banked_ops), cycles per block and, beside them, the SASS chain and
+    one warp's in-order issue per block (banked_chain)."""
     from leansdr_tpu_torch.fec import viterbi_banked as vb
-    clock = max_sm_clock_hz()
     out = []
+    shapes = []
     for rate in ("3/4", "7/8", "5/6", "4/6"):
         plan = fleet_plan(rate, dev)
-        T = plan.nblocks
-        ncs = vb.bank_geometry(rate).ncs
-        for mode, N in (("acquire", plan.n_lanes), ("track", NCHAN)):
-            cs = torch.randint(0, ncs, (T, N), device=dev,
-                               dtype=torch.int32, generator=gen)
-            cost = -torch.randint(0, 80, (T, N), device=dev,
-                                  dtype=torch.int32, generator=gen)
-            z = torch.zeros((64, N), dtype=torch.int32, device=dev)
-            ms = cuda_time(lambda: vb.viterbi_acs_banked(rate, z, z, z, cs,
-                                                         cost), reps=2)
-            b, by = bound_ms(T * N * 16 + 6 * 64 * N * 4,
-                             banked_ops(rate, T, N), int32_ops_per_s(clock))
-            out.append(dict(rate=rate, mode=mode, N=N, T=T, ms=ms,
-                            bound_ms=b, bound_by=by))
-            print(f"kernel acs_banked {rate} {mode:7s} N={N:4d} T={T}: "
-                  f"{ms:.3f} ms, bound {b:.4f} ms ({by}), "
-                  f"{T / ms / 1e3:.2f} Mblocks/s per lane")
+        shapes += [(rate, "acquire", plan.n_lanes, plan.nblocks),
+                   (rate, "track", NCHAN, plan.nblocks)]
+    shapes.append(("3/4", "hq", sc_lanes("3/4", dev), 128))
+    for rate, mode, N, T in shapes:
+        geo = vb.bank_geometry(rate)
+        cs = torch.randint(0, geo.ncs, (T, N), device=dev,
+                           dtype=torch.int32, generator=gen)
+        cost = -torch.randint(0, 80, (T, N), device=dev,
+                              dtype=torch.int32, generator=gen)
+        z = torch.zeros((64, N), dtype=torch.int32, device=dev)
+
+        def call():
+            return vb.viterbi_acs_banked(rate, z, z, z, cs, cost)
+        ms = (float(np.median(graph_ms({"acs_banked": call})["acs_banked"]))
+              if T == 128 else cuda_time(call, reps=2))
+        b, by = bound_ms(T * N * 16 + 6 * 64 * N * 4,
+                         banked_ops(rate, T, N), int32_ops_per_s(clock))
+        c = chain[geo.B]
+        cyc = ms * 1e-3 * clock / T
+        out.append(dict(rate=rate, mode=mode, N=N, T=T, ms=ms, bound_ms=b,
+                        bound_by=by, cycles_per_block=cyc,
+                        chain_cycles_per_block=c["cycles_per_step"],
+                        issue_cycles_per_block=c["issue_cycles_per_step"],
+                        chain_bound_ms=T * c["cycles_per_step"] / clock
+                        * 1e3))
+        print(f"kernel acs_banked {rate} {mode:7s} N={N:4d} T={T}: "
+              f"{ms:.4f} ms, bound {b:.4f} ms ({by}), {cyc:.1f} cycles per "
+              f"block (SASS chain {c['cycles_per_step']:.1f}, one warp in "
+              f"order {c['issue_cycles_per_step']:.1f}; chain bound "
+              f"{out[-1]['chain_bound_ms']:.4f} ms), "
+              f"{T / ms / 1e3:.2f} Mblocks/s per lane")
     return out
 
 
@@ -1469,10 +1600,12 @@ def fir_times(dev, gen):
     once; operations: 4 multiplies and 4 adds per complex tap, 1 and 1
     per real tap) and the library yardstick: one conv1d computing the
     same FIR (TF32 off), zero-padded for causality (stride 7 for the
-    decimated outputs). Each cfir and its conv1d: device time per call
-    from CUDA-graph replays in turns (graph_ms, the medians; the table's)
-    and, as this script timed them before, CUDA events over 50
-    back-to-back calls from the host (`host_paced`)."""
+    decimated outputs). Each cfir and fir, with its conv1d: device time
+    per call from CUDA-graph replays in turns (graph_ms, the medians; the
+    table's) and, as this script timed them before, CUDA events over
+    back-to-back calls from the host (`host_paced`); fir also beside the
+    FP32-issue floor of its exact order (one FMUL and one FADD per tap and
+    output at 128 lanes per SM per clock)."""
     import torch.nn.functional as F
     from leansdr_tpu_torch.dsp import fir_kernel as fk
     torch.backends.cudnn.allow_tf32 = False
@@ -1509,24 +1642,38 @@ def fir_times(dev, gen):
     R, n, nt = 128, 1 << 18, 65
     x = torch.randn((R, n), device=dev, generator=gen)
     taps = torch.randn(nt, device=dev, generator=gen)
-    ms = cuda_time(lambda: fk.fir(x, taps), reps=20)
     xp = F.pad(x, (nt - 1, 0))[:, None]
     wf = taps.flip(0).view(1, 1, -1)
     lib_err = float((F.conv1d(xp, wf)[:, 0] - fk.fir(x, taps)).abs().max())
-    lib_ms = cuda_time(lambda: F.conv1d(xp, wf), reps=20)
+    g = graph_ms({"conv1d": lambda: F.conv1d(xp, wf),
+                  "fir": lambda: fk.fir(x, taps)}, reps=20)
+    ms, lib_ms = (float(np.median(g[k])) for k in ("fir", "conv1d"))
+    # The exact order's floor: one FMUL and one FADD per tap and output,
+    # at 128 FP32 lanes per SM per clock.
+    issue_ms = (2.0 * nt * R * n / (128 * torch.cuda.get_device_properties(
+        0).multi_processor_count * max_sm_clock_hz()) * 1e3)
     out["fir"] = dict(ms=ms, library_ms=lib_ms, lib_err=lib_err,
                       bound=bound_ms(2 * R * n * 4 + nt * 4, 2.0 * nt * R * n),
+                      graph_ms=g["fir"], library_graph_ms=g["conv1d"],
+                      host_paced_ms=cuda_time(lambda: fk.fir(x, taps),
+                                              reps=20),
+                      library_host_paced_ms=cuda_time(
+                          lambda: F.conv1d(xp, wf), reps=20),
+                      fp32_issue_floor_ms=issue_ms,
                       shape=f"R={R} n={n} nt={nt}")
     for k, v in out.items():
+        name = "fir" if k == "fir" else "cfir"
         timing = (f"device time per call from CUDA-graph replays in turns "
-                  f"(conv1d, cfir, cfir, conv1d) x 3: cfir "
+                  f"(conv1d, {name}, {name}, conv1d) x 3: {name} "
                   + " ".join(f"{t:.4f}" for t in v["graph_ms"])
                   + ", conv1d " + " ".join(f"{t:.4f}" for t in
                                            v["library_graph_ms"])
-                  + f"; host-paced (50 back-to-back calls, CUDA events): "
-                  f"cfir {v['host_paced_ms']:.4f}, conv1d "
+                  + f"; host-paced (back-to-back calls, CUDA events): "
+                  f"{name} {v['host_paced_ms']:.4f}, conv1d "
                   f"{v['library_host_paced_ms']:.4f}"
-                  if "graph_ms" in v else "back-to-back calls")
+                  + (f"; FP32-issue floor of the exact order "
+                     f"{v['fp32_issue_floor_ms']:.4f} ms"
+                     if "fp32_issue_floor_ms" in v else ""))
         print(f"kernel {k:14s} {v['shape']}: {v['ms']:.4f} ms, bound "
               f"{v['bound'][0]:.4f} ms ({v['bound'][1]}); conv1d "
               f"{v['library_ms']:.4f} ms (max |diff| {v['lib_err']:.3g}); "
@@ -1638,6 +1785,7 @@ def main() -> int:
     lat, lat_int = latency_table(probe_build, dev)
     chain = demod_chain(built["demod"][0], lat, clock)
     a_chain = acs_chain(built["acs"][0], lat_int, clock)
+    b_chain = banked_chain(built["acs_banked"][0], lat_int, clock)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -1652,6 +1800,7 @@ def main() -> int:
     a_err, a_plain = check_acs(dev, gen)
     long_acs = start_long_acs(dev, gen)
     b_err, b_plain, b_plain_n = check_acs_banked(dev, gen)
+    long_banked = [start_long_banked(dev, gen, r) for r in PUNCTURED]
     f_err, f_plain_c, f_plain_r = check_fir(dev, gen)
 
     fft_err, fft_rel_plain, fft_rel_lib = check_fft(dev, gen)
@@ -1694,9 +1843,10 @@ def main() -> int:
         seg[code_rate] = segmented_path(dev, frames, code_rate, 8)
         seg[code_rate].pop("captured")
         del frames
-    btimes = banked_times(dev, gen)
+    btimes = banked_times(dev, gen, b_chain, clock)
     b0 = btimes[0]                      # 3/4 ACQUIRE: the headline shape
-    finish_long_acs(long_acs)            # before the host-timed streams
+    for job in [long_acs] + long_banked:  # before the host-timed streams
+        finish_plain(job)
     rng = np.random.default_rng(SEED)
     stimuli = {}
     single = [single_carrier(dev, rng, stimuli, *p) for p in SC_PATHS]
@@ -1771,6 +1921,16 @@ def main() -> int:
          "library_ms": None,
          "shape": f"rate {b0['rate']} N={b0['N']} T={b0['T']}",
          "shapes": btimes,
+         "chain_source": "tools/sass_chain.py on cuobjdump -sass of the "
+                         "built acs_banked (the block loop, the "
+                         "shared-memory exchange counted), latencies from "
+                         "tools/latency_probe.cu on this card",
+         "chain": {B: {k: r[k] for k in ("function", "cycles_per_step",
+                                          "issue_cycles_per_step",
+                                          "instructions_per_step", "mix")}
+                   for B, r in b_chain.items()},
+         "ops_count": "banked_ops: 1 per candidate (fused add-min), 1 per "
+                      "predecessor, 8 per row (9 at 7/8), 2 per block",
          "plain_shape": f"rate 3/4 N={b_plain_n} T=1024"},
         {"name": "cfir", "route": "cuda",
          "source": "leansdr_tpu_torch/csrc/fir.cu",
@@ -1803,6 +1963,13 @@ def main() -> int:
          "bound_by": ftimes["fir"]["bound"][1],
          "library_ms": ftimes["fir"]["library_ms"],
          "shape": ftimes["fir"]["shape"],
+         "timing": "device time per call from CUDA-graph replays of 20 "
+                   "calls, in turns with conv1d, median of 3 rounds",
+         "graph_ms": ftimes["fir"]["graph_ms"],
+         "library_graph_ms": ftimes["fir"]["library_graph_ms"],
+         "host_paced_ms": ftimes["fir"]["host_paced_ms"],
+         "library_host_paced_ms": ftimes["fir"]["library_host_paced_ms"],
+         "fp32_issue_floor_ms": ftimes["fir"]["fp32_issue_floor_ms"],
          "plain_shape": "R=128 n=131157 nt=79"},
         {"name": "fft4096", "route": "cuda",
          "source": "leansdr_tpu_torch/csrc/fft4096.cu",
@@ -1835,7 +2002,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--plain-acs"]:     # start_long_acs's child
-        plain_acs_job(*sys.argv[2:4])
+    if sys.argv[1:2] == ["--plain"]:         # start_plain's child
+        plain_job(*sys.argv[2:4])
         sys.exit(0)
     sys.exit(main())

@@ -38,6 +38,21 @@
 // has ~1025, ~8 per SM, also one wave. Taps are a runtime device array:
 // a carrier retune uploads new taps and rebuilds nothing.
 //
+// Design of fir (the same unit-step design): a 128-thread CTA per
+// FIR_TILE = 512 outputs of one row, 4 consecutive outputs per thread.
+// Taps (zero-padded to a multiple of 4) and the tile's input span are
+// staged with 4-byte cp.async copies, all in flight at once (zeros
+// before the stream head and past n). The thread's samples slide
+// through registers 4 at a time: per group of 4 taps one 16-byte load
+// of taps (a broadcast) and one of samples (consecutive threads read
+// consecutive 16 bytes: no bank conflicts) serve 16 multiplies and 16
+// adds; taps past the last full group run one at a time. Outputs go
+// back through shared memory and leave in coalesced rows. At 128 rows
+// x 2^18 samples and 65 taps the exact order (below) needs one FMUL and
+// one FADD per tap per output, ~4.4e9 FP32 instructions: ~0.13 ms at
+// 128 lanes per SM per clock on 132 SMs at 1.98 GHz, above the 0.080 ms
+// its bytes take at 3.35 TB/s.
+//
 // Exactness: built with --fmad=false, so every product and sum rounds
 // once, in the plain version's order (k = 0 .. nt-1 per output), and
 // the kernel equals cfir_ref / fir_ref bit for bit.
@@ -47,7 +62,9 @@
 
 namespace {
 
-constexpr int TILE = 256;          // fir: outputs per CTA, one per thread
+constexpr int FIR_THREADS = 128;   // fir: threads per CTA
+constexpr int FIR_OPT = 4;         // fir: consecutive outputs per thread
+constexpr int FIR_TILE = FIR_THREADS * FIR_OPT;
 constexpr int OPT = 4;             // cfir: outputs per thread
 constexpr int CFIR_THREADS = 32;   // cfir: one warp per CTA
 constexpr int CFIR_TILE = OPT * CFIR_THREADS;
@@ -151,28 +168,70 @@ cfir_kernel(const float* __restrict__ taps_r, const float* __restrict__ taps_i,
   }
 }
 
+// The shared memory a fir CTA needs: the taps padded to a multiple of
+// 4 (ntp), then the input span of a tile (ntp + FIR_TILE samples).
+size_t fir_shmem(int nt) {
+  const size_t ntp = (size_t)(nt + 3) & ~(size_t)3;
+  return sizeof(float) * (ntp + ntp + FIR_TILE);
+}
+
 // Real taps on R independent rows: x and y are [R, n]; grid.y = row.
-__global__ void fir_kernel(const float* __restrict__ taps,
-                           const float* __restrict__ x,
-                           float* __restrict__ y, int n, int nt) {
-  extern __shared__ float sh[];
-  float* tp = sh;                        // [nt]
-  float* xs = tp + nt;                   // [nt - 1 + TILE]
-  const float* xrow = x + (size_t)blockIdx.y * n;
-  const int t0 = blockIdx.x * TILE;
-  const int span = nt - 1 + TILE;
-  for (int k = threadIdx.x; k < nt; k += blockDim.x) tp[k] = taps[k];
-  for (int j = threadIdx.x; j < span; j += blockDim.x) {
-    const int s = t0 - (nt - 1) + j;
-    xs[j] = (s >= 0 && s < n) ? xrow[s] : 0.0f;
+__global__ void __launch_bounds__(FIR_THREADS)
+fir_kernel(const float* __restrict__ taps, const float* __restrict__ x,
+           float* __restrict__ y, int n, int nt) {
+  extern __shared__ __align__(16) float sh[];
+  const int ntp = (nt + 3) & ~3;
+  float* tp = sh;                        // [ntp], zero past nt
+  float* xs = sh + ntp;                  // xs[i] = x[row, j0 - ntp + i]
+  const int tid = threadIdx.x;
+  const size_t row = (size_t)blockIdx.y * n;
+  const int j0 = blockIdx.x * FIR_TILE;  // this CTA's first output
+  for (int k = tid; k < ntp; k += FIR_THREADS)
+    cp_async4(&tp[k], taps + (k < nt ? k : 0), k < nt);
+  for (int i = tid; i < ntp + FIR_TILE; i += FIR_THREADS) {
+    const int s = j0 - ntp + i;
+    const bool in = s >= 0 && s < n;
+    cp_async4(&xs[i], x + row + (in ? s : 0), in);
   }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
-  const int t = t0 + threadIdx.x;
-  if (t >= n) return;
-  float acc = 0.0f;
-  const int base = threadIdx.x + nt - 1;
-  for (int k = 0; k < nt; ++k) acc = acc + tp[k] * xs[base - k];
-  y[(size_t)blockIdx.y * n + t] = acc;
+
+  // Outputs t_u = j0 + A - ntp + u; x[t_u - k] = xs[A + u - k].
+  const int A = FIR_OPT * tid + ntp;
+  float acc[FIR_OPT];
+#pragma unroll
+  for (int u = 0; u < FIR_OPT; ++u) acc[u] = 0.0f;
+  float4 hi = *reinterpret_cast<const float4*>(&xs[A]);
+  const int groups = nt >> 2;
+#pragma unroll 2
+  for (int g = 0; g < groups; ++g) {
+    // Taps 4g .. 4g+3: samples xs[A - 4g - 4 .. A - 4g + 3].
+    const float4 lo = *reinterpret_cast<const float4*>(&xs[A - 4 * g - 4]);
+    const float4 w4 = *reinterpret_cast<const float4*>(&tp[4 * g]);
+    const float vh[4] = {hi.x, hi.y, hi.z, hi.w};
+    const float vl[4] = {lo.x, lo.y, lo.z, lo.w};
+    const float w[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int u = 0; u < FIR_OPT; ++u) {
+        const float v = u - i >= 0 ? vh[u - i] : vl[4 + u - i];
+        acc[u] = acc[u] + w[i] * v;
+      }
+    }
+    hi = lo;
+  }
+  for (int k = 4 * groups; k < nt; ++k) {
+    const float w = tp[k];
+#pragma unroll
+    for (int u = 0; u < FIR_OPT; ++u) acc[u] = acc[u] + w * xs[A + u - k];
+  }
+  __syncthreads();                       // every thread is done with xs
+  *reinterpret_cast<float4*>(&xs[FIR_OPT * tid]) =
+      make_float4(acc[0], acc[1], acc[2], acc[3]);
+  __syncthreads();
+  const int jn = min(FIR_TILE, n - j0);
+  for (int i = tid; i < jn; i += FIR_THREADS) y[row + j0 + i] = xs[i];
 }
 
 }  // namespace
@@ -204,9 +263,8 @@ extern "C" int cfir_launch(const void* taps_r, const void* taps_i,
 
 extern "C" int fir_launch(const void* taps, const void* x, void* y, int R,
                           int n, int nt, void* stream) {
-  const size_t shmem = sizeof(float) * (nt + (nt - 1 + TILE));
-  const dim3 grid((n + TILE - 1) / TILE, R);
-  fir_kernel<<<grid, TILE, shmem, (cudaStream_t)stream>>>(
+  const dim3 grid((n + FIR_TILE - 1) / FIR_TILE, R);
+  fir_kernel<<<grid, FIR_THREADS, fir_shmem(nt), (cudaStream_t)stream>>>(
       (const float*)taps, (const float*)x, (float*)y, n, nt);
   return (int)cudaGetLastError();
 }

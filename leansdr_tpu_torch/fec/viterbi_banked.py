@@ -18,7 +18,7 @@ keys pack (metric << RB) | rank with rank = NCS-1-cs for plain branches
 and NCS for the provided-with-metric branch, so one min reduction
 realizes "provided first, then branches cs-ascending, last minimum
 wins". Keys are unique per (row, lane) (asserted in bank_geometry), so
-a strict-< running min over the predecessors in any order is exact. The
+a running min over the predecessors in any order is exact. The
 best-state scan packs (metric << 6) | state ('<' ascending, FIRST
 minimum wins). Paths are 64-bit register-exchange words (bitpath,
 viterbi.h:287-293) split over two i32 planes.
@@ -162,20 +162,93 @@ def _row_tables(rate: str):
     return prow, rk, rk2, uh, ul
 
 
+def _gf2_decoder(img: list, n: int):
+    """Tables of the linear map inverse to v -> sum of img[i] over the
+    set bits i of v (GF(2), n-bit images, injective): for every n-bit c,
+    (L[c], H[c]) with c = image(L[c]) ^ (the complement vector H[c]
+    names), so H[c] == 0 exactly on the image."""
+    basis = list(img)
+    span = {0}
+    for v in basis:
+        span |= {x ^ v for x in span}
+    for i in range(n):
+        if (1 << i) not in span:
+            basis.append(1 << i)
+            span |= {x ^ (1 << i) for x in span}
+    assert len(span) == 1 << n and len(basis) == n
+    L = np.zeros(1 << n, np.int64)
+    H = np.zeros(1 << n, np.int64)
+    for a in range(1 << n):
+        c = 0
+        for i, v in enumerate(basis):
+            if a >> i & 1:
+                c ^= v
+        L[c], H[c] = a & ((1 << len(img)) - 1), a >> len(img)
+    return L, H
+
+
 @lru_cache(maxsize=None)
 def kernel_tables(rate: str):
-    """The tables csrc/acs_banked.cu loads into shared memory:
-    tbl [K, 64] int32, entry (k, r) packing the branch constants of pred
-    slot k into stored row r (bits 0-7 rank of the larger coded symbol,
-    8-15 rank of the smaller one (B=7), 16-22 its us, 23-29 the smaller
-    one's us, the packing of leansdr_tpu/fec/viterbi_banked.py:278-282),
-    and prow [64] int32, the stored row of pred slot k of bank g at
-    g*K + k."""
+    """The tables csrc/acs_banked.cu reads, as (rk [K, 64], aux) int32.
+
+    The trellis is linear over GF(2): a block's coded symbol is
+    cs = Mf(v) ^ Ms(s'), where s' is the new state and v the B free bits
+    of the shift register (the predecessor's low B bits for B <= 5; the
+    whole predecessor and the first input bit b for 7/8). Hence:
+
+    * rk[k, r]: the rank ncs-1-cs of the branch from natural
+      predecessor pb(r) + k into stored row r (pb = (r >> B) << B for
+      B <= 5, 0 for 7/8). At 7/8 a predecessor feeds a row through two
+      branches, and since both keys share its metric the smaller rank
+      alone can win: rk is that smaller rank.
+    * decode: for a rank c, x = tl[c] ^ rdec[r] is the natural
+      predecessor of the branch of row r with coded symbol ncs-1-c in
+      bits 0-5 (7/8: and b in bit 6), and bits 8+ hold its syndrome,
+      zero exactly when row r has such a branch (asserted for every
+      rank of every row).
+    * u0[r], u1[r]: the uncoded symbol of row r's branches with b = 0
+      and 1 (the row's one us for B <= 5); nat[r]: its natural state.
+
+    aux is [rdec, u0, u1, nat] (four [64] rows, by stored row), then
+    tl [ncs]."""
     geo = bank_geometry(rate)
-    prow, rk, rk2, uh, ul = _row_tables(rate)
-    tbl = (rk | (rk2 << 8) | (uh << 16) | (ul << 23)).T
-    return (np.ascontiguousarray(tbl, np.int32),
-            np.ascontiguousarray(geo.pred_row.reshape(-1), np.int32))
+    t = make_trellis(rate)
+    B, ncs, K = geo.B, geo.ncs, geo.K
+    free = (1 << B) - 1
+    v_of = ((lambda p, u: p | ((u >> 6) & 1) << 6) if B == 7
+            else (lambda p, u: p))
+    img = {v_of(int(p), int(u)) & free: int(c) for p, u, c in zip(
+        t.in_pred[0], t.in_us[0], t.in_cs[0])}          # state 0: Ms = 0
+    L, H = _gf2_decoder([img[1 << i] for i in range(B)], t.bits_out)
+    tl = np.array([L[ncs - 1 - c] | H[ncs - 1 - c] << 8
+                   for c in range(ncs)], np.int64)
+    rk = np.zeros((K, NSTATES), np.int64)
+    rdec = np.zeros(NSTATES, np.int64)
+    u = np.zeros((2, NSTATES), np.int64)
+    nat = geo.orig.astype(np.int64)
+    for r in range(NSTATES):
+        sp = int(nat[r])
+        pb = (r >> B) << B if B <= 5 else 0
+        rank = {}
+        v0 = v_of(int(t.in_pred[sp][0]), int(t.in_us[sp][0]))
+        rdec[r] = (L[t.in_cs[sp][0]] ^ v0) | H[t.in_cs[sp][0]] << 8
+        for p, us, c in zip(t.in_pred[sp], t.in_us[sp], t.in_cs[sp]):
+            p, us, c = int(p), int(us), int(c)
+            assert pb <= p < pb + K
+            rank[p] = min(rank.get(p, ncs), ncs - 1 - c)
+            x = int(tl[ncs - 1 - c] ^ rdec[r])
+            assert x == v_of(p, us), (rate, r, c)
+            u[(x >> 6) & 1 if B == 7 else 0, r] = us
+        if B <= 5:
+            u[1, r] = u[0, r]
+        rk[:, r] = [rank[pb + k] for k in range(K)]
+        for c in range(ncs):               # no branch: nonzero syndrome
+            x = int(tl[c] ^ rdec[r])
+            assert (x >> 8 == 0) == (c in {ncs - 1 - int(v)
+                                           for v in t.in_cs[sp]})
+    aux = np.concatenate([rdec, u[0], u[1], nat, tl])
+    return (np.ascontiguousarray(rk, np.int32),
+            np.ascontiguousarray(aux, np.int32))
 
 
 def viterbi_acs_banked_ref(rate: str, metric: torch.Tensor,
@@ -262,7 +335,7 @@ _tables = {}
 
 
 def _device_tables(rate: str, dev):
-    """(tbl [K, 64], prow [64]) int32 on `dev`, cached."""
+    """kernel_tables(rate) (rk [K, 64], aux) int32 on `dev`, cached."""
     key = (rate, str(dev))
     if key not in _tables:
         _tables[key] = tuple(torch.from_numpy(a).to(dev).contiguous()
@@ -276,7 +349,8 @@ def viterbi_acs_banked(rate: str, metric: torch.Tensor,
     """Banked ACS over T blocks (same contract as viterbi_acs_banked_ref).
 
     CPU tensors run `viterbi_acs_banked_ref`; CUDA tensors launch
-    csrc/acs_banked.cu (T must be a multiple of 64).
+    csrc/acs_banked.cu with the tables of `kernel_tables` (T must be a
+    multiple of 64).
     """
     if cs.device.type == "cpu":
         return viterbi_acs_banked_ref(rate, metric, path_hi, path_lo, cs,
@@ -293,12 +367,12 @@ def viterbi_acs_banked(rate: str, metric: torch.Tensor,
     geo = bank_geometry(rate)
     nbits, depth = PATH_SPEC[rate]
     lib = _kernel()
-    tbl, prow = _device_tables(rate, dev)
+    rk, aux = _device_tables(rate, dev)
     m2, h2, l2 = (torch.empty_like(metric) for _ in range(3))
     us = torch.empty((T, N), dtype=torch.int32, device=dev)
     q = torch.empty((T, N), dtype=torch.int32, device=dev)
     err = lib.acs_banked_launch(
-        tbl.data_ptr(), prow.data_ptr(), metric.data_ptr(),
+        rk.data_ptr(), aux.data_ptr(), metric.data_ptr(),
         path_hi.data_ptr(), path_lo.data_ptr(), cs.data_ptr(),
         cost.data_ptr(), m2.data_ptr(), h2.data_ptr(), l2.data_ptr(),
         us.data_ptr(), q.data_ptr(), T, N, geo.B, nbits,

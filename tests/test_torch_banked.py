@@ -48,7 +48,8 @@ def _ref(rate, cs, cost, planes=None):
 @pytest.mark.parametrize("rate", RATES)
 def test_bank_geometry_matches_jax(rate):
     """Every field of BankGeometry equals the JAX one; the kernel's
-    packed tables decode back to it."""
+    tables have its shapes and state order (their decode:
+    test_torch_banked_kernel.test_kernel_tables_match_geometry)."""
     a, b = jvb.bank_geometry(rate), tvb.bank_geometry(rate)
     for f in ("rate", "B", "K", "G", "ncs", "rank_bits"):
         assert getattr(a, f) == getattr(b, f), f
@@ -58,22 +59,9 @@ def test_bank_geometry_matches_jax(rate):
         assert (x is None) == (y is None), f
         if x is not None:
             np.testing.assert_array_equal(x, y, err_msg=f)
-    tbl, prow = tvb.kernel_tables(rate)
-    assert tbl.shape == (b.K, 64) and prow.shape == (b.G * b.K,)
-    np.testing.assert_array_equal(prow, a.pred_row.reshape(-1))
-    for r in range(64):
-        g, j = (r // b.K, r % b.K) if b.B <= 5 else (0, r)
-        np.testing.assert_array_equal(tbl[:, r] & 0xFF,
-                                      a.ncs - 1 - a.cs[g, :, j])
-        if a.cs2 is not None:
-            np.testing.assert_array_equal((tbl[:, r] >> 8) & 0xFF,
-                                          a.ncs - 1 - a.cs2[0, :, j])
-            np.testing.assert_array_equal((tbl[:, r] >> 16) & 0x7F,
-                                          a.us_hi[0, :, j])
-            np.testing.assert_array_equal((tbl[:, r] >> 23) & 0x7F,
-                                          a.us_lo[0, :, j])
-        else:
-            assert ((tbl[:, r] >> 16) & 0x7F == a.us[g, j]).all()
+    rk, aux = tvb.kernel_tables(rate)
+    assert rk.shape == (b.K, 64) and aux.shape == (4 * 64 + b.ncs,)
+    np.testing.assert_array_equal(aux[3 * 64:4 * 64], a.orig)
 
 
 @pytest.mark.parametrize("rate", RATES)

@@ -226,6 +226,58 @@ def test_kernel_wrappers_take_the_plain_version_on_cpu():
         tfir._check_taps(tfir.MAX_TAPS + 1)
 
 
+
+def _fir_tile_model(x, taps, threads=128, opt=4):
+    """NumPy float32 model of csrc/fir.cu's real-tap kernel: tiles of
+    threads*opt outputs per row, each thread `opt` consecutive outputs;
+    the tile's span staged from ntp (taps padded to a multiple of 4)
+    samples before its first output, zeros before the stream head and
+    past n; per group of 4 taps one 4-sample load slides the window
+    (the upper 4 samples are the previous group's lower 4); taps past
+    the last full group one at a time; every product and sum rounded
+    once, in tap order."""
+    R, n = x.shape
+    nt = len(taps)
+    ntp = -(-nt // 4) * 4
+    tile = threads * opt
+    ntiles = -(-n // tile)
+    tp = np.zeros(ntp, np.float32)
+    tp[:nt] = taps
+    idx = (np.arange(ntiles)[:, None] * tile - ntp
+           + np.arange(ntp + tile)[None, :])
+    xs = np.where((idx >= 0) & (idx < n), x[:, idx.clip(0, n - 1)],
+                  np.float32(0))                      # [R, tiles, span]
+    A = opt * np.arange(threads) + ntp
+    acc = np.zeros((R, ntiles, threads, opt), np.float32)
+    hi = xs[:, :, A[:, None] + np.arange(4)]          # [R, tiles, th, 4]
+    for g in range(nt // 4):
+        lo = xs[:, :, A[:, None] - 4 * g - 4 + np.arange(4)]
+        for i in range(4):
+            for u in range(opt):
+                v = hi[..., u - i] if u >= i else lo[..., 4 + u - i]
+                acc[..., u] = acc[..., u] + tp[4 * g + i] * v
+        hi = lo
+    for k in range(4 * (nt // 4), nt):
+        for u in range(opt):
+            acc[..., u] = acc[..., u] + tp[k] * xs[:, :, A + u - k]
+    return acc.reshape(R, ntiles * tile)[:, :n]
+
+
+@pytest.mark.parametrize("nt", [1, 3, 4, 21, 65, 79])
+def test_fir_kernel_tiling_model_matches_ref(nt):
+    """The kernel's tiling (row, tile and ragged-edge offsets, 4 outputs
+    per thread, the 4-tap window and the tap remainder) equals fir_ref
+    bit for bit: rows of 1, 511, 512, 513 and 1500 samples (one tile's
+    edges, and a partial last tile), from a zero stream head."""
+    rng = np.random.default_rng(nt)
+    taps = (rng.standard_normal(nt) / np.sqrt(nt)).astype(np.float32)
+    for n in (1, 511, 512, 513, 1500):
+        x = (40 * rng.standard_normal((3, n))).astype(np.float32)
+        want = tfir.fir_ref(torch.from_numpy(x), torch.from_numpy(taps))
+        got = _fir_tile_model(x, taps)
+        assert np.array_equal(got, want.numpy()), (nt, n)
+
+
 if __name__ == "__main__":
     # The JAX side of jax_side: python test_torch_fir.py OUT.pkl
     Path(sys.argv[1]).write_bytes(pickle.dumps(_jax_outputs()))

@@ -1,8 +1,8 @@
-"""The rate-1/2 ACS kernel (leansdr_tpu_torch/csrc/acs.cu) beside variants
-of its own source on one card: the design choices its source note names,
-timed in one process.
+"""The rate-1/2 ACS kernel (leansdr_tpu_torch/csrc/acs.cu), or the banked
+ACS kernel (csrc/acs_banked.cu), beside variants of its own source on one
+card: the design choices its source note names, timed in one process.
 
-    python3 tools/acs_variants.py [--rounds 3]
+    python3 tools/acs_variants.py [--rounds 3] [--kernel acs_banked]
 
 Each variant is the committed source with one change made as text:
 four warps per CTA (the kernel's earlier launch shape), one unroll
@@ -17,6 +17,15 @@ timed in rounds at the main paths' shapes: the fleet's ACQUIRE (N=256,
 T=2^17) and TRACK (N=64, cheap_q) decodes (CUDA events, two calls) and
 the hq 1/2 single carrier's 128-block chunk (N=4; CUDA-graph replays of
 50 calls). Prints one line per variant and a JSON line.
+
+The banked kernel's variants: half and twice the independent running
+minima, and the launch without
+its 8-CTAs-per-SM occupancy bound. Each is checked equal to the
+committed kernel on every output at its shapes, counted from its SASS
+(chip_smoke.banked_chain) and timed in rounds at the fleet's 3/4 and
+7/8 ACQUIRE (512 lanes x 2^16 blocks, 1024 x 2^15) and TRACK (64 lanes)
+decodes (CUDA events, two calls) and the hq 3/4 single carrier's launch
+(8 lanes x 128 blocks; CUDA-graph replays of 50 calls).
 """
 
 import argparse
@@ -71,17 +80,39 @@ def variants(src: str) -> dict:
     return out
 
 
-def build(sources: dict) -> dict:
-    """nvcc each source (in parallel) -> {name: loaded library}."""
+BANKED_SHAPES = (("3/4", 512, 1 << 16), ("3/4", 64, 1 << 16),
+                 ("7/8", 1024, 1 << 15), ("7/8", 64, 1 << 15),
+                 ("3/4", 8, 128))
+
+
+def banked_variants(src: str) -> dict:
+    """{name: source}: the committed banked kernel and its one-change
+    variants."""
+    nacc = "constexpr int NACC = K >= 32 ? 8 : 4;"
+    out = {"committed": src,
+           "half the running minima": src.replace(
+               nacc, "constexpr int NACC = K >= 32 ? 4 : 2;"),
+           "twice the running minima": src.replace(
+               nacc, "constexpr int NACC = K >= 32 ? 16 : 8;"),
+           "no occupancy bound": src.replace(
+               "__launch_bounds__(64, 8)", "__launch_bounds__(64)")}
+    for name, text in out.items():
+        if name != "committed" and text == src:
+            raise RuntimeError(f"variant {name!r}: the source has changed")
+    return out
+
+
+def build(sources: dict, kernel: str = "acs") -> dict:
+    """nvcc each source (in parallel) -> {name: (loaded library, path)}."""
     from leansdr_tpu_torch import device as kdev
-    out_dir = kdev.BUILD / "acs_variants"
+    out_dir = kdev.BUILD / f"{kernel}_variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
     for i, (name, text) in enumerate(sources.items()):
         cu, so = out_dir / f"v{i}.cu", out_dir / f"libv{i}.so"
         cu.write_text(text)
         cmd = ([kdev.nvcc_path()] + kdev.ARCH + kdev.BASE_FLAGS
-               + kdev.KERNEL_FLAGS["acs"] + [str(cu), "-o", str(so)])
+               + kdev.KERNEL_FLAGS[kernel] + [str(cu), "-o", str(so)])
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        so)
@@ -91,9 +122,16 @@ def build(sources: dict) -> dict:
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{text}")
         lib = ctypes.CDLL(str(so))
-        lib.acs_launch.restype = ctypes.c_int
-        lib.acs_launch.argtypes = ([ctypes.c_void_p] * 9
-                                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        if kernel == "acs":
+            lib.acs_launch.restype = ctypes.c_int
+            lib.acs_launch.argtypes = ([ctypes.c_void_p] * 9
+                                       + [ctypes.c_int] * 4
+                                       + [ctypes.c_void_p])
+        else:
+            lib.acs_banked_launch.restype = ctypes.c_int
+            lib.acs_banked_launch.argtypes = ([ctypes.c_void_p] * 12
+                                              + [ctypes.c_int] * 7
+                                              + [ctypes.c_void_p])
         libs[name] = (lib, so)
     return libs
 
@@ -116,9 +154,109 @@ def launcher(lib, tbl):
     return run
 
 
+def banked_launcher(lib):
+    """acs_banked through `lib` with the wrapper's contract."""
+    from leansdr_tpu_torch.fec import viterbi_banked as vb
+    from leansdr_tpu_torch.fec.viterbi import PATH_SPEC
+
+    def run(rate, metric, hi, lo, cs, cost):
+        T, N = cs.shape
+        geo = vb.bank_geometry(rate)
+        nbits, depth = PATH_SPEC[rate]
+        rk, aux = vb._device_tables(rate, cs.device)
+        out = [torch.empty_like(metric) for _ in range(3)]
+        us = torch.empty((T, N), dtype=torch.int32, device=cs.device)
+        q = torch.empty_like(us)
+        err = lib.acs_banked_launch(
+            rk.data_ptr(), aux.data_ptr(), metric.data_ptr(), hi.data_ptr(),
+            lo.data_ptr(), cs.data_ptr(), cost.data_ptr(),
+            *(o.data_ptr() for o in out), us.data_ptr(), q.data_ptr(), T, N,
+            geo.B, nbits, (depth - 1) * nbits - 32, geo.rank_bits, geo.ncs,
+            torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"acs_banked_launch: CUDA error {err}")
+        return (*out, us, q)
+    return run
+
+
+def banked_main(rounds: int, card: str) -> int:
+    """The banked kernel's variants (module docstring)."""
+    from leansdr_tpu_torch.fec import viterbi_banked as vb
+    dev = torch.device("cuda", 0)
+    probe = chip_smoke.start_probe_build()
+    src = (REPO / "leansdr_tpu_torch/csrc/acs_banked.cu").read_text()
+    libs = build(banked_variants(src), "acs_banked")
+    clock = chip_smoke.max_sm_clock_hz()
+    _, lat_int = chip_smoke.latency_table(probe, dev)
+    runs = {k: banked_launcher(lib) for k, (lib, _) in libs.items()}
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    inputs = []
+    for rate, N, T in BANKED_SHAPES:
+        ncs = vb.bank_geometry(rate).ncs
+        cs = torch.randint(0, ncs, (T, N), device=dev, dtype=torch.int32,
+                           generator=gen)
+        cost = -torch.randint(0, 80, (T, N), device=dev, dtype=torch.int32,
+                              generator=gen)
+        z = torch.zeros((64, N), dtype=torch.int32, device=dev)
+        inputs.append((rate, z, z, z, cs, cost))
+    rows, graphs = {}, {}
+    for name, run in runs.items():
+        equal = all(all(torch.equal(u, v) for u, v in zip(
+            run(*x), runs["committed"](*x))) for x in inputs)
+        print(f"[{name}]")
+        chain = chip_smoke.banked_chain(libs[name][1], lat_int, clock)
+        rows[name] = dict(equal=equal, ms={i: [] for i in range(
+            len(inputs))}, chain={B: {k: r[k] for k in (
+                "cycles_per_step", "issue_cycles_per_step",
+                "instructions_per_step")} for B, r in chain.items()})
+        x = inputs[-1]
+        run(*x)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(GRAPH_CALLS):
+                run(*x)
+        graphs[name] = g
+    for rnd in range(rounds):
+        names = list(runs) if rnd % 2 == 0 else list(runs)[::-1]
+        for name in names:
+            for i in range(len(inputs) - 1):
+                rows[name]["ms"][i].append(chip_smoke.cuda_time(
+                    lambda: runs[name](*inputs[i]), reps=2))
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            graphs[name].replay()
+            e.record()
+            torch.cuda.synchronize()
+            rows[name]["ms"][len(inputs) - 1].append(
+                s.elapsed_time(e) / GRAPH_CALLS)
+    for name, r in rows.items():
+        med = [float(np.median(r["ms"][i])) for i in range(len(inputs))]
+        r["median_ms"] = med
+        r["cycles_per_block"] = [m * 1e-3 * clock / BANKED_SHAPES[i][2]
+                                 for i, m in enumerate(med)]
+        print(f"{name:26s} outputs {'equal' if r['equal'] else 'DIFFER'}; "
+              + "; ".join(
+                  f"{BANKED_SHAPES[i][0]} N={BANKED_SHAPES[i][1]} "
+                  f"T={BANKED_SHAPES[i][2]}: {med[i]:.4f} ms "
+                  f"({r['cycles_per_block'][i]:.1f} cycles per block)"
+                  for i in range(len(inputs)))
+              + "; SASS chain / in-order issue per block: 3/4 "
+              f"{r['chain'][3]['cycles_per_step']:.1f} / "
+              f"{r['chain'][3]['issue_cycles_per_step']:.1f}, 7/8 "
+              f"{r['chain'][7]['cycles_per_step']:.1f} / "
+              f"{r['chain'][7]['issue_cycles_per_step']:.1f}")
+    print(json.dumps({"card": card, "clock_hz": clock,
+                      "latency_cycles": lat_int, "variants": rows}))
+    return 0 if all(r["equal"] for r in rows.values()) else 1
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=3)
+    ap.add_argument("--kernel", choices=("acs", "acs_banked"),
+                    default="acs")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("acs_variants: no CUDA device", file=sys.stderr)
@@ -129,6 +267,8 @@ def main(argv=None) -> int:
                            "--format=csv,noheader", "-i", "0"],
                           capture_output=True, text=True).stdout.strip()
     print(card)
+    if a.kernel == "acs_banked":
+        return banked_main(a.rounds, card)
     probe = chip_smoke.start_probe_build()
     src = (REPO / "leansdr_tpu_torch/csrc/acs.cu").read_text()
     libs = build(variants(src))

@@ -1,5 +1,6 @@
-"""Time the demod, fft4096, acs and cfir kernels of two checkouts of the
-port in one process on one card: a parent checkout and this tree.
+"""Time the demod, fft4096, acs, acs_banked, cfir and fir kernels of two
+checkouts of the port in one process on one card: a parent checkout and
+this tree.
 
     git archive <parent> | tar -x -C .chip_archive/parent
     python3 tools/kernel_ab.py --parent .chip_archive/parent
@@ -23,12 +24,21 @@ cheap_q) and the hq 1/2 single carrier's 128-block chunk (N=4), costs
 0..-39; outputs equal. cfir runs at the --resample stage's shape (79
 taps, 2^17 + 85 samples), full rate and decimated by 7 from sample 79
 (a parent without the decimated launch: its full-rate launch and the
-gather the stage made of it); outputs equal. A time is the wrapper's:
+gather the stage made of it); outputs equal. acs_banked runs at the
+fleet's 3/4 and 7/8 shapes: ACQUIRE (512 lanes x 2^16 blocks; 1024 x
+2^15) and TRACK (64 lanes), costs 0..-79, and the hq 3/4 single
+carrier's launch (8 lanes x 128 blocks, from CUDA-graph replays); outputs
+equal. fir runs at 128 rows x 2^18 samples, 65 taps (the mean of 20
+calls); outputs equal. A time is the wrapper's:
 kernel, input transpose and the parent's per-call table copy (cfir and
 the N=4 acs: the mean over 50 calls from CUDA-graph replays, as
 chip_smoke.py times them, so the host does not pace them). Also counts each side's acs loop chain
 per block from its SASS (tools/sass_chain.py, latencies from
-tools/latency_probe.cu). Prints one line per shape and a JSON line.
+tools/latency_probe.cu) and each side's acs_banked block loop per B
+(chip_smoke.banked_chain: the shared-memory exchange counted; a loop
+nested in the block loop, as the parent's slot loop at B >= 4, is
+counted once per block, so its count is a lower bound there). Prints
+one line per shape and a JSON line.
 """
 
 import argparse
@@ -56,6 +66,10 @@ DEMOD_SHAPES = ((64, 1 << 18, 2.0, 2), (512, (1 << 15) + 128, 2.0, 3),
 GRAPH_CALLS = 50
 ACS_SHAPES = ((256, 1 << 17, False, 2), (64, 1 << 17, True, 2),
               (4, 128, False, GRAPH_CALLS))
+# (rate, lanes, blocks, calls per timing)
+BANKED_SHAPES = (("3/4", 512, 1 << 16, 1), ("3/4", 64, 1 << 16, 1),
+                 ("7/8", 1024, 1 << 15, 1), ("7/8", 64, 1 << 15, 1),
+                 ("3/4", 8, 128, GRAPH_CALLS))
 
 
 def load_port(root: Path, alias: str):
@@ -70,7 +84,7 @@ def load_port(root: Path, alias: str):
     return {m: importlib.import_module(f"{alias}.{m}")
             for m in ("device", "dsp.receiver", "dsp.receiver_kernel",
                       "dsp.fft_kernel", "dsp.cstln", "dsp.fir_kernel",
-                      "fec.viterbi_device")}
+                      "fec.viterbi_device", "fec.viterbi_banked")}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -195,6 +209,44 @@ def acs_case(ports, N, T, cheap_q, reps, gen, pairs):
                 equal=equal, **summary(runs))
 
 
+def banked_case(ports, rate, N, T, reps, gen, pairs):
+    ncs = ports["change"]["fec.viterbi_banked"].bank_geometry(rate).ncs
+    cs = torch.randint(0, ncs, (T, N), device=gen.device, dtype=torch.int32,
+                       generator=gen)
+    cost = -torch.randint(0, 80, (T, N), device=gen.device,
+                          dtype=torch.int32, generator=gen)
+    z = torch.zeros((64, N), dtype=torch.int32, device=gen.device)
+    fns, outs = {}, {}
+    for tag in ("parent", "change"):
+        fn = ports[tag]["fec.viterbi_banked"].viterbi_acs_banked
+        args = (rate, z, z, z, cs, cost)
+        outs[tag] = fn(*args)
+        fns[tag] = (lambda f, a: lambda: f(*a))(fn, args)
+        if reps == GRAPH_CALLS:
+            fns[tag] = graph_call(fns[tag])
+    equal = all(torch.equal(a, b) for a, b in zip(outs["parent"],
+                                                   outs["change"]))
+    runs = paired(fns, 1, pairs)
+    if reps == GRAPH_CALLS:
+        runs = {k: [v / GRAPH_CALLS for v in r] for k, r in runs.items()}
+    return dict(kernel="acs_banked", shape=f"rate {rate} N={N} T={T}",
+                equal=equal, **summary(runs))
+
+
+def fir_case(ports, gen, pairs, reps=20):
+    R, n, nt = 128, 1 << 18, 65
+    x = torch.randn((R, n), device=gen.device, generator=gen)
+    taps = torch.randn(nt, device=gen.device, generator=gen)
+    fns, outs = {}, {}
+    for tag in ("parent", "change"):
+        fn = ports[tag]["dsp.fir_kernel"].fir
+        outs[tag] = fn(x, taps)
+        fns[tag] = (lambda f: lambda: f(x, taps))(fn)
+    return dict(kernel="fir", shape=f"R={R} n={n} nt={nt}",
+                equal=torch.equal(outs["parent"], outs["change"]),
+                **summary(paired(fns, reps, pairs)))
+
+
 def graph_call(fn, reps=GRAPH_CALLS):
     """A function that replays `reps` calls of fn captured in one CUDA
     graph (device time without host pacing; cuda_ms divides by 1)."""
@@ -240,19 +292,24 @@ def acs_chains(ports, dev) -> dict:
     clock = chip_smoke.max_sm_clock_hz()
     lat, lat_int = chip_smoke.latency_table(chip_smoke.start_probe_build(),
                                             dev)
-    out = {}
+    out, banked = {}, {}
+    keys = ("function", "unroll", "cycles_per_step", "issue_cycles_per_step",
+            "path_instructions_per_step", "instructions_per_step", "mix")
     for tag in ("parent", "change"):
         so = ports[tag]["device"].build(["acs"])["acs"][0]
         fns = (chip_smoke.ACS_FUNCTIONS
                if "REDUX" in chip_smoke.sass_of(so)
                else chip_smoke.ACS_LEGACY_FUNCTIONS)
         print(f"[{tag}]")
-        out[tag] = {m: {k: r[k] for k in (
-            "function", "unroll", "cycles_per_step", "issue_cycles_per_step",
-            "path_instructions_per_step", "instructions_per_step", "mix")}
-            for m, r in chip_smoke.acs_chain(so, lat_int, clock,
-                                             fns).items()}
-    return dict(latency_cycles=lat_int, clock_hz=clock, chains=out)
+        out[tag] = {m: {k: r[k] for k in keys}
+                    for m, r in chip_smoke.acs_chain(so, lat_int, clock,
+                                                     fns).items()}
+        so = ports[tag]["device"].build(["acs_banked"])["acs_banked"][0]
+        banked[tag] = {B: {k: r[k] for k in keys}
+                       for B, r in chip_smoke.banked_chain(
+                           so, lat_int, clock).items()}
+    return dict(latency_cycles=lat_int, clock_hz=clock, chains=out,
+                banked_chains=banked)
 
 
 def main(argv=None) -> int:
@@ -271,13 +328,16 @@ def main(argv=None) -> int:
     ports = {"parent": load_port(a.parent.resolve(), "port_parent"),
              "change": load_port(REPO, "port_change")}
     for m in ports.values():
-        m["device"].build(["demod", "fft4096", "acs", "fir"])
+        m["device"].build(["demod", "fft4096", "acs", "acs_banked", "fir"])
     chains = acs_chains(ports, torch.device("cuda", 0))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     rows = [acs_case(ports, N, T, cq, reps, gen, a.pairs)
             for N, T, cq, reps in ACS_SHAPES]
+    rows += [banked_case(ports, rate, N, T, reps, gen, a.pairs)
+             for rate, N, T, reps in BANKED_SHAPES]
     rows += [cfir_case(ports, gen, a.pairs, d) for d in (False, True)]
+    rows.append(fir_case(ports, gen, a.pairs))
     rows += [demod_case(ports, C, n, om, reps, gen, a.pairs)
              for C, n, om, reps in DEMOD_SHAPES]
     rows.append(fft_case(ports, gen, a.pairs))

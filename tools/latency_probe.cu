@@ -20,6 +20,11 @@
 //   or max, which the compiler would fuse)   20 REDUX.MIN (its
 //   uniform-register result moved back to a register for the next one,
 //   as the ACS uses it)
+//   21 STS + BAR.SYNC + LDS: one round of a shared-memory exchange
+//   between two warps (a 64-thread CTA: each thread stores, the barrier,
+//   each loads a neighbour's word; the banked ACS's per-block exchange)
+//   22 STS + __syncwarp + LDS: the same round within one warp
+//   23 VIADDMNMX (Hopper's fused add-min, __viaddmin_s32)
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC tools/latency_probe.cu -o liblatency_probe.so
@@ -27,12 +32,13 @@
 #include <cuda_runtime.h>
 
 #define REP 512
-#define NPROBE 21
+#define NPROBE 24
 
 template <int OP>
 __global__ void probe(const float* fin, const int* iin, float* fout,
                       long long* cyc) {
   __shared__ unsigned sh[32];
+  __shared__ int xch[64];                  // probes 21, 22
   const unsigned base = (unsigned)__cvta_generic_to_shared(sh);
   sh[0] = base;                            // sh[0] points at itself
   __syncthreads();
@@ -100,6 +106,15 @@ __global__ void probe(const float* fin, const int* iin, float* fout,
                    : "+r"(k) : "r"(ia), "r"(ia0));
     if (OP == 20)
       asm volatile("redux.sync.min.s32 %0, %0, -1;" : "+r"(k));
+    if (OP == 21 || OP == 22) {
+      xch[threadIdx.x] = k;
+      if (OP == 21)
+        __syncthreads();
+      else
+        __syncwarp();
+      k = xch[threadIdx.x ^ ia] + ia0;     // the neighbour's word
+    }
+    if (OP == 23) k = __viaddmin_s32(k, ia, k + 2);
   }
   // A branch on every chain's result: the clock is read after the last
   // instruction of the chain has finished (the compiler would otherwise
@@ -112,7 +127,7 @@ __global__ void probe(const float* fin, const int* iin, float* fout,
 
 template <int OP>
 void launch(const float* fin, const int* iin, float* fout, long long* cyc) {
-  probe<OP><<<1, 32>>>(fin, iin, fout, cyc);
+  probe<OP><<<1, OP == 21 ? 64 : 32>>>(fin, iin, fout, cyc);
   if constexpr (OP + 1 < NPROBE) launch<OP + 1>(fin, iin, fout, cyc);
 }
 

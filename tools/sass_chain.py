@@ -29,7 +29,15 @@ scheduled, since only data dependencies are kept (not issue slots, not
 branches). Beside it, `issue_cycles_per_step`: the same instructions
 issued in their compiled order by one warp alone on its scheduler, one
 per cycle at most, each waiting for its operands (what the compiled
-schedule costs such a warp). Latencies come from a table keyed by opcode
+schedule costs such a warp). With `exchange`, a loop whose threads
+swap data through shared memory behind a barrier each step (the banked
+ACS) has that path counted too: a store (STS) feeds the next barrier
+(BAR), which feeds every later shared-memory load (LDS), priced at the
+table's STS, BAR and LDS entries (chip_smoke.py measures the round
+STS + BAR.SYNC + LDS on the card), and a warp issues nothing past a
+barrier until it has passed; a block that a guarded forward branch
+skips and that holds a barrier is a step taken in some passes only (the
+banked ACS's once-per-64-blocks reduction) and is left out. Latencies come from a table keyed by opcode
 family, or family and first modifier ("MUFU.RCP"); chip_smoke.py measures one on the card
 with tools/latency_probe.cu. A family missing from the table is priced
 at the table's `fixed` entry and reported.
@@ -135,10 +143,28 @@ def _regs(operand: str) -> list:
     return out
 
 
-def dests_sources(ins: Instr) -> tuple:
+# Pseudo-registers of the shared-memory exchange (analyse(exchange=True)).
+_STORED, _VISIBLE = "SMEM.stored", "SMEM.visible"
+
+
+def dests_sources(ins: Instr, exchange: bool = False) -> tuple:
     """(registers written, registers read) of one instruction; a guarded
     write also reads its destination (it keeps the old value when the
-    guard is false)."""
+    guard is false). With `exchange`, stores to shared memory write
+    _STORED, a barrier reads it and writes _VISIBLE, and shared-memory
+    loads read _VISIBLE."""
+    dests, srcs = _dests_sources(ins)
+    if exchange:
+        if ins.family == "STS":
+            dests = dests + [_STORED]
+        elif ins.family == "BAR":
+            dests, srcs = dests + [_VISIBLE], srcs + [_STORED]
+        elif ins.family == "LDS":
+            srcs = srcs + [_VISIBLE]
+    return dests, srcs
+
+
+def _dests_sources(ins: Instr) -> tuple:
     srcs = _regs(ins.pred)
     ops = list(ins.operands)
     dests = []
@@ -189,9 +215,11 @@ def inner_loop(instrs, labels, marker="STS", also="MUFU",
     return best
 
 
-def hot_path(instrs, labels, first, last) -> list:
+def hot_path(instrs, labels, first, last, exchange=False) -> list:
     """The loop body less its slow-path blocks and else-arms (see the
-    module docstring), without the branches themselves."""
+    module docstring), without the branches themselves; with `exchange`,
+    also less each block a guarded forward branch skips that holds a
+    barrier (a step taken in some passes only)."""
     index = {ins.addr: i for i, ins in enumerate(instrs)}
     cold = set()
     for j in range(first, last):
@@ -203,7 +231,8 @@ def hot_path(instrs, labels, first, last) -> list:
         loops = any((target(instrs[k], labels) or 1 << 62)
                     <= instrs[k].addr for k in block)
         if not instrs[j].pred or ("MUFU" not in fams
-                                  and (fams & _SLOW or loops)):
+                                  and (fams & _SLOW or loops)) or (
+                                      exchange and "BAR" in fams):
             cold.update(block)
     return [instrs[k] for k in range(first, last + 1)
             if k not in cold and instrs[k].family != "BRA"]
@@ -217,11 +246,13 @@ def latency_of(ins: Instr, latency: dict) -> float:
     return latency["fixed"]
 
 
-def chain_cycles(body, latency: dict, passes: int = 24) -> tuple:
+def chain_cycles(body, latency: dict, passes: int = 24,
+                 exchange: bool = False) -> tuple:
     """(cycles, instructions) per pass of the loop-carried chain of
     `body`: the growth per pass of the latest finish and of the number of
     instructions on the dependency path that reaches it."""
-    deps = [dests_sources(i) + (latency_of(i, latency),) for i in body]
+    deps = [dests_sources(i, exchange) + (latency_of(i, latency),)
+            for i in body]
     ready, finish, end = {}, [], (0.0, 0)
     for _ in range(passes):
         for dsts, srcs, lat in deps:
@@ -229,7 +260,9 @@ def chain_cycles(body, latency: dict, passes: int = 24) -> tuple:
                        default=(0.0, 0))
             done = (t + lat, n + 1)
             for r in dsts:
-                if r not in _CONST:
+                if r == _STORED:       # a barrier waits for every store
+                    ready[r] = max(ready.get(r, done), done)
+                elif r not in _CONST:
                     ready[r] = done
             end = max(end, done)
         finish.append(end)
@@ -239,48 +272,57 @@ def chain_cycles(body, latency: dict, passes: int = 24) -> tuple:
             (finish[-1][1] - finish[half - 1][1]) / span)
 
 
-def issue_cycles(body, latency: dict, passes: int = 24) -> float:
+def issue_cycles(body, latency: dict, passes: int = 24,
+                 exchange: bool = False) -> float:
     """Cycles per pass of `body` for one warp issuing alone, in order:
     one instruction per cycle at most, each waiting for the registers
     and predicates it reads (the compiled schedule's own bound, which a
-    warp without a neighbour on its scheduler cannot beat)."""
-    deps = [dests_sources(i) + (latency_of(i, latency),) for i in body]
+    warp without a neighbour on its scheduler cannot beat); with
+    `exchange` the warp also waits at each barrier until it passes."""
+    deps = [dests_sources(i, exchange) + (latency_of(i, latency),
+                                          exchange and i.family == "BAR")
+            for i in body]
     ready, t, ends = {}, 0.0, []
     for _ in range(passes):
-        for dsts, srcs, lat in deps:
+        for dsts, srcs, lat, blocks in deps:
             t = max([t + 1.0] + [ready.get(r, 0.0) for r in srcs])
             for r in dsts:
                 if r not in _CONST:
                     ready[r] = t + lat
+            if blocks:
+                t += lat
         ends.append(t)
     half = passes // 2
     return (ends[-1] - ends[half - 1]) / (passes - half)
 
 
 def analyse(text: str, function: str, latency: dict, marker="STS",
-            also="MUFU", per_step=1.0, min_markers=1) -> dict:
+            also="MUFU", per_step=1.0, min_markers=1,
+            exchange=False) -> dict:
     """The chain per loop step of `function` (a substring of its mangled
     name) in a cuobjdump -sass listing, with the loop's instruction mix.
     The loop holds at least `min_markers` of `marker` (and `also`,
-    unless None); `per_step` markers make one step."""
+    unless None); `per_step` markers make one step; `exchange` counts the
+    shared-memory exchange behind each barrier (module docstring)."""
     funcs = functions(text)
     names = [f for f in funcs if function in f]
     if len(names) != 1:
         raise ValueError(f"{len(names)} functions match {function!r}")
     instrs, labels = parse(funcs[names[0]])
     first, last = inner_loop(instrs, labels, marker, also, min_markers)
-    body = hot_path(instrs, labels, first, last)
+    body = hot_path(instrs, labels, first, last, exchange)
     unroll = sum(i.family == marker for i in body) / per_step
     mix = {}
     for i in body:
         mix[i.family] = mix.get(i.family, 0) + 1
     known = {k.split(".")[0] for k in latency}
-    cycles, on_path = chain_cycles(body, latency)
+    cycles, on_path = chain_cycles(body, latency, exchange=exchange)
     return dict(function=names[0],
                 loop=[f"{instrs[first].addr:#x}", f"{instrs[last].addr:#x}"],
                 hot_instructions=len(body), unroll=unroll,
                 cycles_per_step=cycles / unroll,
-                issue_cycles_per_step=issue_cycles(body, latency) / unroll,
+                issue_cycles_per_step=issue_cycles(
+                    body, latency, exchange=exchange) / unroll,
                 path_instructions_per_step=on_path / unroll,
                 instructions_per_step=len(body) / unroll, mix=mix,
                 priced_as_fixed=sorted(set(mix) - known))
@@ -297,11 +339,14 @@ def main(argv) -> int:
                     help="an opcode the loop also holds, or 'none'")
     ap.add_argument("--per-step", type=float, default=1.0,
                     help="markers per loop step")
+    ap.add_argument("--exchange", action="store_true",
+                    help="count the shared-memory exchange behind barriers")
     a = ap.parse_args(argv)
     lat = json.load(open(a.latency)) if a.latency else {"fixed": 4.0}
     also = None if a.also.lower() == "none" else a.also
     print(json.dumps(analyse(open(a.sass).read(), a.function, lat,
-                             a.marker, also, a.per_step), indent=1))
+                             a.marker, also, a.per_step,
+                             exchange=a.exchange), indent=1))
     return 0
 
 
