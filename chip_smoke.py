@@ -9,11 +9,14 @@ the fleet receiver's main path at full width — 64 QPSK carriers at
 2 Msym/s sampled at 4 Msps, chunk_samples = 2**18, Viterbi on — at code
 rate 1/2 (the rate-1/2 ACS kernel) and at the punctured rates 3/4 and 7/8
 (the banked ACS kernel), each sequentially and with the time-segmented
-demod (segments=8), and the single-carrier receiver of leandvb on five
-streams (the CLI defaults, the same with --segments 8, --resample on the
-complex FIR kernel, --hq at 1/2 and 3/4), from DVB-S stimulus the port
-modulates itself, and checks that every carrier locks and decodes the
-TS packets that were sent.
+demod (segments=8); the hard-decision fleet (Viterbi off: the device
+GF(2) decode) at 1/2, 3/4 and 7/8, at 1/2 with segments=8 and with the
+linear sampler; the fleet CLI leandvbfleet in a child process (no
+fastlock, --acq: the fft4096 kernel); and the single-carrier receiver of
+leandvb on five streams (the CLI defaults, the same with --segments 8,
+--resample on the complex FIR kernel, --hq at 1/2 and 3/4), from DVB-S
+stimulus the port modulates itself, and checks that every carrier locks
+and decodes the TS packets that were sent.
 
 Phases (any failure exits non-zero):
   1. card name and power limit, versions, kernel build time; dependent
@@ -51,7 +54,12 @@ Phases (any failure exits non-zero):
      counts, other steps); fft4096
      within max|dy| / max|y| < 2e-5 of fft4096_ref and of torch.fft.fft
      at B=8, 1024 and 1064 (the sums run in other orders); torch.argmax takes
-     the first maximum on the card, as the segmented demod needs;
+     the first maximum and torch.argmin the first minimum on the card, as
+     the segmented demod and the hard decode's election need; after the
+     rate-1/2 stimulus is made, fft4096 within 2e-5 of fft4096_ref at the
+     --acq search's shape (64 frames of one carrier's first chunk raised
+     to the 4th power) and coarse_carrier_estimate equal on the card and
+     on the host's plain FFT;
   4. the main path through MultiDvbsReceiver.process, with the kernels'
      launch counters zeroed just before and read just after, and
      per-stage times from CUDA events; at rate 1/2 then the same stream
@@ -63,7 +71,19 @@ Phases (any failure exits non-zero):
      demod_ref bit for bit on their first 1024 samples, and the rate-1/2
      chain at segments 1, 2, 4, 8 and 16; then 64 carriers at 3/4 and at
      7/8, sequential and segments=8, each run with its own zeroed
-     counters; then the single-carrier receiver (leandvb's DvbsReceiver,
+     counters; the hard-decision fleet (viterbi=False, fastlock) at 1/2
+     sequential, segments=8 and with the linear sampler, and at 3/4 and
+     7/8 sequential, each with its own zeroed counters, stage times and
+     the same gate, its first demod launch and one mid-stream launch
+     against demod_ref bit for bit on 1024 samples; `python -m
+     leansdr_tpu_torch.apps.leandvbfleet` in a child process on the
+     first CLI_CHUNKS chunks of the 1/2 stimulus as interleaved f32 on
+     stdin (64 carriers, the odd ones a quadrant on; --cr 1/2 --sampler
+     rrc --acq --chunk 262144, no --fastlock: the framer's resyncs must
+     reach the decoder), its multiplex
+     parsed and gated per channel, its launch counts and two demod
+     launches' inputs written by the child at exit and held against
+     demod_ref here; then the single-carrier receiver (leandvb's DvbsReceiver,
      in its 2^17-sample reads) on five streams, each with its own zeroed
      counters: rtl_sdr u8 at 2.4 Msps with a birdie (the CLI defaults:
      notch, hard decisions), the same bytes with --segments 8, a 10 Msps
@@ -177,6 +197,14 @@ CFIR_DECIMATED = {
 # in groups of 4): tap counts and row lengths.
 FIR_EDGE_TAPS = (1, 3, 4, 65)
 FIR_EDGE_LENGTHS = (1, 5, 511, 512, 513, 1024, 1025)
+# The fleet CLI's run: chunks of the rate-1/2 stimulus on its stdin, the
+# child's demod calls whose inputs it keeps (the first and one
+# mid-stream), and the least sent packets per channel its gate asks for
+# (a carrier whose PLL locked a quadrant off waits for three failed
+# bit-phase sweeps of the framer, ~39 kB, before its resync).
+CLI_CHUNKS = 8
+CLI_CAPTURE = (0, 4)
+CLI_MIN_PACKETS = 50
 CHILDREN = []                    # processes this script started
 
 
@@ -772,6 +800,53 @@ def check_first_argmax(dev, gen):
     print("argmax on the card takes the first maximum (as jnp.argmax)")
 
 
+def check_first_argmin(dev):
+    """The hard decode's election takes the FIRST least disagreement
+    count (torch.argmin over the 4*A hypotheses), as jnp.argmin does:
+    held on the card at the fleet's shapes (C=64 channels x E=32
+    sub-blocks x 4, 8 and 16 hypotheses), with many ties. Its own
+    generator: the later phases draw what they drew."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 2)
+    for nhyp in (4, 8, 16):
+        a = torch.randint(0, 3, (NCHAN, 32, nhyp), device=dev,
+                          dtype=torch.int32, generator=gen)
+        got = torch.argmin(a, dim=2).cpu().numpy()
+        want = np.argmin(a.cpu().numpy(), axis=2)
+        if not (got == want).all():
+            fail(f"torch.argmin on the card does not take the first "
+                 f"minimum ({int((got != want).sum())} of {got.size})")
+    print("argmin on the card takes the first minimum (as jnp.argmin)")
+
+
+def check_acq_fft(dev, frames):
+    """fft4096 against fft4096_ref at the --acq search's shape: channel
+    0's first chunk (float_scale undone), raised to the 4th power, as 64
+    frames of 4096; and coarse_carrier_estimate on the card (the kernel)
+    equal to the estimate through the plain FFT on the host. Returns the
+    relative error."""
+    from leansdr_tpu_torch.dsp import acquisition as acq
+    from leansdr_tpu_torch.dsp import fft_kernel as ffk
+    x = (frames[0, :CHUNK_SAMPLES] / 75.0).contiguous()
+    zr, zi = x[:, 0], x[:, 1]
+    for _ in range(2):
+        zr, zi = zr * zr - zi * zi, 2 * zr * zi
+    zr, zi = zr.reshape(-1, ffk.N), zi.reshape(-1, ffk.N)
+    y = torch.complex(*ffk.fft4096(zr, zi))
+    r = torch.complex(*ffk.fft4096_ref(zr, zi))
+    rel = float((y - r).abs().max() / r.abs().max())
+    est = acq.coarse_carrier_estimate(x, device=dev)
+    est_plain = acq.coarse_carrier_estimate(x.cpu(), device="cpu")
+    print(f"fft4096 at the --acq shape B={zr.shape[0]}: max|dy|/max|y| "
+          f"{rel:.3g} against fft4096_ref; coarse estimate {est:.6g} "
+          f"cycles/sample on the card, {est_plain:.6g} on the host")
+    if not rel < FFT_BAR:
+        fail(f"fft4096 at the --acq shape: {rel:.3g} >= {FFT_BAR}")
+    if est != est_plain:
+        fail(f"coarse_carrier_estimate: {est} on the card != {est_plain}")
+    return rel
+
+
 # ---------------------------------------------------------------- phase 4
 
 def fleet_stimulus(dev, gen, nsamp, rate="1/2"):
@@ -826,14 +901,15 @@ def check_packets(c, pkts):
     return len(pkts) - first, sum(ok[first:]), span
 
 
-def fleet_rx(dev, code_rate, **seg):
+def fleet_rx(dev, code_rate, viterbi=True, sampler="rrc", **seg):
     """The 64-carrier fleet receiver of the main path at `code_rate`
-    (seg: MultiDvbsReceiver's segments, seg_warmup, seg_holdoff)."""
+    (viterbi=False: the hard-decision fleet; seg: MultiDvbsReceiver's
+    segments, seg_warmup, seg_holdoff)."""
     from leansdr_tpu_torch.pipelines import multi_rx
     from leansdr_tpu_torch.pipelines.dvbs_rx import RxConfig
     cfg = RxConfig(Fs=4e6, Fm=2e6, rate=code_rate, fastlock=True,
-                   float_scale=75, exact_lut=False, viterbi=True,
-                   sampler="rrc")
+                   float_scale=75, exact_lut=False, viterbi=viterbi,
+                   sampler=sampler)
     return multi_rx.MultiDvbsReceiver(cfg, NCHAN, chunk_samples=CHUNK_SAMPLES,
                                       device=dev, **seg)
 
@@ -860,6 +936,7 @@ def fleet_run(rx, frames, nchunks, tag, steady_from, capture=None):
     chunk k's demod launches. Returns dict(launches, stages, rate in
     Msamples/s, chunk_ms, captured)."""
     from leansdr_tpu_torch.dsp import mf_prefilter, receiver_kernel as rk
+    from leansdr_tpu_torch.fec import deconv_device as dd
     from leansdr_tpu_torch.fec import viterbi_device as vd
     from leansdr_tpu_torch.pipelines import multi_rx
 
@@ -919,6 +996,7 @@ def fleet_run(rx, frames, nchunks, tag, steady_from, capture=None):
                (vd, "viterbi_decode", timed("decode", vd.viterbi_decode)),
                (vd, "viterbi_decode_banked", timed(
                    "decode", vd.viterbi_decode_banked)),
+               (dd, "deconv_decode", timed("decode", dd.deconv_decode)),
                (multi_rx, "_pack_fetch", timed("pack", multi_rx._pack_fetch)),
                (multi_rx, "_to_host", hosttimed("fetch", multi_rx._to_host,
                                                 sync=True)),
@@ -948,10 +1026,13 @@ def fleet_run(rx, frames, nchunks, tag, steady_from, capture=None):
             setattr(obj, name, fn)
     torch.cuda.synchronize()
 
-    acs_key = "acs" if rx.rate == "1/2" else "acs_banked"
+    # The decoder's kernel: the ACS of the Viterbi kinds; the hard
+    # decode has none (torch ops).
+    acs_key = {"viterbi": "acs", "viterbi_banked": "acs_banked"}.get(
+        rx.deconv.kind)
     print(f"[{tag}] {nchunks} chunks of {NCHAN} x {CHUNK_SAMPLES}; launches "
-          f"{launches}; TRACK={rx.deconv.track}")
-    if launches["demod"] < nchunks or launches[acs_key] < 1:
+          f"{launches}; TRACK={getattr(rx.deconv, 'track', None)}")
+    if launches["demod"] < nchunks or (acs_key and launches[acs_key] < 1):
         fail(f"{tag} did not run through the kernels: {launches}")
     locks = rx.locks
     if not all(locks):
@@ -1080,6 +1161,218 @@ def seg_plain_checks(captured, params, sym_consts):
                      "entries")
         done.append((x.shape[0], plain_ms))
     return done
+
+
+def hard_path(dev, frames, code_rate, S=1, sampler="rrc"):
+    """The hard-decision fleet (viterbi=False, fastlock; the fleet_rx
+    configuration otherwise) at `code_rate`: S=1 over NCHUNKS chunks,
+    S>1 over SEG_CHUNKS as segmented_path runs it. Its own zeroed
+    counters, stage times and gate (fleet_run); the demod launches of
+    its first chunk and of one mid-stream chunk (both passes when
+    segmented) against demod_ref bit for bit on their first
+    SC_DEMOD_CHECK samples. Returns fleet_run's dict with `checked`:
+    [(lanes, plain ms)]."""
+    tag = f"hard {code_rate}" + (f" S={S}" if S > 1 else "") + (
+        f" {sampler}" if sampler != "rrc" else "")
+    if S > 1:
+        rx = fleet_rx(dev, code_rate, viterbi=False, sampler=sampler,
+                      segments=S, seg_holdoff=SEG_HOLDOFF)
+        nchunks, steady, mid = SEG_CHUNKS, SEG_HOLDOFF + 1, SEG_CHUNKS - 3
+    else:
+        rx = fleet_rx(dev, code_rate, viterbi=False, sampler=sampler)
+        nchunks, steady, mid = NCHUNKS, 1, NCHUNKS // 2
+    run = fleet_run(rx, frames, nchunks, tag, steady, lambda k: k in (0, mid))
+    run["checked"] = seg_plain_checks(run.pop("captured"), rx.params,
+                                      rx._sym_consts)
+    # One decode on the final ring, alone: its device time (CUDA events)
+    # and the memory it allocates above what is live before it.
+    from leansdr_tpu_torch.fec import deconv_device as dd
+    plan, st = rx.deconv.plan, rx.deconv.state
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    dd.deconv_decode(plan, st)
+    torch.cuda.synchronize()
+    run["decode_peak_mb"] = (torch.cuda.max_memory_allocated(dev)
+                             - base) / 2**20
+    run["decode_ms"] = cuda_time(lambda: dd.deconv_decode(plan, st), reps=5)
+    print(f"[{tag}] one decode alone: {run['decode_ms']:.3f} ms, "
+          f"{run['decode_peak_mb']:.1f} MB allocated at its peak "
+          f"(P_call {plan.P_call}, needed {plan.needed} symbols)")
+    print(f"[{tag}] demod launches of chunks 0 and {mid} == demod_ref on "
+          f"{SC_DEMOD_CHECK} samples: " + "; ".join(
+              f"{c} lanes (plain {ms:.0f} ms)" for c, ms in run["checked"]))
+    return run
+
+
+# The fleet CLI's child: `python -c CLI_WRAPPER OUT CAPTURE ARGS...` runs
+# leansdr_tpu_torch.apps.leandvbfleet as __main__ with ARGS, counting
+# each kernel wrapper's launches, keeping the inputs of the demod calls
+# numbered in CAPTURE (their first SC_DEMOD_CHECK + 1 samples), the time
+# each submit() returns, the decoder's next_sync calls and the host
+# seconds spent in the --acq derotation, dispatch() (host copies, the
+# device enqueue) and collect() (the fetch and the byte backend, on the
+# backend thread); at exit it writes them to OUT.json and OUT.pt.
+CLI_WRAPPER = """
+import atexit, json, runpy, sys, time
+import torch
+from chip_smoke import SC_DEMOD_CHECK, kernel_wrappers
+from leansdr_tpu_torch.dsp import blocks, receiver_kernel as rk
+from leansdr_tpu_torch.fec import deconv_device as dd
+from leansdr_tpu_torch.pipelines import multi_rx
+out, keep = sys.argv[1], {int(v) for v in sys.argv[2].split(",")}
+counted = kernel_wrappers()
+calls, captured, marks, resyncs = [0], {}, [], [0]
+host = dict(derotate=0.0, dispatch=0.0, collect=0.0)
+def hosttimed(cls, name, key):
+    fn = getattr(cls, name)
+    def wrapper(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            host[key] += time.perf_counter() - t
+    setattr(cls, name, wrapper)
+hosttimed(blocks.Rotator, "process", "derotate")
+hosttimed(multi_rx.MultiDvbsReceiver, "dispatch", "dispatch")
+hosttimed(multi_rx.MultiDvbsReceiver, "collect", "collect")
+demod, submit, next_sync = (rk.demod, multi_rx.MultiDvbsReceiver.submit,
+                            dd.DeviceDeconvolver.next_sync)
+def recorded(params, sym_consts, planes, x):
+    if calls[0] in keep:
+        captured[calls[0]] = dict(
+            params=params, sym_consts=sym_consts, planes=planes.clone(),
+            x=x[:, :SC_DEMOD_CHECK + 1].clone())
+    calls[0] += 1
+    return demod(params, sym_consts, planes, x)
+def timed(self, iq):
+    done = submit(self, iq)
+    marks.append(time.perf_counter())
+    return done
+def counted_sync(self, channel):
+    resyncs[0] += 1
+    next_sync(self, channel)
+rk.demod = recorded
+multi_rx.MultiDvbsReceiver.submit = timed
+dd.DeviceDeconvolver.next_sync = counted_sync
+t0 = time.perf_counter()
+def dump():
+    torch.save(captured, out + ".pt")
+    with open(out + ".json", "w") as f:
+        json.dump(dict(launches={k: w.launches for k, w in counted.items()},
+                       marks=[m - t0 for m in marks], resyncs=resyncs[0],
+                       host_s=host, main_s=time.perf_counter() - t0), f)
+atexit.register(dump)
+sys.argv = ["leandvbfleet"] + sys.argv[3:]
+runpy.run_module("leansdr_tpu_torch.apps.leandvbfleet", run_name="__main__")
+"""
+
+
+def cli_path(dev, frames):
+    """`python -m leansdr_tpu_torch.apps.leandvbfleet` in a child process
+    (through CLI_WRAPPER) on the first CLI_CHUNKS chunks of the rate-1/2
+    stimulus, float_scale undone, the odd carriers turned a quadrant,
+    as interleaved f32 on stdin: 64 carriers, --cr 1/2 --sampler rrc
+    --acq --chunk CHUNK_SAMPLES, hard decisions without --fastlock (the
+    framer's resyncs must reach the decoder's next_sync), --fd-info on
+    stderr. Its tagged multiplex is
+    parsed and gated per channel (locked, >= 90% of the packets after
+    lock sent ones and of the span sent out, >= CLI_MIN_PACKETS); the
+    child's demod and fft4096 must have launched, and its kept demod
+    inputs go through the kernel and demod_ref here, equal bit for bit.
+    Returns the run's record."""
+    import struct
+    import tempfile
+    n = CLI_CHUNKS * CHUNK_SAMPLES
+    x = frames[:, :n] / 75.0
+    # Odd carriers a quadrant on (times j): their hard decisions need
+    # the framer's resync (next_sync), whichever quadrant the even
+    # carriers' loops lock in.
+    x[1::2] = torch.stack([-x[1::2, :, 1], x[1::2, :, 0]], dim=-1)
+    x = x.transpose(0, 1).contiguous().cpu().numpy()
+    args = ["--nchan", str(NCHAN), "--f32", "--float-scale", "75", "-f",
+            "4e6", "--sr", "2e6", "--cr", "1/2", "--sampler", "rrc", "--acq",
+            "--chunk", str(CHUNK_SAMPLES), "--fd-info", "2"]
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        out = str(Path(tmp) / "cli")
+        cmd = [sys.executable, "-c", CLI_WRAPPER, out,
+               ",".join(map(str, CLI_CAPTURE))] + args
+        t = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=root, stdin=subprocess.PIPE,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE)
+        CHILDREN.append(proc)
+        mux, err = proc.communicate(x.tobytes(), timeout=600)
+        wall = time.perf_counter() - t
+        if proc.returncode != 0:
+            fail(f"leandvbfleet exited {proc.returncode}:\n"
+                 + err.decode(errors="replace")[-3000:])
+        rec = json.loads(Path(out + ".json").read_text())
+        captured = torch.load(out + ".pt", map_location=dev,
+                              weights_only=False)
+    del x
+    launches = rec["launches"]
+    if launches["demod"] < CLI_CHUNKS or launches["fft4096"] < 1:
+        fail(f"leandvbfleet did not run through the kernels: {launches}")
+    if rec["resyncs"] < 1:
+        fail("leandvbfleet: the framer's resyncs never reached the decoder")
+    pkts = [[] for _ in range(NCHAN)]
+    o = 0
+    while o < len(mux):
+        c, k = struct.unpack_from("<II", mux, o)
+        o += 8
+        if c >= NCHAN or k == 0 or o + 188 * k > len(mux):
+            fail(f"leandvbfleet multiplex: bad header ({c}, {k}) at {o - 8}")
+        pkts[c] += list(np.frombuffer(mux[o:o + 188 * k], np.uint8)
+                        .reshape(k, 188))
+        o += 188 * k
+    worst, total_good = 1.0, 0
+    for c in range(NCHAN):
+        n_after, n_good, span = check_packets(c, pkts[c])
+        worst = min(worst, n_good / max(n_after, 1), n_good / span)
+        total_good += n_good
+        if (n_good < CLI_MIN_PACKETS or n_good < 0.9 * n_after
+                or n_good < 0.9 * span):
+            fail(f"leandvbfleet channel {c}: {n_good} sent packets decoded "
+                 f"of {n_after} after lock, span {span}")
+    info = [ln for ln in err.decode(errors="replace").splitlines()
+            if ln.startswith("FLEET")]
+    checked = seg_plain_checks(
+        [(a["params"], a["sym_consts"], a["planes"], a["x"])
+         for _, a in sorted(captured.items())],
+        captured[CLI_CAPTURE[0]]["params"],
+        captured[CLI_CAPTURE[0]]["sym_consts"])
+    marks = rec["marks"]
+    steady = np.diff(marks[1:])               # chunks 2.. (after --acq)
+    chunk_s = float(np.mean(steady))
+    signal_s = CHUNK_SAMPLES / 4e6
+    res = dict(launches=launches, wall_s=wall, main_s=rec["main_s"],
+               signal_s=CLI_CHUNKS * signal_s,
+               x_real_time_wall=CLI_CHUNKS * signal_s / wall,
+               x_real_time_main=CLI_CHUNKS * signal_s / rec["main_s"],
+               steady_chunk_ms=chunk_s * 1e3,
+               x_real_time_steady=signal_s / chunk_s,
+               chunk_ms=[float(v) * 1e3 for v in np.diff([0.0] + marks)],
+               resyncs=rec["resyncs"], good_packets=int(total_good),
+               host_s=rec["host_s"],
+               worst_fraction=worst, info_tail=info[-3:],
+               checked=checked)
+    print(f"[leandvbfleet] {NCHAN} carriers x {CLI_CHUNKS} chunks "
+          f"({res['signal_s']:.3f} s of signal): exit 0, wall {wall:.1f} s "
+          f"({res['x_real_time_wall']:.3f}x real time; main() "
+          f"{rec['main_s']:.1f} s, {res['x_real_time_main']:.3f}x); steady "
+          f"chunks 2..{CLI_CHUNKS - 1}: {chunk_s * 1e3:.1f} ms per chunk, "
+          f"{res['x_real_time_steady']:.3f}x real time; launches "
+          f"{launches}; next_sync calls {rec['resyncs']}; {total_good} "
+          f"sent packets decoded, worst channel fraction {worst:.4f}; "
+          f"{info[-3:]}; host seconds over the run: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in rec["host_s"].items()))
+    print("[leandvbfleet] demod launches "
+          f"{', '.join(map(str, CLI_CAPTURE))} == demod_ref on "
+          f"{SC_DEMOD_CHECK} samples: " + "; ".join(
+              f"{c} lanes (plain {ms:.0f} ms)" for c, ms in checked))
+    return res
 
 
 def kernel_wrappers() -> dict:
@@ -1806,11 +2099,13 @@ def main() -> int:
     fft_err, fft_rel_plain, fft_rel_lib = check_fft(dev, gen)
     fft = fft_times(dev)
     check_first_argmax(dev, gen)
+    check_first_argmin(dev)
 
     # Phase 4: the fleet at each rate, sequential (segments=1) and
     # segmented (segments=8), on one stimulus per rate; at rate 1/2 also
     # the segment sweep and the segmented launches against demod_ref.
     frames = fleet_frames(dev, gen, "1/2")
+    acq_rel = check_acq_fft(dev, frames)
     rx, run, piped_rate = main_path(dev, gen, frames)
     launches, stages, rate = run["launches"], run["stages"], run["rate"]
     times = kernel_times(rx, frames, dev, gen, chain, a_chain)
@@ -1832,6 +2127,12 @@ def main() -> int:
         sweep[S] = r
     print("rate-1/2 chain by segments: " + ", ".join(
         f"S={S} {r['rate']:.1f} Msamples/s" for S, r in sweep.items()))
+    # The hard-decision fleet (viterbi=False) on the same stimulus, and
+    # the fleet CLI on its first CLI_CHUNKS chunks.
+    hard = {"1/2": hard_path(dev, frames, "1/2"),
+            "1/2 S=8": hard_path(dev, frames, "1/2", S=8),
+            "1/2 linear": hard_path(dev, frames, "1/2", sampler="linear")}
+    cli = cli_path(dev, frames)
     del frames
     punctured = {}
     for code_rate in PUNCTURED:
@@ -1842,6 +2143,7 @@ def main() -> int:
                                     chain_msamples_per_s=p_run["rate"])
         seg[code_rate] = segmented_path(dev, frames, code_rate, 8)
         seg[code_rate].pop("captured")
+        hard[code_rate] = hard_path(dev, frames, code_rate)
         del frames
     btimes = banked_times(dev, gen, b_chain, clock)
     b0 = btimes[0]                      # 3/4 ACQUIRE: the headline shape
@@ -1856,6 +2158,8 @@ def main() -> int:
     by_path = {"fleet 1/2": launches}
     by_path.update({f"fleet {r}": p["launches"] for r, p in punctured.items()})
     by_path.update({f"fleet {r} S=8": p["launches"] for r, p in seg.items()})
+    by_path.update({f"hard fleet {r}": p["launches"] for r, p in hard.items()})
+    by_path["leandvbfleet --acq"] = cli["launches"]
     by_path.update({r["path"]: r["launches"] for r in single})
     resample = next(r for r in single if r["path"] == "resample")
 
@@ -1974,7 +2278,9 @@ def main() -> int:
         {"name": "fft4096", "route": "cuda",
          "source": "leansdr_tpu_torch/csrc/fft4096.cu",
          "replaces": "leansdr_tpu/dsp/fft_pallas.py:58",
-         "launches": launches["fft4096"], "max_abs_err": fft_err,
+         "launches": cli["launches"]["fft4096"],
+         "launches_path": "leandvbfleet --acq (its only runtime path)",
+         "max_abs_err": fft_err, "rel_err_acq_shape": acq_rel,
          "ms": fft["ms"], "plain_ms": fft["plain_ms"],
          "bound_ms": fft["bound_ms"], "bound_by": fft["bound_by"],
          "library_ms": fft["library_ms"], "shape": fft["shape"],
@@ -1988,10 +2294,17 @@ def main() -> int:
     ]
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
+    hard_out = {r: dict(launches=p["launches"], stages_ms=p["stages"],
+                        chain_msamples_per_s=p["rate"],
+                        chunk_ms=p["chunk_ms"], demod_checked=p["checked"],
+                        decode_ms=p["decode_ms"],
+                        decode_peak_mb=p["decode_peak_mb"])
+                for r, p in hard.items()}
     print(json.dumps({"stages_ms": stages, "chain_msamples_per_s": rate,
                       "pipelined_msamples_per_s": piped_rate,
                       "punctured": punctured, "segmented": seg,
-                      "segment_sweep": sweep, "single_carrier": single,
+                      "segment_sweep": sweep, "hard": hard_out,
+                      "leandvbfleet": cli, "single_carrier": single,
                       "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -47,6 +47,9 @@ def usage(code=0, f=sys.stderr):
         "  --no-exact-lut          Computed decisions, the demod kernel "
         "(default)\n"
         "  --fastlock              Synchronize more aggressively\n"
+        "  --acq                   FFT coarse carrier search on the\n"
+        "                          first chunk seeds --tune (not in the\n"
+        "                          reference)\n"
         "  --viterbi               Use Viterbi decoding\n"
         "  --hq                    --fastlock --viterbi --sampler rrc\n"
         "\nUI options:\n"
@@ -61,7 +64,7 @@ def usage(code=0, f=sys.stderr):
         "  --device DEV            cuda (default) or cpu (plain PyTorch\n"
         "                          versions of the kernels)\n"
         "\nNot ported yet (raise NotImplementedError): --cnr,\n"
-        "--fd-spectrum, --acq (ROADMAP item 13), --awgn (22), --hs (12),\n"
+        "--fd-spectrum (ROADMAP item 13), --awgn (22), --hs (12),\n"
         "--exact-lut, --hard-metric, --sampler nearest (10), --hdlc (21),\n"
         "constellations other than QPSK (20).\n")
     sys.exit(code)
@@ -192,10 +195,6 @@ def main(argv=None):
     from ..util.iofmt import read_iq
 
     cfg, opts = parse_args(sys.argv[1:] if argv is None else argv)
-    if opts["acq"]:
-        raise NotImplementedError(
-            "--acq (the FFT coarse carrier search, dsp/acquisition.py) is "
-            "not ported yet (ROADMAP queue 1 item 13)")
     rx = DvbsReceiver(cfg, device=opts["device"])
 
     if opts["debug"]:
@@ -259,7 +258,22 @@ def main(argv=None):
                     break
             break
         nitems = len(raw) // itemsize * itemsize
-        ts = rx.process(read_iq(raw[:nitems], opts["input"]))
+        iq = read_iq(raw[:nitems], opts["input"])
+        if opts["acq"]:
+            # FFT coarse carrier search (dsp/acquisition.py) on the first
+            # block: the receiver is rebuilt with --tune seeded by the
+            # estimate, so the PLL clamp window is centred on the carrier.
+            opts["acq"] = False
+            from ..dsp.acquisition import coarse_carrier_estimate
+            m = rx.cstln.nsymbols
+            m = m if m in (2, 4, 8) else 4
+            est = coarse_carrier_estimate(iq, msymbols=m, device=rx.device)
+            cfg.Ftune += est * cfg.Fs
+            if opts["verbose"]:
+                print(f"coarse acquisition: {est * cfg.Fs:+.0f} Hz",
+                      file=sys.stderr)
+            rx = DvbsReceiver(cfg, device=opts["device"])
+        ts = rx.process(iq)
         if len(ts):
             out.write(np.ascontiguousarray(ts).tobytes())
             out.flush()

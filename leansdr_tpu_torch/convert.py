@@ -13,15 +13,21 @@ Python scalars and bytes, so loading it needs no JAX.
     (use_pallas=True) or the scan path's state dict, to [19, C]; the
     segmented demod's per-segment states (`seg_state`, `segments=S`)
     likewise to [19, S*C], with `seg_nseg`;
-  * trellis planes lose their 128-lane padding: C*nsyncs lanes in
-    ACQUIRE, C in TRACK (nsyncs = 4 at rate 1/2, 4*nshifts at the
-    punctured rates). At a punctured rate the JAX fleet holds them in one
-    of two layouts: the TPU banked path's [64, n_lanes] i32 in stored-row
-    order, or the CPU XLA-scan path's [C*nsyncs, 64] u32 in natural state
-    order (leansdr_tpu/fec/viterbi_device.py:784-789), which is
-    transposed, permuted to stored rows and cast to i32;
-  * the ring, host policy fields, byte backend blob, sample backlog and
-    chunk count carry over as they are.
+  * Viterbi fleets: trellis planes lose their 128-lane padding:
+    C*nsyncs lanes in ACQUIRE, C in TRACK (nsyncs = 4 at rate 1/2,
+    4*nshifts at the punctured rates). At a punctured rate the JAX fleet
+    holds them in one of two layouts: the TPU banked path's [64, n_lanes]
+    i32 in stored-row order, or the CPU XLA-scan path's [C*nsyncs, 64]
+    u32 in natural state order (leansdr_tpu/fec/viterbi_device.py:
+    784-789), which is transposed, permuted to stored rows and cast to
+    i32;
+  * hard-decision fleets (viterbi=False, the JAX DeviceDeconvolver):
+    the ring `buf`, `fill` and `locked` hypotheses and the host fill
+    estimate `_est_fill` carry over as they are;
+  * the ring, host policy fields, byte backend blob (the C++ backend's,
+    or the Python `_ByteBackend`'s pickle, backend_native
+    "_ByteBackend"), sample backlog and chunk count carry over as they
+    are.
 """
 
 import io
@@ -67,30 +73,14 @@ def _nsyncs(rate: str) -> int:
     return nconj * nrot * nshifts
 
 
-def from_jax_checkpoint(blob: bytes, rate: str = "1/2") -> bytes:
-    """JAX MultiDvbsReceiver.save_state() pickle -> port checkpoint.
-
-    `rate` is the receiver's code rate (RxConfig.rate): the JAX pickle
-    does not record it, and a punctured rate's planes need it."""
-    d = pickle.loads(blob)
-    dstate = {k: np.asarray(v) for k, v in d["deconv_state"].items()}
-    if "metric" not in dstate:
-        raise NotImplementedError(
-            "only Viterbi fleet checkpoints are ported (the hard-decision "
-            "fleet is ROADMAP queue 1 item 7)")
+def _trellis_planes(dstate: dict, host: dict, rate: str) -> None:
+    """A JAX Viterbi fleet's trellis planes, in place, to the port's
+    [64, lanes] i32 stored-row layout without lane padding."""
     rate = fleet_rate(rate)
     if ("path" in dstate) != (rate == "1/2"):
         raise ValueError(f"checkpoint trellis state {sorted(dstate)} is "
                          f"not that of rate {rate}: pass its rate=")
     C = dstate["fill"].shape[0]
-    planes = _planes(d["use_pallas"], d["dev"], C)
-    seg = d.get("seg_state")
-    if seg is not None:
-        seg = _planes(d["use_pallas"], seg, None)
-        if seg.shape[1] % C:
-            raise ValueError(f"checkpoint segment states: {seg.shape[1]} "
-                             f"lanes for {C} channels")
-    host = dict(d["deconv_host"])
     lanes = C if host.get("track") else C * _nsyncs(rate)
     keys = ("metric", "path") if rate == "1/2" else ("metric", "path_hi",
                                                       "path_lo")
@@ -100,6 +90,31 @@ def from_jax_checkpoint(blob: bytes, rate: str = "1/2") -> bytes:
         if xla:                        # [S, 64] natural -> [64, S] stored
             v = v.view(np.int32).T[bank_geometry(rate).orig]
         dstate[k] = np.ascontiguousarray(v[:, :lanes], np.int32)
+
+
+def from_jax_checkpoint(blob: bytes, rate: str = "1/2") -> bytes:
+    """JAX MultiDvbsReceiver.save_state() pickle -> port checkpoint, of
+    a Viterbi fleet or of a hard-decision one (viterbi=False).
+
+    `rate` is the receiver's code rate (RxConfig.rate): the JAX pickle
+    does not record it, and a punctured rate's trellis planes need it
+    (a hard-decision fleet's state does not depend on it)."""
+    d = pickle.loads(blob)
+    dstate = {k: np.asarray(v) for k, v in d["deconv_state"].items()}
+    host = dict(d["deconv_host"])
+    if "metric" in dstate:
+        _trellis_planes(dstate, host, rate)
+    elif set(dstate) != {"buf", "fill", "locked"}:
+        raise ValueError(f"checkpoint decoder state {sorted(dstate)} is "
+                         "neither a Viterbi nor a hard-decision fleet's")
+    C = dstate["fill"].shape[0]
+    planes = _planes(d["use_pallas"], d["dev"], C)
+    seg = d.get("seg_state")
+    if seg is not None:
+        seg = _planes(d["use_pallas"], seg, None)
+        if seg.shape[1] % C:
+            raise ValueError(f"checkpoint segment states: {seg.shape[1]} "
+                             f"lanes for {C} channels")
     return pickle.dumps({
         "format": CHECKPOINT_FORMAT,
         "dev": planes,

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from .. import device as _dev
+from . import deconv_device
 from .deconv_device import DELTA_MAX, deconv_append
 from .viterbi import PATH_SPEC, make_sync_maps, make_trellis
 from .viterbi_banked import bank_geometry, viterbi_acs_banked
@@ -429,11 +430,14 @@ def viterbi_decode_banked(plan: ViterbiPlan, state: dict, maps):
 
 
 def decoder(kind: str):
-    """The fleet decode function of MultiViterbiSync.kind. Looked up at
-    call time, so a caller that rebinds the module attribute (e.g. to
-    time it) is the one that runs."""
+    """The fleet decode function of a decoder's `kind`: MultiViterbiSync
+    ("viterbi", "viterbi_banked") or DeviceDeconvolver ("deconv", the
+    hard-decision decode). Looked up at call time, so a caller that
+    rebinds the module attribute (e.g. to time it) is the one that
+    runs."""
     return {"viterbi": viterbi_decode,
-            "viterbi_banked": viterbi_decode_banked}[kind]
+            "viterbi_banked": viterbi_decode_banked,
+            "deconv": deconv_device.deconv_decode}[kind]
 
 
 def _planes_to_track(plane, current, C: int, nsyncs: int):

@@ -1,24 +1,31 @@
 """Multi-carrier DVB-S receiver: many independent carriers demodulated and
-Viterbi-decoded in one device batch (the counterpart of
+decoded in one device batch (the counterpart of
 leansdr_tpu/pipelines/multi_rx.py).
 
 Chain per chunk, all on the device until one packed fetch:
 
-  matched filter (dsp/mf_prefilter.py)
+  [matched filter (dsp/mf_prefilter.py), with sampler="rrc"; the
+   linear sampler reads the input as it is]
     -> demod kernel (csrc/demod.cu: PLL + M&M timing + soft demap), one
        launch per chunk, or with `segments=S` two launches over S lanes
        per carrier (the time-segmented demod, `_demod_segmented`)
     -> symbol ring append (fec/deconv_device.py: cumsum + scatter)
-    -> soft Viterbi over the sync replicas with election:
-       rate 1/2, 4 replicas: csrc/acs.cu inside
-         fec/viterbi_device.viterbi_decode;
-       rates 2/3 (run as "4/6"), 3/4, 5/6, 7/8, 4 x nshifts replicas:
-         punctured block inputs -> csrc/acs_banked.cu inside
-         fec/viterbi_device.viterbi_decode_banked
-    -> ONE packed u8 buffer per chunk (bytes | discriminants | underflow
-       per decode, then the ring fill)
-  host: the C++ byte backend (native/): MPEG framing, deinterleave,
-        RS(204,188), derandomize -> TS packets per channel.
+    -> with viterbi=True, soft Viterbi over the sync replicas with
+       election:
+         rate 1/2, 4 replicas: csrc/acs.cu inside
+           fec/viterbi_device.viterbi_decode;
+         rates 2/3 (run as "4/6"), 3/4, 5/6, 7/8, 4 x nshifts replicas:
+           punctured block inputs -> csrc/acs_banked.cu inside
+           fec/viterbi_device.viterbi_decode_banked;
+       with viterbi=False, hard decisions: the all-hypothesis GF(2)
+       decode of fec/deconv_device.deconv_decode (4 sync maps x the
+       symbol alignments, elected per sub-block with fastlock, else the
+       channel's locked hypothesis, rotated by the framer's resyncs)
+    -> ONE packed u8 buffer per chunk (bytes | discriminants or
+       disagreement counts | underflow per decode, then the ring fill)
+  host: the byte backend: MPEG framing, deinterleave, RS(204,188),
+        derandomize -> TS packets per channel; the C++ one (native/)
+        by default, `_ByteBackend` (NumPy) with native=False.
 
 The decode schedule is decided on the host from conservative fill
 bookkeeping, so the device work of a chunk needs no host sync.
@@ -33,10 +40,12 @@ from .. import device as _dev
 from ..dsp import mf_prefilter, receiver
 from ..dsp import receiver_kernel as rk
 from ..dsp.cstln import Predef, make_dvbs2_constellation
-from ..fec.deconv_device import deconv_append
+from ..fec import interleave, prbs, rs
+from ..fec.deconv_device import DeviceDeconvolver, deconv_append
 from ..fec.viterbi_banked import fleet_rate
 from ..fec.viterbi_device import MultiViterbiSync, decoder
 from ..native import NativeByteBackend
+from ..proto.framing import RS_SIZE, MpegSync
 from .dvbs_rx import RATES, RxConfig, TS_SIZE
 
 CHECKPOINT_FORMAT = "leansdr_tpu_torch.multi_rx/1"
@@ -46,8 +55,10 @@ def _pack_fetch(fill: torch.Tensor, flat: list) -> torch.Tensor:
     """Concatenate the chunk's decode results + the fill watermark into
     ONE u8 [C, total] tensor, so the host pays a single transfer.
 
-    flat: triples (bytes [C,NB] u8, errs [C,E] i32, under [C] bool).
-    Layout per channel row: nd x [NB bytes | E*4 errs | 1 under] | 4 fill
+    flat: triples (bytes [C,NB] u8, errs [C,E'] i32, under [C] bool),
+    E' = E + 1 for the Viterbi kinds (the elected sync last), E for the
+    hard decode. Layout per channel row: nd x [NB bytes | E'*4 errs |
+    1 under] | 4 fill
     (little-endian, the byte layout of the JAX version).
     """
     C = fill.shape[0]
@@ -280,27 +291,32 @@ def _demod_segmented(params, sym_consts, mf_taps, nchan, S, W, want_cost,
 def _fused_chunk(params, sym_consts, mf_taps, kind, plan, plan_dec, maps,
                  schedule, planes, seg_state, dstate, x, segments=1,
                  seg_warmup=2048):
-    """One chunk of device work: matched filter -> demod kernel (or the
-    segmented demod when segments > 1) -> sym/valid/cost extraction ->
-    ring append(s) -> `schedule` decodes (the decoder of `kind`) -> the
-    packed fetch buffer. Plain eager PyTorch around the kernels. Returns
-    (planes, seg_state, dstate, packed_out)."""
+    """One chunk of device work: [matched filter, when mf_taps is not
+    None] -> demod kernel (or the segmented demod when segments > 1) ->
+    sym/valid(/cost for the Viterbi kinds) extraction -> ring append(s)
+    -> `schedule` decodes (the decoder of `kind`) -> the packed fetch
+    buffer. Plain eager PyTorch around the kernels. Returns (planes,
+    seg_state, dstate, packed_out)."""
     decode = decoder(kind)
+    want_cost = kind.startswith("viterbi")
     if segments > 1:
         planes, seg_state, sym, valid, cost = _demod_segmented(
             params, sym_consts, mf_taps, planes.shape[1], segments,
-            seg_warmup, True, planes, seg_state, x)
+            seg_warmup, want_cost, planes, seg_state, x)
     else:
-        x = mf_prefilter.mf_prefilter(mf_taps, planes[2], x)
-        planes, packed = rk.demod(params, sym_consts, planes, x)
+        if mf_taps is not None:
+            x = mf_prefilter.mf_prefilter(mf_taps, planes[2], x)
+        planes, packed = rk.demod(params, sym_consts, planes, x.contiguous())
         sym, valid, cost = _extract_sym_valid(packed)
+        if not want_cost:
+            cost = None
     n = sym.shape[0]
     step = plan.nsamp
     flat = []
     for i, o in enumerate(range(0, n, step)):
         m = min(step, n - o)
         dstate = deconv_append(plan, dstate, sym[o:o + m], valid[o:o + m],
-                               cost[o:o + m])
+                               None if cost is None else cost[o:o + m])
         for _ in range(schedule[i]):
             dstate, by, errs, under = decode(plan_dec, dstate, maps)
             flat += [by, errs, under]
@@ -310,11 +326,13 @@ def _fused_chunk(params, sym_consts, mf_taps, kind, plan, plan_dec, maps,
 def _unsupported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported yet (ROADMAP queue 1 item {item}); the "
-        f"port runs QPSK at rates {', '.join(RATES)} with viterbi=True, "
-        "exact_lut=False, sampler='rrc'")
+        f"port runs QPSK at rates {', '.join(RATES)} with exact_lut=False "
+        "and sampler 'linear' or 'rrc'")
 
 
-def _check_config(cfg: RxConfig, use_pallas, native, segments, seg_warmup):
+def _check_config(cfg: RxConfig, use_pallas, segments, seg_warmup):
+    """Raise for a setting the port has not taken (NotImplementedError
+    naming its ROADMAP item) or that is invalid (ValueError)."""
     if segments < 1:
         raise ValueError("segments must be >= 1")
     if seg_warmup % receiver.CHUNK:
@@ -322,34 +340,144 @@ def _check_config(cfg: RxConfig, use_pallas, native, segments, seg_warmup):
     if cfg.constellation != Predef.QPSK or cfg.rate not in RATES:
         _unsupported(f"{Predef(cfg.constellation).name} rate {cfg.rate}",
                      "20")
-    if not cfg.viterbi:
-        _unsupported("the hard-decision fleet path (viterbi=False)", "7")
     if cfg.exact_lut is None:
         raise ValueError("RxConfig.exact_lut must be given explicitly "
                          "(False: the computed demod path)")
     if cfg.exact_lut:
         _unsupported("the exact-LUT scan demod (exact_lut=True)", "10")
-    if cfg.sampler != "rrc":
+    if cfg.sampler not in ("linear", "rrc"):
         _unsupported(f"sampler={cfg.sampler!r}", "10")
     if cfg.anf or cfg.cnr or cfg.want_spectrum:
         _unsupported("fleet preprocessing (anf, cnr, spectrum)", "13")
     if use_pallas is False:
         _unsupported("a demod without the kernel (use_pallas=False)", "10")
+
+
+class _ByteBackend:
+    """Host byte-domain stages for one channel fleet in NumPy (a copy of
+    leansdr_tpu/pipelines/multi_rx.py `_ByteBackend`): per channel MPEG
+    framing and deinterleave, one batched RS decode for the fleet, then
+    derandomize. Same feed/locks/vbitcount/verrcount and save/restore
+    contract as NativeByteBackend; its blob is the JAX class's, so a JAX
+    receiver's Python-backend checkpoint restores here."""
+
+    def __init__(self, nchan: int, fastlock: bool, on_next_sync=None):
+        self.nchan = nchan
+        # Warm the RS tables and the correction path so the first
+        # streaming chunk does not pay their one-time build cost.
+        rs.gf2_syndrome_matrix()
+        warm = rs.encode(np.zeros((96, TS_SIZE), np.uint8))
+        warm[:, 3] ^= 0x5A
+        rs.decode(warm)
+        self.mpeg = [
+            MpegSync(fastlock=fastlock,
+                     on_next_sync=(None if on_next_sync is None
+                                   else (lambda c=c: on_next_sync(c))))
+            for c in range(nchan)]
+        self.byte_backlog = [np.empty(0, np.uint8) for _ in range(nchan)]
+        self.mpegbyte_backlog = [np.empty(0, np.uint8)
+                                 for _ in range(nchan)]
+        self.derand_pos = [0] * nchan
+        self.vbitcount = np.zeros(nchan, np.int64)
+        self.verrcount = np.zeros(nchan, np.int64)
+
+    def feed(self, bytes_by_chan) -> list:
+        """bytes_by_chan: per-channel new byte arrays (possibly empty).
+        Returns per-channel TS packet arrays [k, 188]."""
+        C = self.nchan
+        rspkts = []
+        counts = []
+        for c in range(C):
+            b = bytes_by_chan[c]
+            if len(b):
+                self.byte_backlog[c] = np.concatenate(
+                    [self.byte_backlog[c], b])
+            pkts, consumed = self.mpeg[c].process(self.byte_backlog[c])
+            self.byte_backlog[c] = self.byte_backlog[c][consumed:]
+            if len(pkts):
+                self.mpegbyte_backlog[c] = np.concatenate(
+                    [self.mpegbyte_backlog[c], pkts.reshape(-1)])
+            rp, self.mpegbyte_backlog[c] = interleave.deinterleave(
+                self.mpegbyte_backlog[c])
+            rspkts.append(rp)
+            counts.append(rp.shape[0])
+        outs = [np.empty((0, TS_SIZE), np.uint8)] * C
+        if not sum(counts):
+            return outs
+        # One batched RS decode for the whole fleet's packets.
+        msgs, failed, bits = rs.decode(
+            np.concatenate([r for r in rspkts if len(r)], axis=0))
+        msgs = msgs.copy()
+        msgs[failed, 0] ^= prbs.MPEG_SYNC_CORRUPTED
+        o = 0
+        for c in range(C):
+            k = counts[c]
+            if not k:
+                continue
+            self.vbitcount[c] += k * RS_SIZE * 8
+            self.verrcount[c] += int(bits[o:o + k].sum())
+            out, good, self.derand_pos[c] = prbs.derandomize_np(
+                msgs[o:o + k], self.derand_pos[c])
+            outs[c] = out[good]
+            o += k
+        return outs
+
+    @property
+    def locks(self):
+        return [m.synchronized for m in self.mpeg]
+
+    # -- checkpoint/resume (same contract as NativeByteBackend) ----------
+
+    _MPEG_FIELDS = ("polarity", "bitphase", "synchronized",
+                    "next_sync_count", "resync_phase", "phase8",
+                    "lock_timeleft", "locktime", "locktime_count")
+
+    def save_blob(self) -> bytes:
+        return pickle.dumps({
+            "mpeg": [{k: getattr(m, k) for k in self._MPEG_FIELDS}
+                     for m in self.mpeg],
+            "byte_backlog": self.byte_backlog,
+            "mpegbyte_backlog": self.mpegbyte_backlog,
+            "derand_pos": self.derand_pos,
+            "vbitcount": self.vbitcount,
+            "verrcount": self.verrcount,
+        })
+
+    def restore_blob(self, blob: bytes):
+        d = pickle.loads(blob)
+        for m, st in zip(self.mpeg, d["mpeg"]):
+            for k, v in st.items():
+                setattr(m, k, v)
+        self.byte_backlog = d["byte_backlog"]
+        self.mpegbyte_backlog = d["mpegbyte_backlog"]
+        self.derand_pos = d["derand_pos"]
+        self.vbitcount = d["vbitcount"]
+        self.verrcount = d["verrcount"]
+
+
+def make_byte_backend(nchan: int, fastlock: bool, on_next_sync=None,
+                      native=None):
+    """The fleet's byte backend: `native=False` selects the Python
+    `_ByteBackend`; `native=None` or True the C++ NativeByteBackend,
+    which raises if it does not build. The JAX factory's quiet fallback
+    from a failed C++ build to Python is not carried over."""
     if native is False:
-        _unsupported("the Python byte backend (native=False)", "7")
+        return _ByteBackend(nchan, fastlock, on_next_sync)
+    return NativeByteBackend(nchan, fastlock, on_next_sync)
 
 
 class MultiDvbsReceiver:
-    """N-channel receiver: one batched device demod + Viterbi, and the
-    C++ host byte backend. Entry points run on `device` (default CUDA;
-    CUDA without a GPU raises)."""
+    """N-channel receiver: one batched device demod + device decode
+    (soft Viterbi, or hard decisions with viterbi=False), and the host
+    byte backend (C++, or NumPy with native=False). Entry points run on
+    `device` (default CUDA; CUDA without a GPU raises)."""
 
     def __init__(self, cfg: RxConfig, nchan: int, use_pallas=None,
                  chunk_samples: int | None = None, native=None,
                  segments: int = 1, seg_warmup: int = 2048,
                  seg_holdoff: int = 8, device=None):
+        _check_config(cfg, use_pallas, segments, seg_warmup)
         self.device = _dev.resolve_device(device)
-        _check_config(cfg, use_pallas, native, segments, seg_warmup)
         self.cfg = cfg
         self.nchan = nchan
         # The time-segmented demod (_demod_segmented): each chunk as
@@ -363,19 +491,23 @@ class MultiDvbsReceiver:
         self._seg_state = None     # per-segment persisted demod state
         self._seg_nseg = 0         # the segment length it was built for
         cstln = make_dvbs2_constellation(cfg.constellation, cfg.rate)
-        # Matched filter at input rate, then the linear-sampler demod.
-        self.mf_taps = mf_prefilter.make_mf_taps(cfg.Fs, cfg.Fm, cfg.rolloff,
-                                                 cfg.rrc_rej)
+        self.cstln = cstln
+        # sampler="rrc": the matched filter at input rate, then the
+        # linear-sampler demod; sampler="linear": the demod alone.
+        self.mf_taps = (mf_prefilter.make_mf_taps(cfg.Fs, cfg.Fm,
+                                                  cfg.rolloff, cfg.rrc_rej)
+                        if cfg.sampler == "rrc" else None)
         # Built as the JAX fleet builds it: the fleet never sets
         # allow_drift, so freqw is always clamped to the frequency limits
-        # (leansdr_tpu/pipelines/multi_rx.py:717-726, ROADMAP queue 3).
+        # (leansdr_tpu/pipelines/multi_rx.py:717-726, ROADMAP queue 3),
+        # and the PLL's gain is cut for the soft path only.
         self.params = receiver.ReceiverParams(
             omega=cfg.Fs / cfg.Fm,
             sampler="linear",
             nsymbols=cstln.nsymbols,
             freq0=cfg.Ftune / cfg.Fs,
             exact_lut=False,
-            pll_adjustment=1.0 / 6,
+            pll_adjustment=1.0 / 6 if cfg.viterbi else 1.0,
         )
         self._sym_consts = rk.sym_constants(cstln)
         self._planes = rk.pack_state(
@@ -383,10 +515,23 @@ class MultiDvbsReceiver:
         self.rate = fleet_rate(cfg.rate)
         self.omega = cfg.Fs / cfg.Fm
         nominal = chunk_samples or (1 << 16)
-        self.deconv = MultiViterbiSync(cstln, self.rate, nchan, nominal,
-                                       self.omega, fastlock=cfg.fastlock,
-                                       device=self.device)
-        self.backend = NativeByteBackend(nchan, cfg.fastlock)
+        on_next = None
+        if cfg.viterbi:
+            self.deconv = MultiViterbiSync(cstln, self.rate, nchan, nominal,
+                                           self.omega, fastlock=cfg.fastlock,
+                                           device=self.device)
+        else:
+            self.deconv = DeviceDeconvolver(self.rate, nchan, nominal,
+                                            self.omega, fastlock=cfg.fastlock,
+                                            device=self.device)
+            if not cfg.fastlock:
+                on_next = self.deconv.next_sync
+        self.backend = make_byte_backend(nchan, cfg.fastlock, on_next,
+                                         native)
+        # The framer's resyncs feed the next dispatch's decode: submit()
+        # then finishes each chunk's backend before the next dispatch, so
+        # it decodes what process() decodes.
+        self._sync_feedback = on_next is not None
         self.sample_backlog = np.empty((nchan, 0, 2), np.float32)
         self._pool = None
         self._fetch_pool = None
@@ -397,6 +542,8 @@ class MultiDvbsReceiver:
     def readahead(self) -> int:
         """Samples past each chunk the chain reads (sampler lookahead +
         matched-filter overlap)."""
+        if self.mf_taps is None:
+            return self.params.readahead
         return self.params.readahead + len(self.mf_taps) - 1
 
     # -- streaming API ----------------------------------------------------
@@ -468,7 +615,9 @@ class MultiDvbsReceiver:
         if S > 1:
             self._seg_state = seg_state
         self._chunk_count += 1
-        shapes = [(plan_dec.nbytes, plan_dec.E + 1)] * sum(schedule)
+        ecols = plan_dec.E + (1 if self.deconv.kind.startswith("viterbi")
+                              else 0)
+        shapes = [(plan_dec.nbytes, ecols)] * sum(schedule)
         return packed_out, shapes
 
     def prefetch(self, pending):
@@ -492,6 +641,7 @@ class MultiDvbsReceiver:
         else:
             buf = _to_host(packed_out)               # [C, total]
         per_chan = [[] for _ in range(self.nchan)]
+        observe = getattr(self.deconv, "observe", None)
         o = 0
         for nb, ne in shapes:
             by = buf[:, o:o + nb]
@@ -500,7 +650,8 @@ class MultiDvbsReceiver:
             o += ne * 4
             under = buf[:, o]
             o += 1
-            self.deconv.observe(errs, under.astype(bool))
+            if observe is not None:
+                observe(errs, under.astype(bool))
             for c in range(self.nchan):
                 if not under[c]:
                     per_chan[c].append(by[c])
@@ -519,6 +670,10 @@ class MultiDvbsReceiver:
     #   backend thread: MPEG framing / deinterleave / RS / derandomize
     # Safe because dispatch's schedule uses the conservative
     # note_production watermark; collect()'s sync_fill only raises it.
+    # With the framer's resync feedback (hard decisions, no fastlock)
+    # the backend of chunk k must have run before chunk k+1's dispatch,
+    # as in process(): submit() waits for it, so that configuration
+    # gains no overlap and decodes exactly what process() decodes.
 
     max_inflight = 3
 
@@ -532,13 +687,15 @@ class MultiDvbsReceiver:
             self._fetch_pool = ThreadPoolExecutor(1)
             self._backend_pool = ThreadPoolExecutor(1)
             self._jobs = deque()
+        done = []
+        while self._sync_feedback and self._jobs:
+            done.append(self._jobs.popleft().result())
         pend = self.dispatch(iq)
         if pend is not None:
             packed_out, shapes = pend
             fut = self._fetch_pool.submit(_to_host, packed_out)
             self._jobs.append(
                 self._backend_pool.submit(self.collect, (fut, shapes)))
-        done = []
         while self._jobs and (self._jobs[0].done()
                               or len(self._jobs) > self.max_inflight):
             done.append(self._jobs.popleft().result())
@@ -562,15 +719,17 @@ class MultiDvbsReceiver:
 
     # -- checkpoint/resume --------------------------------------------------
 
+    # The decoder's host fields: MultiViterbiSync's TRACK policy, or
+    # DeviceDeconvolver's fill estimate and queued resyncs.
     _DECONV_HOST_FIELDS = ("_est_fill", "track", "_want_track", "_stable",
                            "_last_cur", "_entry_d", "track_after",
-                           "_track_decodes")
+                           "_track_decodes", "_resyncs")
 
     def save_state(self) -> bytes:
         """Serialize every mutable piece of the receiver: demod state
         (and the segmented demod's per-segment states), the symbol ring +
-        trellis state, the byte backend (the C++ FSMs) and the sample
-        backlog, as NumPy arrays in a pickle."""
+        trellis or hard-decision state, the byte backend's FSMs and the
+        sample backlog, as NumPy arrays in a pickle."""
         seg = self._seg_state
         return pickle.dumps({
             "format": CHECKPOINT_FORMAT,
@@ -580,7 +739,8 @@ class MultiDvbsReceiver:
             "deconv_state": {k: v.cpu().numpy()
                              for k, v in self.deconv.state.items()},
             "deconv_host": {k: getattr(self.deconv, k)
-                            for k in self._DECONV_HOST_FIELDS},
+                            for k in self._DECONV_HOST_FIELDS
+                            if hasattr(self.deconv, k)},
             "backend": self.backend.save_blob(),
             "backend_native": type(self.backend).__name__,
             "sample_backlog": self.sample_backlog,
@@ -614,8 +774,9 @@ class MultiDvbsReceiver:
         self._seg_nseg = d.get("seg_nseg", 0)
         if set(d["deconv_state"]) != set(self.deconv.state):
             raise ValueError(
-                f"checkpoint trellis state {sorted(d['deconv_state'])} != "
-                f"{sorted(self.deconv.state)} (another code rate?)")
+                f"checkpoint decoder state {sorted(d['deconv_state'])} != "
+                f"{sorted(self.deconv.state)} (another code rate or "
+                "viterbi setting?)")
         self.deconv.state = {k: torch.from_numpy(np.array(v)).to(dev)
                              for k, v in d["deconv_state"].items()}
         for k, v in d["deconv_host"].items():

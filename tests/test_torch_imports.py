@@ -23,6 +23,9 @@ def _modules():
 
 def test_import_loads_no_jax():
     assert {"leansdr_tpu_torch.dsp.fft_kernel",
+            "leansdr_tpu_torch.dsp.acquisition",
+            "leansdr_tpu_torch.fec.deconv_device",
+            "leansdr_tpu_torch.apps.leandvbfleet",
             "leansdr_tpu_torch.pipelines.multi_rx"} <= set(_modules())
     code = (
         "import importlib, sys\n"
@@ -76,6 +79,29 @@ def test_entry_points_default_to_cuda():
     assert resolve_device("cpu").type == "cpu"
 
 
+def test_hard_fleet_entry_points_default_to_cuda():
+    """The hard-decision fleet, its decoder and the coarse carrier search
+    default to CUDA and raise without it."""
+    import numpy as np
+    import torch
+    from leansdr_tpu_torch.dsp.acquisition import coarse_carrier_estimate
+    from leansdr_tpu_torch.fec.deconv_device import DeviceDeconvolver
+    from leansdr_tpu_torch.pipelines.dvbs_rx import RxConfig
+    from leansdr_tpu_torch.pipelines.multi_rx import MultiDvbsReceiver
+    if torch.cuda.is_available():
+        return
+    cfg = RxConfig(Fs=4e6, Fm=2e6, rate="1/2", fastlock=False,
+                   float_scale=75, exact_lut=False, viterbi=False,
+                   sampler="linear")
+    for make in (lambda: MultiDvbsReceiver(cfg, 2),
+                 lambda: MultiDvbsReceiver(cfg, 2, native=False),
+                 lambda: DeviceDeconvolver("1/2", 2, 4096, 2.0),
+                 lambda: coarse_carrier_estimate(
+                     np.zeros((4096, 2), np.float32))):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+
+
 def test_unported_settings_raise():
     from leansdr_tpu_torch.dsp.cstln import Predef
     from leansdr_tpu_torch.pipelines.dvbs_rx import RxConfig
@@ -83,14 +109,15 @@ def test_unported_settings_raise():
     base = dict(Fs=4e6, Fm=2e6, rate="1/2", fastlock=True, float_scale=75,
                 exact_lut=False, viterbi=True, sampler="rrc")
     for change, item in ((dict(constellation=Predef.PSK8), "item 20"),
-                         (dict(viterbi=False), "item 7"),
+                         (dict(sampler="nearest"), "item 10"),
                          (dict(exact_lut=True), "item 10"),
-                         (dict(sampler="linear"), "item 10"),
+                         (dict(anf=1), "item 13"),
                          (dict(cnr=True), "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             MultiDvbsReceiver(RxConfig(**(base | change)), 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        MultiDvbsReceiver(RxConfig(**base), 2, native=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 10"):
+        MultiDvbsReceiver(RxConfig(**base), 2, use_pallas=False,
+                          device="cpu")
 
 
 def test_leandvb_help_runs_without_jax():
@@ -124,7 +151,7 @@ def test_single_carrier_entry_points_default_to_cuda():
 
 @pytest.mark.parametrize("flags,item", [
     (["--awgn", "1"], "item 22"), (["--cnr"], "item 13"),
-    (["--fd-spectrum", "3"], "item 13"), (["--acq"], "item 13"),
+    (["--fd-spectrum", "3"], "item 13"),
     (["--hs"], "item 12"), (["--hdlc", "--packetized"], "item 21"),
     (["--exact-lut"], "item 10"), (["--hard-metric"], "item 10"),
     (["--sampler", "nearest"], "item 10"), (["--hdlc"], "item 21"),
