@@ -11,12 +11,16 @@ rate 1/2 (the rate-1/2 ACS kernel) and at the punctured rates 3/4 and 7/8
 (the banked ACS kernel), each sequentially and with the time-segmented
 demod (segments=8); the hard-decision fleet (Viterbi off: the device
 GF(2) decode) at 1/2, 3/4 and 7/8, at 1/2 with segments=8 and with the
-linear sampler; the fleet CLI leandvbfleet in a child process (no
-fastlock, --acq: the fft4096 kernel); and the single-carrier receiver of
-leandvb on five streams (the CLI defaults, the same with --segments 8,
---resample on the complex FIR kernel, --hq at 1/2 and 3/4), from DVB-S
-stimulus the port modulates itself, and checks that every carrier locks
-and decodes the TS packets that were sent.
+linear sampler; the exact-LUT fleet on the scan demod with the
+polyphase rrc sampler (Viterbi at segments=1 and 8, hard decisions);
+the fleet CLI leandvbfleet in a child process (no fastlock, --acq: the
+fft4096 kernel); and the single-carrier receiver of leandvb on ten
+streams (the CLI defaults, the same with --segments 8, --resample on
+the complex FIR kernel, --hq at 1/2 and 3/4, and on the scan demods
+--exact-lut, --exact-lut --sampler rrc, --hard-metric, --sampler
+nearest and --hs), from DVB-S stimulus the port modulates itself, and
+checks that every carrier locks and decodes the TS packets that were
+sent.
 
 Phases (any failure exits non-zero):
   1. card name and power limit, versions, kernel build time; dependent
@@ -27,7 +31,12 @@ Phases (any failure exits non-zero):
      counted from their SASS (tools/sass_chain.py on `cuobjdump -sass` of
      the built libraries), each also as one warp issuing it in order;
   2. the demod's rotation (sincosf) == torch.cos / torch.sin bit for bit
-     on all 65536 u16 angles; demod kernel == demod_ref, every packed
+     on all 65536 u16 angles; scan_demod == run_chunks_ref and hs_demod
+     == run_chunks_hs_ref on every output and state plane (each sampler
+     x decision mode, and --hs, at C=1 and C=64, cold and live state;
+     the four sincos entries hs_demod takes from the table), and the
+     scan demods' serial chains per emitted symbol from their SASS;
+     demod kernel == demod_ref, every packed
      word and every state plane bit for bit (DEMOD_CHECKS: QPSK at C=64
      and C=8192, 8PSK at C=64, 4096 samples; QPSK and 16APSK at C in
      {1, 33, 100} over 1024 samples and C=33 over 128, the ragged
@@ -83,19 +92,29 @@ Phases (any failure exits non-zero):
      reach the decoder), its multiplex
      parsed and gated per channel, its launch counts and two demod
      launches' inputs written by the child at exit and held against
-     demod_ref here; then the single-carrier receiver (leandvb's DvbsReceiver,
-     in its 2^17-sample reads) on five streams, each with its own zeroed
+     demod_ref here; the exact-LUT fleet (exact_lut=True, the polyphase
+     rrc sampler in scan_demod, 499 taps in steps of 32) at 1/2 with
+     Viterbi at S=1 and S=8 and with hard decisions, each with its own
+     counters and gate, a first and a mid-stream scan launch against
+     run_chunks_ref on SCAN_PLAIN samples, and scan_demod's and
+     hs_demod's times at the main paths' shapes; then the single-carrier
+     receiver (leandvb's DvbsReceiver,
+     in its 2^17-sample reads) on ten streams, each with its own zeroed
      counters: rtl_sdr u8 at 2.4 Msps with a birdie (the CLI defaults:
      notch, hard decisions), the same bytes with --segments 8, a 10 Msps
-     s16 333 ksym/s carrier through --resample (cfir), and --hq at 1/2
-     and 3/4 on 4 Msps f32 (the ACS kernels); each must lock and decode
+     s16 333 ksym/s carrier through --resample (cfir), --hq at 1/2
+     and 3/4 on 4 Msps f32 (the ACS kernels), the canonical bytes with
+     --exact-lut, --exact-lut --sampler rrc, --hard-metric and --hs, and
+     --sampler nearest on 8 Msps u8; each must lock and decode
      >= 90% of the packets sent after lock; per-stage times, input
      Msamples/s and x real time; after each stream, the inputs of its
      first launch of every kernel and of one launch mid-stream (a live
      state; with --segments both passes of one read) go through the
      kernel and its plain version again, equal bit for bit (the demod on
      the first 1024 samples of the read: its plain version costs ~3 ms
-     per sample on the card);
+     per sample on the card); then ROADMAP item 24's brick-wall stimulus
+     on the kernel path and the exact-LUT polyphase path (MER and lock
+     printed, not a gate);
   5. kernel times at the main path's shapes (the demod also at the
      segmented launches' shapes and at one carrier; the ACS at N=256,
      N=64 and N=4; the banked ACS at every rate's ACQUIRE and TRACK
@@ -162,7 +181,7 @@ DEMOD_CHECKS = (
 ASSUMED_CHAIN_CYCLES = 90 * 4
 DEMOD_QPSK_FUNCTION = "demod_kernelILb1E"     # demod_kernel<true>
 TOOLS = Path(__file__).resolve().parent / "tools"
-LATENCY_PROBES = 24                           # tools/latency_probe.cu
+LATENCY_PROBES = 25                           # tools/latency_probe.cu
 # The ACS kernel's per-block chain, from its SASS the same way: per
 # mode (function, marker, markers per block, least markers in the
 # loop). This kernel's loops hold its warp reductions (REDUX, no MUFU):
@@ -180,8 +199,24 @@ ACS_LEGACY_FUNCTIONS = {"acquire": ("acs_kernel", "SHFL", 20.0, 80),
 # The single-carrier paths' launches held against the plain versions:
 # the first launch of each kernel and this one (a live, mid-stream
 # state); the demod on this many samples of its read.
-SC_LIVE_LAUNCH = {"demod": 20, "cfir": 20, "acs": 4000, "acs_banked": 4000}
+SC_LIVE_LAUNCH = {"demod": 20, "cfir": 20, "acs": 4000, "acs_banked": 4000,
+                  "scan_demod": 20, "hs_demod": 20}
 SC_DEMOD_CHECK = 1024
+# The scan demods (slice 6) against their plain versions: every sampler
+# x decision mode (and --hs) at these channel counts over SCAN_CHUNKS
+# chunks, from the cold state and again from the kernel's end state; the
+# fleet's main-path launches on their first SCAN_PLAIN samples.
+SCAN_CHECK_C = (1, NCHAN)
+SCAN_CHUNKS = 2
+SCAN_PLAIN = 256
+SCAN_FUNCTIONS = {                 # scan_kernel<SAMPLER, EXACT> in SASS
+    ("nearest", True): "scan_kernelILi0ELb1E",
+    ("linear", True): "scan_kernelILi1ELb1E",
+    ("linear", False): "scan_kernelILi1ELb0E",
+}
+# Item 24's stimulus (ROADMAP): a 2 Msym/s rate-1/2 carrier at 2.4 Msps
+# behind a brick-wall front end, resample_poly(z, 6, 5), no noise.
+BRICKWALL_SAMPLES = 1 << 21
 ACS_LONG_T = 1 << 17             # blocks of one TRACK decode (main path)
 # cfir's decimated launches held against cfir_ref, per filter length:
 # (start, step, count). At 79 taps the --resample stage's launch on one
@@ -267,7 +302,8 @@ def latency_table(build, dev) -> tuple:
     tools/latency_probe.cu, keyed for tools/sass_chain.py: `fixed` (every
     fixed-latency pipe) is the largest of FADD, FMUL, FFMA, FMNMX, FSEL,
     SHF and IMAD; FSETP, MUFU.RCP, MUFU.SIN and MUFU.RSQ are their pair
-    less the partner; F2I and I2F(P) half their pair. Returns (the
+    less the partner; F2I and I2F(P) half their pair; LDG a load that hits
+    L1 (the scan demods' table gathers). Returns (the
     demod's table, the keys its chain count uses; the integer table for
     the ACS kernels: that plus SHFL.IDX, SHFL.BFLY, IMNMX/VIMNMX/VIMNMX3,
     SEL, ISETP (its pair less SEL), REDUX, VIADDMNMX, and the shared-memory
@@ -294,7 +330,7 @@ def latency_table(build, dev) -> tuple:
             fail(f"latency probe: CUDA error {err}")
     (fadd, fmul, ffma, fmnmx, fsel, fsetp_fsel, shf, imad, conv_pair, trunc,
      floor, rcp_fadd, sin_pair, rsq_fadd, lds, shfl_idx, shfl_bfly, imnmx,
-     sel, isetp_sel, redux, xchg_bar, xchg_warp, viaddmnmx) = (
+     sel, isetp_sel, redux, xchg_bar, xchg_warp, viaddmnmx, ldg) = (
         cyc.cpu().double() / lib.probe_rep()).tolist()
     lat = {"fixed": max(fadd, fmul, ffma, fmnmx, fsel, shf, imad),
            "FSETP": fsetp_fsel - fsel, "F2I": conv_pair / 2,
@@ -302,7 +338,7 @@ def latency_table(build, dev) -> tuple:
            "FRND.FLOOR": floor, "FRND": max(trunc, floor),
            "MUFU.RCP": rcp_fadd - fadd, "MUFU.SIN": sin_pair - fmul,
            "MUFU.COS": sin_pair - fmul, "MUFU.RSQ": rsq_fadd - fadd,
-           "LDS": lds}
+           "LDS": lds, "LDG": ldg}
     lat_int = dict(lat, **{"SHFL.IDX": shfl_idx, "SHFL.BFLY": shfl_bfly,
                            "IMNMX": imnmx, "VIMNMX": imnmx,
                            "VIMNMX3": imnmx, "SEL": sel,
@@ -901,14 +937,16 @@ def check_packets(c, pkts):
     return len(pkts) - first, sum(ok[first:]), span
 
 
-def fleet_rx(dev, code_rate, viterbi=True, sampler="rrc", **seg):
+def fleet_rx(dev, code_rate, viterbi=True, sampler="rrc", exact=False,
+             **seg):
     """The 64-carrier fleet receiver of the main path at `code_rate`
-    (viterbi=False: the hard-decision fleet; seg: MultiDvbsReceiver's
-    segments, seg_warmup, seg_holdoff)."""
+    (viterbi=False: the hard-decision fleet; exact: the scan demod's
+    exact-LUT route, with "rrc" its polyphase sampler; seg:
+    MultiDvbsReceiver's segments, seg_warmup, seg_holdoff)."""
     from leansdr_tpu_torch.pipelines import multi_rx
     from leansdr_tpu_torch.pipelines.dvbs_rx import RxConfig
     cfg = RxConfig(Fs=4e6, Fm=2e6, rate=code_rate, fastlock=True,
-                   float_scale=75, exact_lut=False, viterbi=viterbi,
+                   float_scale=75, exact_lut=exact, viterbi=viterbi,
                    sampler=sampler)
     return multi_rx.MultiDvbsReceiver(cfg, NCHAN, chunk_samples=CHUNK_SAMPLES,
                                       device=dev, **seg)
@@ -935,7 +973,8 @@ def fleet_run(rx, frames, nchunks, tag, steady_from, capture=None):
     is chunks steady_from.. . capture(k) -> True records the inputs of
     chunk k's demod launches. Returns dict(launches, stages, rate in
     Msamples/s, chunk_ms, captured)."""
-    from leansdr_tpu_torch.dsp import mf_prefilter, receiver_kernel as rk
+    from leansdr_tpu_torch.dsp import mf_prefilter, receiver
+    from leansdr_tpu_torch.dsp import receiver_kernel as rk
     from leansdr_tpu_torch.fec import deconv_device as dd
     from leansdr_tpu_torch.fec import viterbi_device as vd
     from leansdr_tpu_torch.pipelines import multi_rx
@@ -977,18 +1016,19 @@ def fleet_run(rx, frames, nchunks, tag, steady_from, capture=None):
             return "demod"
         return "pass1" if calls[k] == 1 else "pass2"
 
-    demod = rk.demod
-
-    def recorded(*a, **kw):
-        if capture is not None and capture(chunk[0]):
-            captured.append([v.clone() if torch.is_tensor(v) else v
-                             for v in a])
-        return demod(*a, **kw)
+    def recorded(demod):
+        def wrapper(*a, **kw):
+            if capture is not None and capture(chunk[0]):
+                captured.append([_clone(v) for v in a])
+            return demod(*a, **kw)
+        return wrapper
 
     counted = kernel_wrappers()
     patches = [(mf_prefilter, "mf_prefilter", timed("mf", mf_prefilter.
                                                    mf_prefilter)),
-               (rk, "demod", timed(demod_stage, recorded)),
+               (rk, "demod", timed(demod_stage, recorded(rk.demod))),
+               (receiver, "run_chunks", timed(demod_stage, recorded(
+                   receiver.run_chunks))),
                (multi_rx, "_demod_segmented", timed(
                    "segmented", multi_rx._demod_segmented)),
                (multi_rx, "deconv_append", timed("append",
@@ -1032,7 +1072,8 @@ def fleet_run(rx, frames, nchunks, tag, steady_from, capture=None):
         rx.deconv.kind)
     print(f"[{tag}] {nchunks} chunks of {NCHAN} x {CHUNK_SAMPLES}; launches "
           f"{launches}; TRACK={getattr(rx.deconv, 'track', None)}")
-    if launches["demod"] < nchunks or (acs_key and launches[acs_key] < 1):
+    dem_key = "demod" if rx.use_pallas else "scan_demod"
+    if launches[dem_key] < nchunks or (acs_key and launches[acs_key] < 1):
         fail(f"{tag} did not run through the kernels: {launches}")
     locks = rx.locks
     if not all(locks):
@@ -1380,12 +1421,34 @@ def kernel_wrappers() -> dict:
     (their `launches` counters)."""
     from leansdr_tpu_torch.dsp import fft_kernel as ffk
     from leansdr_tpu_torch.dsp import fir_kernel as fk
+    from leansdr_tpu_torch.dsp import receiver, receiver_hs
     from leansdr_tpu_torch.dsp import receiver_kernel as rk
     from leansdr_tpu_torch.fec import viterbi_banked as vb
     from leansdr_tpu_torch.fec import viterbi_device as vd
     return {"demod": rk.demod, "acs": vd.viterbi_acs,
             "acs_banked": vb.viterbi_acs_banked, "cfir": fk.cfir,
-            "fir": fk.fir, "fft4096": ffk.fft4096}
+            "fir": fk.fir, "fft4096": ffk.fft4096,
+            "scan_demod": receiver.run_chunks,
+            "hs_demod": receiver_hs.run_chunks_hs}
+
+
+def _clone(v):
+    """A captured launch argument: tensors (and dicts of them) copied."""
+    if torch.is_tensor(v):
+        return v.clone()
+    if isinstance(v, dict):
+        return {k: _clone(w) for k, w in v.items()}
+    return v
+
+
+def _flat(v) -> list:
+    """The tensors of a kernel's output, in a fixed order: a tensor, or
+    tuples and dicts of them."""
+    if torch.is_tensor(v):
+        return [v]
+    if isinstance(v, dict):
+        return [t for k in sorted(v) for t in _flat(v[k])]
+    return [t for w in v for t in _flat(w)]
 
 
 # The single-carrier paths (leandvb's receiver): name, RxConfig fields as
@@ -1420,6 +1483,28 @@ SC_PATHS = (
     ("hq 3/4", dict(Fs=4e6, Fm=2e6, rate="3/4", fastlock=True, viterbi=True,
                     sampler="rrc", float_scale=75.0), "f32", 1.0,
      (3, 3, True), 20e3, 12.0, None),
+    # The canonical bytes through the scan demod (slice 6): --exact-lut
+    # (the trig16 table and the 256x256 LUT, linear sampler), --exact-lut
+    # --sampler rrc (the polyphase fir_sampler, 497 taps in steps of
+    # 53), --hard-metric (the LUT's cost hardened), --sampler nearest
+    # (computed decisions) and --hs (the integer receiver; the CLI sets
+    # --anf 0 with it).
+    ("exact", dict(Fs=2.4e6, Fm=2e6, rate="1/2", exact_lut=True), "u8",
+     2 ** 23 / 2.4e6, (6, 10, True), 20e3, 20.0, 150e3),
+    ("exact rrc", dict(Fs=2.4e6, Fm=2e6, rate="1/2", exact_lut=True,
+                       sampler="rrc"), "u8",
+     2 ** 23 / 2.4e6, (6, 10, True), 20e3, 20.0, 150e3),
+    ("hard-metric", dict(Fs=2.4e6, Fm=2e6, rate="1/2", hard_metric=True),
+     "u8", 2 ** 23 / 2.4e6, (6, 10, True), 20e3, 20.0, 150e3),
+    # --sampler nearest takes the sample nearest the symbol's timing:
+    # at the canonical 1.2 samples per symbol that is up to 0.4 symbol
+    # off, and neither receiver decodes (the port on the card, the JAX
+    # one on the CPU: MER ~8 dB, ROADMAP queue 3), so it runs at 4
+    # samples per symbol, 8 Msps u8 (a HackRF or PlutoSDR rate).
+    ("nearest", dict(Fs=8e6, Fm=2e6, rate="1/2", sampler="nearest"), "u8",
+     1.0, (6, 3, True), 20e3, 20.0, None),
+    ("hs", dict(Fs=2.4e6, Fm=2e6, rate="1/2", hs=True, anf=0), "u8",
+     2 ** 23 / 2.4e6, (6, 10, True), 20e3, 20.0, 150e3),
 )
 
 
@@ -1475,33 +1560,42 @@ def sc_plain_checks(name, inputs):
     demod reads the first SC_DEMOD_CHECK samples of its read. Returns
     [(kernel, call index, shape, plain ms)]."""
     from leansdr_tpu_torch.dsp import fir_kernel as fk
+    from leansdr_tpu_torch.dsp import receiver, receiver_hs
     from leansdr_tpu_torch.dsp import receiver_kernel as rk
     from leansdr_tpu_torch.fec import viterbi_banked as vb
     from leansdr_tpu_torch.fec import viterbi_device as vd
     pairs = {"demod": (rk.demod, rk.demod_ref),
              "acs": (vd.viterbi_acs, vd.viterbi_acs_ref),
              "acs_banked": (vb.viterbi_acs_banked, vb.viterbi_acs_banked_ref),
-             "cfir": (fk.cfir, fk.cfir_ref)}
+             "cfir": (fk.cfir, fk.cfir_ref),
+             "scan_demod": (receiver.run_chunks, receiver.run_chunks_ref),
+             "hs_demod": (receiver_hs.run_chunks_hs,
+                          receiver_hs.run_chunks_hs_ref)}
     done = []
     for key, calls in inputs.items():
         kern, ref = pairs[key]
         for n, a, kw in calls:
-            if key == "demod":
+            if key in ("demod", "hs_demod"):
                 a = a[:3] + [a[3][:, :SC_DEMOD_CHECK + 1].contiguous()]
+            elif key == "scan_demod":
+                a = a[:3] + [a[3][:, :SC_DEMOD_CHECK
+                                  + a[0].readahead].contiguous()]
             k = kern(*a, **kw)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             r = ref(*a, **kw)
             torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t0) * 1e3
-            k, r = (k, r) if isinstance(k, tuple) else ((k,), (r,))
+            k, r = _flat(k), _flat(r)
             for i, (u, w) in enumerate(zip(k, r)):
                 if not torch.equal(u, w):
                     fail(f"{name}: {key} launch {n}: output {i} differs from "
                          f"the plain version in {int((u != w).sum())} "
                          "entries")
-            shape = " ".join(f"{list(v.shape)}" for v in a
-                             if torch.is_tensor(v))
+            shape = " ".join(f"{list(v.shape)}" for v in a[3:]
+                             if torch.is_tensor(v)) if key.endswith(
+                "demod") else " ".join(f"{list(v.shape)}" for v in a
+                                       if torch.is_tensor(v))
             done.append((key, n, shape, plain_ms))
     print(f"[{name}] kernels == plain versions on the path's inputs: "
           + "; ".join(f"{k} launch {n} {sh} (plain {ms:.0f} ms)"
@@ -1519,14 +1613,16 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
     (sc_plain_checks). Paths with the same stimulus parameters read the
     same bytes (`stimuli` keeps them)."""
     from leansdr_tpu_torch.dsp import fir_kernel as fk
-    from leansdr_tpu_torch.dsp import mf_prefilter, receiver_kernel as rk
+    from leansdr_tpu_torch.dsp import mf_prefilter, receiver, receiver_hs
+    from leansdr_tpu_torch.dsp import receiver_kernel as rk
     from leansdr_tpu_torch.fec import viterbi_banked as vb
     from leansdr_tpu_torch.fec import viterbi_device as vd
     from leansdr_tpu_torch.pipelines import multi_rx
     from leansdr_tpu_torch.pipelines.dvbs_rx import DvbsReceiver, RxConfig
     from leansdr_tpu_torch.util.iofmt import read_iq
 
-    cfg = RxConfig(anf=1, exact_lut=False, **fields)   # leandvb's defaults
+    # leandvb's defaults, then the stream's flags.
+    cfg = RxConfig(**(dict(anf=1, exact_lut=False) | fields))
     t0 = time.perf_counter()
     key = (cfg.rate, cfg.Fs, seconds, updown, f_off, esn0_db, birdie, fmt)
     if key not in stimuli:
@@ -1572,14 +1668,14 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
             seen[key] = n + 1
             if n in (0,) + live:
                 inputs.setdefault(key, []).append(
-                    (n, [v.clone() if torch.is_tensor(v) else v for v in a],
-                     kw))
+                    (n, [_clone(v) for v in a], kw))
             return fn(*a, **kw)
         return wrapper
 
     kernels = {"demod": (rk, "demod"), "acs": (vd, "viterbi_acs"),
                "acs_banked": (vb, "viterbi_acs_banked"),
-               "cfir": (fk, "cfir")}
+               "cfir": (fk, "cfir"), "scan_demod": (receiver, "run_chunks"),
+               "hs_demod": (receiver_hs, "run_chunks_hs")}
     # The wrappers (their counters) before the timing patches.
     counted = kernel_wrappers()
     patches = [(mf_prefilter, "mf_prefilter",
@@ -1621,12 +1717,15 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
         device[key] = device.get(key, 0.0) + s.elapsed_time(e)
     pkts = np.concatenate(ts) if ts else np.empty((0, 188), np.uint8)
     n_after, n_good, span = check_packets(0, list(pkts))
-    need = ["demod"] + (["cfir"] if cfg.resample else []) + (
+    demod_key = ("hs_demod" if cfg.hs else "demod" if rx.use_pallas
+                 else "scan_demod")
+    need = [demod_key] + (["cfir"] if cfg.resample else []) + (
         ["acs" if cfg.rate == "1/2" else "acs_banked"] if cfg.viterbi
         else [])
+    slots = None if rx.notch is None else rx.notch.b.slot_i.tolist()
     print(f"[{name}] launches {launches}; lock {rx.lock}, locktime "
           f"{rx.locktime}, VBER {rx.vber:.2e}, notch slots "
-          f"{rx.notch.b.slot_i.tolist()}; {n_good} sent packets of "
+          f"{slots}; {n_good} sent packets of "
           f"{n_after} after lock (span {span}; {npkt} sent)")
     if any(launches[k] < 1 for k in need):
         fail(f"{name}: the path did not run through {need}: {launches}")
@@ -1650,9 +1749,268 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
                 msamples_per_s=nsamp / wall / 1e6, x_real_time=xrt,
                 device_ms=device, host_ms=host, launches=launches,
                 packets_good=int(n_good), packets_after_lock=int(n_after),
-                slots=rx.notch.b.slot_i.tolist(),
+                slots=slots, mer_db=(rx.meas["mer"][-1] if rx.meas["mer"]
+                                     else None),
                 plain_checks=[dict(kernel=k, launch=n, shapes=sh,
                                    plain_ms=ms) for k, n, sh, ms in checks])
+
+
+# ------------------------------------------- the scan demods (slice 6)
+
+def scan_params(sampler, exact, fs=4e6):
+    """The scan demod's parameters as the receivers build them at sample
+    rate fs for 2 Msym/s QPSK (the rrc sampler's polyphase coefficients
+    at fs: 499 taps in steps of 32 at 4 Msps, 497 in 53 at 2.4 Msps)."""
+    from leansdr_tpu_torch.dsp import receiver
+    from leansdr_tpu_torch.pipelines.dvbs_rx import RxConfig, rrc_sampler
+    co, steps = ((), 1)
+    if sampler == "rrc":
+        co, steps = rrc_sampler(fs, RxConfig(Fs=fs, Fm=2e6))
+    return receiver.ReceiverParams(omega=fs / 2e6, sampler=sampler,
+                                   exact_lut=exact, rrc_coeffs=co,
+                                   rrc_steps=steps)
+
+
+def _scan_compare(tag, kern, ref, args):
+    """kern(*args) and ref(*args): every output and state plane equal
+    (torch.equal). Returns (kernel result, plain ms)."""
+    k = kern(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = ref(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    fk, fr = _flat(k), _flat(r)
+    bad = [(i, int((u != w).sum())) for i, (u, w) in enumerate(zip(fk, fr))
+           if not torch.equal(u, w)]
+    if bad or len(fk) != len(fr):
+        fail(f"{tag}: kernel != plain version in outputs (index, entries) "
+             f"{bad}")
+    return k, plain_ms
+
+
+def check_scan_demod(dev, gen):
+    """scan_demod == run_chunks_ref and hs_demod == run_chunks_hs_ref, on
+    every output and state plane bit for bit: each sampler (nearest,
+    linear, rrc at 4 Msps) x decision mode (exact LUT, computed) and
+    --hs, at C in SCAN_CHECK_C over SCAN_CHUNKS chunks, from the cold
+    state and again from the kernel's end state on the next samples.
+    Also the four sincos entries hs_demod takes from the table. Returns
+    (max |diff| 0.0, the plain version's ms and shape)."""
+    from leansdr_tpu_torch.dsp import receiver, receiver_hs
+    from leansdr_tpu_torch.dsp.cstln import Predef, make_dvbs2_constellation
+    tables = receiver.make_tables(make_dvbs2_constellation(Predef.QPSK, "1/2"),
+                                  dev)
+    plain = {}
+    for sampler in ("nearest", "linear", "rrc"):
+        for exact in (True, False):
+            p = scan_params(sampler, exact)
+            n = SCAN_CHUNKS * receiver.CHUNK
+            for C in SCAN_CHECK_C:
+                x = demod_stimulus("QPSK", "1/2", C, 2 * n + p.readahead - 1,
+                                   dev, gen)
+                st = receiver.init_state(p, C, dev)
+                emitted = 0
+                for part in (0, 1):
+                    xs = x[:, part * n:(part + 1) * n + p.readahead]
+                    (st, out), ms = _scan_compare(
+                        f"scan_demod {sampler} exact={exact} C={C}",
+                        receiver.run_chunks, receiver.run_chunks_ref,
+                        (p, tables, st, xs.contiguous()))
+                    emitted += int(out["valid"].sum())
+                plain[(sampler, exact, C)] = ms
+                if emitted < C * n // 2:
+                    fail(f"scan_demod {sampler} exact={exact} C={C}: "
+                         f"{emitted} symbols in {2 * n} samples")
+    hp = receiver_hs.HsParams(omega=2.0)
+    ht = receiver_hs.hs_tables(dev)
+    for C in SCAN_CHECK_C:
+        n = SCAN_CHUNKS * receiver_hs.CHUNK
+        x = demod_stimulus("QPSK", "1/2", C, 2 * n, dev, gen)
+        x = torch.clamp(torch.round(x * (40 / 75.0) + 128), 0,
+                        255).to(torch.int32)
+        st = receiver_hs.init_state(hp, C, dev)
+        for part in (0, 1):
+            (st, out), ms = _scan_compare(
+                f"hs_demod C={C}", receiver_hs.run_chunks_hs,
+                receiver_hs.run_chunks_hs_ref,
+                (hp, ht, st, x[:, part * n:(part + 1) * n + 1].contiguous()))
+        plain[("hs", C)] = ms
+    args = receiver_hs._hs_args(hp)
+    want = [(int(ht["sincos_re"][i]), int(ht["sincos_im"][i]))
+            for i in receiver_hs.SINCOS_AT]
+    if list(zip(args.sc_re, args.sc_im)) != want:
+        fail(f"hs_demod's sincos entries {list(zip(args.sc_re, args.sc_im))}"
+             f" != the table's {want}")
+    print(f"scan_demod == run_chunks_ref and hs_demod == run_chunks_hs_ref "
+          f"bit for bit (every output and state plane; 2 x {SCAN_CHUNKS} "
+          f"chunks at C in {SCAN_CHECK_C}; samplers nearest, linear, rrc x "
+          f"exact, computed); hs sincos entries at {receiver_hs.SINCOS_AT} "
+          f"== table {want}; plain ms per call: " + ", ".join(
+              f"{k} {v:.0f}" for k, v in plain.items()))
+    return 0.0, plain
+
+
+def scan_chain(built, lat, clock) -> dict:
+    """The scan demods' serial chain per emitted symbol from their built
+    libraries' SASS (tools/sass_chain.py --hot-loads: the sample loop,
+    the one holding the packed word's STS and F2I, with the emitting
+    step's table gathers kept and priced at the LDG latency of
+    tools/latency_probe.cu): scan_kernel per SCAN_FUNCTIONS and hs_kernel
+    per sample. The rrc variant's emitting step holds its tap loop, which
+    the tool leaves out; its chain is the nearest step's (the same
+    rotation, decision and loops) plus the tap sum's ntaps dependent adds
+    at the table's fixed latency."""
+    sys.path.insert(0, str(TOOLS))
+    import sass_chain
+    text = sass_of(built["scan_demod"][0])
+    out = {}
+    for (sampler, exact), fn in SCAN_FUNCTIONS.items():
+        out[f"{sampler} {'exact' if exact else 'computed'}"] = \
+            sass_chain.analyse(text, fn, lat, "STS", "F2I", hot_loads=True)
+    ntaps = scan_params("rrc", True).readahead
+    out["rrc exact"] = dict(out["nearest exact"], tap_adds=ntaps,
+                            cycles_per_step=out["nearest exact"][
+                                "cycles_per_step"] + ntaps * lat["fixed"])
+    out["hs"] = sass_chain.analyse(sass_of(built["hs_demod"][0]),
+                                   "hs_kernel", lat, "STS", "F2I")
+    for k, r in out.items():
+        print(f"scan chain [{k}] (tools/sass_chain.py, {r['function'][:40]}"
+              f" loop {r['loop'][0]}-{r['loop'][1]}): "
+              f"{r['cycles_per_step']:.1f} cycles per step "
+              f"({r['cycles_per_step'] / clock * 1e9:.1f} ns), "
+              f"{r['path_instructions_per_step']:.1f} instructions on the "
+              f"path, issue {r['issue_cycles_per_step']:.1f} cycles; "
+              f"priced as fixed-pipe: {', '.join(r['priced_as_fixed'])}")
+    return out
+
+
+def exact_fleet_path(dev, frames, S=1, viterbi=True):
+    """The fleet on the scan demod's exact route with the polyphase rrc
+    sampler at 4 Msps (exact_lut=True, sampler="rrc"), rate 1/2: S=1 over
+    NCHUNKS chunks or S=8 over SEG_CHUNKS, Viterbi or hard decisions; its
+    own zeroed counters, stage times and gate (fleet_run); the scan
+    launches of its first chunk and of one mid-stream chunk against
+    run_chunks_ref bit for bit on their first SCAN_PLAIN samples."""
+    from leansdr_tpu_torch.dsp import receiver
+    tag = "exact rrc 1/2" + (f" S={S}" if S > 1 else "") + (
+        "" if viterbi else " hard")
+    seg = dict(segments=S, seg_holdoff=SEG_HOLDOFF) if S > 1 else {}
+    rx = fleet_rx(dev, "1/2", viterbi=viterbi, exact=True, **seg)
+    if rx.use_pallas or rx.params.readahead != 16:
+        fail(f"{tag}: not the scan demod's polyphase route")
+    nchunks, steady, mid = ((SEG_CHUNKS, SEG_HOLDOFF + 1, SEG_CHUNKS - 3)
+                            if S > 1 else (NCHUNKS, 1, NCHUNKS // 2))
+    run = fleet_run(rx, frames, nchunks, tag, steady, lambda k: k in (0, mid))
+    checked = []
+    for a in run.pop("captured"):
+        p, tables, st, x = a
+        xs = x[:, :SCAN_PLAIN + p.readahead].contiguous()
+        _, ms = _scan_compare(f"{tag} launch", receiver.run_chunks,
+                              receiver.run_chunks_ref, (p, tables, st, xs))
+        checked.append((x.shape[0], ms))
+    run["checked"] = checked
+    run["mer_db"] = [float(v) for v in rx.metrics()["mer_db"][:4]]
+    print(f"[{tag}] scan launches of chunks 0 and {mid} == run_chunks_ref "
+          f"on {SCAN_PLAIN} samples: " + "; ".join(
+              f"{c} lanes (plain {ms:.0f} ms)" for c, ms in checked)
+          + f"; MER of carriers 0-3 {run['mer_db']}")
+    return run
+
+
+def scan_times(dev, frames, chains, clock) -> dict:
+    """The scan demods at the main paths' shapes (CUDA events), on the
+    fleet's rate-1/2 stimulus: the fleet launch (C=64, one 2^18-sample
+    chunk, exact LUT, polyphase rrc), a single carrier's per-read launch
+    (C=1, 2^17 samples, exact LUT, linear) and hs_demod's (C=1, 2^17,
+    the stimulus as u8 at 40 LSB), each from the state one launch over
+    the same samples left. Bounds: bytes (input, tables and state read
+    once, packed words and per-chunk measurements written once) over
+    3.35 TB/s; the serial chain of scan_chain times the symbols this
+    input emits per carrier (hs: per sample) over the max SM clock."""
+    from leansdr_tpu_torch.dsp import receiver, receiver_hs
+    from leansdr_tpu_torch.dsp.cstln import Predef, make_dvbs2_constellation
+    tables = receiver.make_tables(make_dvbs2_constellation(Predef.QPSK, "1/2"),
+                                  dev)
+    tab_bytes = sum(t.numel() * t.element_size() for t in tables.values())
+    out = {}
+    for key, C, n, sampler, chain_key in (
+            ("fleet", NCHAN, CHUNK_SAMPLES, "rrc", "rrc exact"),
+            ("single", 1, 1 << 17, "linear", "linear exact")):
+        p = scan_params(sampler, True)
+        x = frames[:C, :n + p.readahead].contiguous()
+        st = receiver.init_state(p, C, dev)
+        st, o = receiver.run_chunks(p, tables, st, x)   # a locked state
+        ms = cuda_time(lambda: receiver.run_chunks(p, tables, st, x), reps=3)
+        emitted = int(o["valid"].sum())
+        K = n // receiver.CHUNK
+        nbytes = (x.numel() * 4 + tab_bytes + C * n * 4 + C * K * 24
+                  + 2 * C * (21 * 4 + len(p.rrc_coeffs) * 8))
+        cyc = chains[chain_key]["cycles_per_step"]
+        chain_b = emitted / C * cyc / clock * 1e3
+        # ~100 float operations per emitted symbol (sampler, decision,
+        # loops), 8 per sample: far below the bytes.
+        out[key] = dict(ms=ms, bound=bound_ms(nbytes, emitted * 100.0
+                                              + C * n * 8.0),
+                        chain_bound_ms=chain_b, emitted=emitted,
+                        shape=f"C={C} nsamp={n} {sampler} exact")
+    hp = receiver_hs.HsParams(omega=2.0)
+    ht = receiver_hs.hs_tables(dev)
+    n = 1 << 17
+    x = torch.clamp(torch.round(frames[:1, :n + 1] * (40 / 75.0) + 128), 0,
+                    255).to(torch.int32)
+    st, _ = receiver_hs.run_chunks_hs(hp, ht, receiver_hs.init_state(hp, 1,
+                                                                      dev), x)
+    ms = cuda_time(lambda: receiver_hs.run_chunks_hs(hp, ht, st, x), reps=3)
+    htab = sum(ht[k].numel() * ht[k].element_size()
+               for k in ("polar_a16", "polar_r8", "rect_re8", "rect_im8"))
+    out["hs"] = dict(ms=ms, bound=bound_ms(x.numel() * 4 + htab + n * 4, 0.0),
+                     chain_bound_ms=n * chains["hs"]["cycles_per_step"]
+                     / clock * 1e3, shape=f"C=1 nsamp={n}")
+    for k, v in out.items():
+        print(f"kernel scan/{k} {v['shape']}: {v['ms']:.3f} ms, bound "
+              f"{v['bound'][0]:.4f} ms ({v['bound'][1]}), serial chain "
+              f"{v['chain_bound_ms']:.3f} ms")
+    return out
+
+
+def brickwall(dev):
+    """ROADMAP item 24, printed, not a gate: MER and lock of the single
+    carrier on BRICKWALL_SAMPLES of a 2 Msym/s rate-1/2 carrier at 2.4
+    Msps behind a brick-wall front end (resample_poly(z, 6, 5), no noise;
+    f32 at unit rms, --float-scale 75, --anf 0, Finfo 500) on the kernel
+    path (computed decisions, linear sampler) and on the exact-LUT
+    polyphase path (--exact-lut --sampler rrc), in 2^17-sample reads."""
+    from scipy.signal import resample_poly
+    from leansdr_tpu_torch.pipelines import dvbs_tx, tsgen
+    from leansdr_tpu_torch.pipelines.dvbs_rx import DvbsReceiver, RxConfig
+    n = BRICKWALL_SAMPLES
+    npkt = int(n / 1.2 * 2 / 1632) + 16
+    iq = dvbs_tx.modulate(tsgen.generate(npkt),
+                          dvbs_tx.TxConfig(rate="1/2", interp=2))
+    z = resample_poly(iq[:, 0] + 1j * iq[:, 1], 6, 5)[:n]
+    x = np.stack([z.real, z.imag], -1).astype(np.float32)
+    x *= np.float32(1.0 / np.sqrt(np.mean(np.abs(z) ** 2) / 2))
+    out = {}
+    for name, fields in (("kernel linear", {}),
+                         ("exact rrc", dict(exact_lut=True, sampler="rrc"))):
+        cfg = RxConfig(**(dict(Fs=2.4e6, Fm=2e6, rate="1/2", anf=0,
+                               float_scale=75.0, Finfo=500.0,
+                               exact_lut=False) | fields))
+        rx = DvbsReceiver(cfg, device=dev)
+        npk = 0
+        for o in range(0, n, 1 << 17):
+            npk += len(rx.process(x[o:o + (1 << 17)]))
+        mer = np.array(rx.meas["mer"])
+        tail = mer[len(mer) // 2:]
+        out[name] = dict(mer_median=float(np.median(tail)),
+                         mer_min=float(tail.min()), mer_max=float(tail.max()),
+                         lock=bool(rx.lock), packets=npk)
+        print(f"[item 24 brick-wall, {name}] {n} samples: MER "
+              f"{tail.min():.2f}..{tail.max():.2f} dB (median "
+              f"{np.median(tail):.2f}) over the last {len(tail)} readings; "
+              f"lock {rx.lock}, TS packets {npk}")
+    return out
 
 
 # ---------------------------------------------------------------- phase 5
@@ -2079,6 +2437,7 @@ def main() -> int:
     chain = demod_chain(built["demod"][0], lat, clock)
     a_chain = acs_chain(built["acs"][0], lat_int, clock)
     b_chain = banked_chain(built["acs_banked"][0], lat_int, clock)
+    s_chain = scan_chain(built, lat, clock)
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
@@ -2090,6 +2449,7 @@ def main() -> int:
         d_err = max(d_err, e)
         if d_plain is None:
             d_plain = p
+    s_err, s_plain = check_scan_demod(dev, gen)
     a_err, a_plain = check_acs(dev, gen)
     long_acs = start_long_acs(dev, gen)
     b_err, b_plain, b_plain_n = check_acs_banked(dev, gen)
@@ -2132,6 +2492,11 @@ def main() -> int:
     hard = {"1/2": hard_path(dev, frames, "1/2"),
             "1/2 S=8": hard_path(dev, frames, "1/2", S=8),
             "1/2 linear": hard_path(dev, frames, "1/2", sampler="linear")}
+    # The scan demod's exact route (polyphase rrc) on the same stimulus.
+    exact = {"1/2": exact_fleet_path(dev, frames),
+             "1/2 S=8": exact_fleet_path(dev, frames, S=8),
+             "1/2 hard": exact_fleet_path(dev, frames, viterbi=False)}
+    stimes = scan_times(dev, frames, s_chain, clock)
     cli = cli_path(dev, frames)
     del frames
     punctured = {}
@@ -2153,15 +2518,19 @@ def main() -> int:
     stimuli = {}
     single = [single_carrier(dev, rng, stimuli, *p) for p in SC_PATHS]
     del stimuli
+    item24 = brickwall(dev)
     ftimes = fir_times(dev, gen)
     # Each path's own count (zeroed just before it, read just after).
     by_path = {"fleet 1/2": launches}
     by_path.update({f"fleet {r}": p["launches"] for r, p in punctured.items()})
     by_path.update({f"fleet {r} S=8": p["launches"] for r, p in seg.items()})
     by_path.update({f"hard fleet {r}": p["launches"] for r, p in hard.items()})
+    by_path.update({f"exact fleet {r}": p["launches"]
+                    for r, p in exact.items()})
     by_path["leandvbfleet --acq"] = cli["launches"]
     by_path.update({r["path"]: r["launches"] for r in single})
     resample = next(r for r in single if r["path"] == "resample")
+    hs_run = next(r for r in single if r["path"] == "hs")
 
     kernels = [
         {"name": "demod", "route": "cuda",
@@ -2291,6 +2660,45 @@ def main() -> int:
          "ms_one_buffer": fft["ms_one_buffer"],
          "library_ms_one_buffer": fft["library_ms_one_buffer"],
          "plain_shape": fft["shape"]},
+        {"name": "scan_demod", "route": "cuda",
+         "source": "leansdr_tpu_torch/csrc/scan_demod.cu",
+         "replaces": "leansdr_tpu/dsp/receiver.py:177 (run_chunks_impl, a "
+                     "lax.scan: no Pallas kernel)",
+         "launches": exact["1/2"]["launches"]["scan_demod"],
+         "launches_path": "exact fleet 1/2",
+         "max_abs_err": s_err, "ms": stimes["fleet"]["ms"],
+         "plain_ms": s_plain[("rrc", True, NCHAN)],
+         "plain_shape": f"C={NCHAN} nsamp={SCAN_CHUNKS * 128} rrc exact",
+         "bound_ms": stimes["fleet"]["bound"][0],
+         "bound_by": stimes["fleet"]["bound"][1], "library_ms": None,
+         "shape": stimes["fleet"]["shape"],
+         "chain_bound_ms": stimes["fleet"]["chain_bound_ms"],
+         "chain_source": "tools/sass_chain.py --hot-loads on cuobjdump "
+                         "-sass of the built scan_demod, per emitted "
+                         "symbol (rrc: + its tap adds), latencies from "
+                         "tools/latency_probe.cu on this card",
+         "chain_cycles_per_symbol": {k: r["cycles_per_step"]
+                                     for k, r in s_chain.items()
+                                     if k != "hs"},
+         "single": {k: stimes["single"][k] for k in (
+             "ms", "chain_bound_ms", "shape")} | {
+             "bound_ms": stimes["single"]["bound"][0]},
+         "plain_ms_by_case": {str(k): v for k, v in s_plain.items()
+                              if k[0] != "hs"}},
+        {"name": "hs_demod", "route": "cuda",
+         "source": "leansdr_tpu_torch/csrc/hs_demod.cu",
+         "replaces": "leansdr_tpu/dsp/receiver_hs.py:102 (run_chunks_hs, "
+                     "a lax.scan: no Pallas kernel)",
+         "launches": hs_run["launches"]["hs_demod"],
+         "launches_path": "hs (single carrier)",
+         "max_abs_err": s_err, "ms": stimes["hs"]["ms"],
+         "plain_ms": s_plain[("hs", NCHAN)],
+         "plain_shape": f"C={NCHAN} nsamp={SCAN_CHUNKS * 128}",
+         "bound_ms": stimes["hs"]["bound"][0],
+         "bound_by": stimes["hs"]["bound"][1], "library_ms": None,
+         "shape": stimes["hs"]["shape"],
+         "chain_bound_ms": stimes["hs"]["chain_bound_ms"],
+         "chain_cycles_per_sample": s_chain["hs"]["cycles_per_step"]},
     ]
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
@@ -2300,11 +2708,17 @@ def main() -> int:
                         decode_ms=p["decode_ms"],
                         decode_peak_mb=p["decode_peak_mb"])
                 for r, p in hard.items()}
+    exact_out = {r: dict(launches=p["launches"], stages_ms=p["stages"],
+                         chain_msamples_per_s=p["rate"],
+                         chunk_ms=p["chunk_ms"], scan_checked=p["checked"],
+                         mer_db=p["mer_db"])
+                 for r, p in exact.items()}
     print(json.dumps({"stages_ms": stages, "chain_msamples_per_s": rate,
                       "pipelined_msamples_per_s": piped_rate,
                       "punctured": punctured, "segmented": seg,
                       "segment_sweep": sweep, "hard": hard_out,
-                      "leandvbfleet": cli, "single_carrier": single,
+                      "exact_fleet": exact_out, "leandvbfleet": cli,
+                      "single_carrier": single, "item24_brickwall": item24,
                       "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -13,9 +13,12 @@ name:
   device.py  device selection (CUDA by default, never a silent CPU
              fallback) and the nvcc build of the kernels in csrc/
   csrc/      CUDA C++ kernels: demod.cu (carrier PLL + M&M timing + soft
-             demap), acs.cu (rate-1/2 Viterbi add-compare-select),
+             demap), scan_demod.cu (the same loop with the nearest,
+             linear or polyphase rrc sampler and exact-LUT or computed
+             decisions), hs_demod.cu (the integer --hs receiver),
+             acs.cu (rate-1/2 Viterbi add-compare-select),
              acs_banked.cu (the punctured rates' ACS), fir.cu (causal FIR
-             with runtime complex or real taps)
+             with runtime complex or real taps), fft4096.cu
   dsp/       constellations, filter design, matched filter, the demod
              kernel's wrapper, the FIR kernel's wrapper and the streaming
              --resample filter, the device auto-notch, host blocks
@@ -30,7 +33,7 @@ name:
   pipelines/ the multi-carrier receiver `multi_rx.MultiDvbsReceiver`, the
              single-carrier `dvbs_rx.DvbsReceiver` and RxConfig, and the
              stimulus generators tsgen / dvbs_tx
-  apps/      leandvb, the single-carrier CLI
+  apps/      leandvb, the single-carrier CLI, and leandvbfleet
   convert.py carries a `leansdr_tpu` receiver checkpoint into the port
 """
 

@@ -8,9 +8,11 @@ Flags mirror the reference and the JAX CLI 1:1; stdin is read in the
 same 2^17-sample blocks and stdout carries the same TS. The receiver
 runs on the GPU; `--device cpu` runs the kernels' plain PyTorch
 versions instead, for tests and CPU drives.
-Decisions are always the demod kernel's computed ones (--no-exact-lut);
-the flags of paths not ported yet raise NotImplementedError naming
-their ROADMAP item.
+Decisions are computed (--no-exact-lut, the default: the demod kernel)
+unless --exact-lut or --hard-metric take the scan demod's 256x256 LUT;
+--sampler nearest also runs on the scan demod, and --hs on the integer
+fast-QPSK demod. The flags of paths not ported yet raise
+NotImplementedError naming their ROADMAP item.
 """
 
 import sys
@@ -40,12 +42,17 @@ def usage(code=0, f=sys.stderr):
         "  --standard S            DVB-S (default)\n"
         "  --const C               Constellation (QPSK)\n"
         "  --cr N/D                Code rate (default 1/2)\n"
-        "  --sampler S             linear (default), rrc\n"
+        "  --sampler S             linear (default), nearest, rrc\n"
         "  --segments S            Time-segmented demod over S lanes\n"
         "  --rrc-rej FLOAT         RRC filter rejection (default 30)\n"
         "  --roll-off FLOAT        RRC roll-off (default 0.35)\n"
         "  --no-exact-lut          Computed decisions, the demod kernel "
         "(default)\n"
+        "  --exact-lut             The reference's 256x256 LUT and trig16\n"
+        "                          table (the scan demod)\n"
+        "  --hard-metric           Hard decisions for Viterbi (implies\n"
+        "                          --exact-lut)\n"
+        "  --hs                    Integer fast-QPSK receiver (u8 input)\n"
         "  --fastlock              Synchronize more aggressively\n"
         "  --acq                   FFT coarse carrier search on the\n"
         "                          first chunk seeds --tune (not in the\n"
@@ -64,8 +71,7 @@ def usage(code=0, f=sys.stderr):
         "  --device DEV            cuda (default) or cpu (plain PyTorch\n"
         "                          versions of the kernels)\n"
         "\nNot ported yet (raise NotImplementedError): --cnr,\n"
-        "--fd-spectrum (ROADMAP item 13), --awgn (22), --hs (12),\n"
-        "--exact-lut, --hard-metric, --sampler nearest (10), --hdlc (21),\n"
+        "--fd-spectrum (ROADMAP item 13), --awgn (22), --hdlc (21),\n"
         "constellations other than QPSK (20).\n")
     sys.exit(code)
 
@@ -211,11 +217,13 @@ def main(argv=None):
         bits_in, bits_out = FEC_SPECS[cfg.rate]
         info.initial(opts["standard"], rx.cstln.name,
                      f"{bits_in}/{bits_out}", cfg.Fm)
+    constw = None
     if opts["fd_const"] >= 0:
-        # The kernel path samples no constellation points (as the JAX
-        # kernel path): only the CONST line is written.
-        info_mod.ConstWriter(opts["fd_const"], opts["json"]).const(
-            rx.cstln.symbols)
+        # The scan demod and --hs sample one point per chunk, written in
+        # batches of 128 (SYMBOLS); the kernel path samples none (as the
+        # JAX kernel path): only its CONST line is written.
+        constw = info_mod.ConstWriter(opts["fd_const"], opts["json"])
+        constw.const(rx.cstln.symbols)
 
     itemsize = {"u8": 2, "s8": 2, "u16": 4, "s16": 4, "f32": 8}[opts["input"]]
     stdin = sys.stdin.buffer
@@ -227,6 +235,11 @@ def main(argv=None):
 
     def flush_info():
         nonlocal meas_sent, locktime_sent
+        if constw:
+            pts = rx.sampled_points
+            while len(pts) >= 128:
+                constw.symbols(pts[:128])
+                del pts[:128]
         if not info:
             return
         n = len(rx.meas["freq"])

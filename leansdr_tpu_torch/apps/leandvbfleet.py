@@ -17,9 +17,12 @@ header); or per-channel files with --out-template 'out_%03d.ts'.
 
 Flags shared with leandvb keep its names and semantics (_dvbs_flags).
 The receiver runs on the GPU; `--device cpu` runs the kernels' plain
-PyTorch versions. Decisions are the demod kernel's computed ones
-(--no-exact-lut); the flags of paths not ported yet raise
-NotImplementedError naming their ROADMAP item before any input is read.
+PyTorch versions. Decisions are computed on the demod kernel
+(--no-exact-lut, the default) unless --exact-lut takes the scan demod's
+256x256 LUT (with --sampler rrc its polyphase fir_sampler); --sampler
+nearest also runs on the scan demod. The flags of paths not ported yet
+raise NotImplementedError naming their ROADMAP item before any input is
+read.
 """
 
 import os
@@ -38,9 +41,10 @@ def usage(code=0, f=sys.stderr):
         "\nInput: --u8|--s8|--u16|--s16|--f32 (default f32), "
         "--float-scale F, -f FREQ\n"
         "       --chunk N  frames per read (default 65536)\n"
-        "DVB-S: --sr HZ --cr N/D --sampler linear|rrc --viterbi --hq "
-        "--fastlock\n"
-        "       --no-exact-lut --const QPSK --tune FREQ --drift\n"
+        "DVB-S: --sr HZ --cr N/D --sampler linear|nearest|rrc --viterbi "
+        "--hq --fastlock\n"
+        "       --exact-lut/--no-exact-lut --const QPSK --tune FREQ "
+        "--drift\n"
         "       --acq   per-channel FFT coarse carrier search on the\n"
         "               first chunk; each channel is derotated by its\n"
         "               estimate (not in the reference)\n"
@@ -53,9 +57,8 @@ def usage(code=0, f=sys.stderr):
         "Info:   --fd-info FD   fleet lock/MER/VBER lines (tagged text)\n"
         "Port:   --device DEV   cuda (default) or cpu (plain PyTorch\n"
         "                       versions of the kernels)\n"
-        "\nNot ported yet (raise NotImplementedError): --exact-lut,\n"
-        "--sampler nearest (ROADMAP item 10), constellations other than\n"
-        "QPSK (20).\n")
+        "\nNot ported yet (raise NotImplementedError): constellations\n"
+        "other than QPSK (ROADMAP item 20).\n")
     sys.exit(code)
 
 

@@ -10,9 +10,12 @@ where the JAX receiver stopped. The JAX pickle holds only NumPy arrays,
 Python scalars and bytes, so loading it needs no JAX.
 
   * demod state: the Pallas kernel's [19, nsub, 128] planes
-    (use_pallas=True) or the scan path's state dict, to [19, C]; the
+    (use_pallas=True) to [19, C], or the scan path's state dict (the rrc
+    sampler's `rrc_phase` and `rrc_shifted` included) as it is; the
     segmented demod's per-segment states (`seg_state`, `segments=S`)
-    likewise to [19, S*C], with `seg_nseg`;
+    likewise, [19, S*C] or a dict of S*C lanes, with `seg_nseg`. The
+    port's load_state converts either form to its own route's (planes
+    for the demod kernel, the dict for the scan demod);
   * Viterbi fleets: trellis planes lose their 128-lane padding:
     C*nsyncs lanes in ACQUIRE, C in TRACK (nsyncs = 4 at rate 1/2,
     4*nshifts at the punctured rates). At a punctured rate the JAX fleet
@@ -42,24 +45,13 @@ from .fec.viterbi_banked import bank_geometry, fleet_rate
 from .pipelines.multi_rx import CHECKPOINT_FORMAT
 
 
-def _planes_from_scan_state(st: dict) -> np.ndarray:
-    """Scan-path state dict ([C] / [C,3,2] arrays) -> [19, C] planes."""
-    hp = np.asarray(st["hist_p"], np.float32)
-    hc = np.asarray(st["hist_c"], np.float32)
-    rows = [st[k] for k in ("mu", "phase", "freqw", "agc_gain",
-                            "est_insp", "est_sp", "est_ep")]
-    rows += [hp[:, k, j] for k in range(3) for j in range(2)]
-    rows += [hc[:, k, j] for k in range(3) for j in range(2)]
-    return np.stack([np.asarray(r, np.float32) for r in rows])
-
-
-def _planes(use_pallas: bool, st, lanes) -> np.ndarray:
-    """A JAX demod state (Pallas [19, nsub, 128] lane tiles, or the scan
-    path's dict) -> [19, lanes] float32. lanes=None keeps every lane up
-    to the last one in use: the tiles' padding lanes are all zero, a
-    live lane never is (its AGC gain is positive)."""
+def _dem_state(use_pallas: bool, st, lanes):
+    """A JAX demod state: Pallas [19, nsub, 128] lane tiles -> [19, lanes]
+    float32, or the scan path's dict as NumPy arrays. lanes=None keeps
+    every lane up to the last one in use: the tiles' padding lanes are
+    all zero, a live lane never is (its AGC gain is positive)."""
     if not use_pallas:
-        return _planes_from_scan_state(st)
+        return {k: np.asarray(v) for k, v in st.items()}
     flat = np.asarray(st, np.float32).reshape(NSTATE, -1)
     if lanes is None:
         lanes = int(np.flatnonzero(np.abs(flat).sum(axis=0))[-1]) + 1
@@ -108,16 +100,18 @@ def from_jax_checkpoint(blob: bytes, rate: str = "1/2") -> bytes:
         raise ValueError(f"checkpoint decoder state {sorted(dstate)} is "
                          "neither a Viterbi nor a hard-decision fleet's")
     C = dstate["fill"].shape[0]
-    planes = _planes(d["use_pallas"], d["dev"], C)
+    dem = _dem_state(d["use_pallas"], d["dev"], C)
     seg = d.get("seg_state")
     if seg is not None:
-        seg = _planes(d["use_pallas"], seg, None)
-        if seg.shape[1] % C:
-            raise ValueError(f"checkpoint segment states: {seg.shape[1]} "
-                             f"lanes for {C} channels")
+        seg = _dem_state(d["use_pallas"], seg, None)
+        lanes = seg["mu"].shape[0] if isinstance(seg, dict) else seg.shape[1]
+        if lanes % C:
+            raise ValueError(f"checkpoint segment states: {lanes} lanes "
+                             f"for {C} channels")
     return pickle.dumps({
         "format": CHECKPOINT_FORMAT,
-        "dev": planes,
+        "use_pallas": d["use_pallas"],
+        "dev": dem,
         "seg_state": seg,
         "seg_nseg": d.get("seg_nseg", 0),
         "deconv_state": dstate,
@@ -229,27 +223,34 @@ def from_jax_dvbs_checkpoint(blob: bytes) -> bytes:
     state, the notch's BatchedAutoNotch when written on an accelerator);
     it is read with an unpickler that maps them to the port's classes or
     to NumPy, so neither jax nor leansdr_tpu is imported. Carried over:
-    the demod state planes (kernel or scan path) to [19, 1], the sample,
-    byte and MPEG backlogs, the derandomizer phase, the decoder's
-    streaming state, the MPEG sync FSM, counters, measurements, and the
-    notch / derotator / resampler streaming state. The measurement phase
-    is not in the JAX pickle and starts at 0, as in a JAX receiver that
-    loads it. Paths of the JAX receiver the port has not taken raise."""
+    the demod state (kernel planes to [19, 1], or the scan path's dict),
+    the --hs receiver's state, the sample, byte and MPEG backlogs, the
+    derandomizer phase, the decoder's streaming state (the --hs
+    deconvolver's too), the MPEG sync FSM, counters, measurements, and
+    the notch / derotator / resampler streaming state. The measurement
+    phase is not in the JAX pickle and starts at 0, as in a JAX receiver
+    that loads it. Paths of the JAX receiver the port has not taken
+    raise."""
     from .pipelines.dvbs_rx import CHECKPOINT_FORMAT as DVBS_FORMAT
     d = _JaxFreeUnpickler(io.BytesIO(blob)).load()
     aux = d.get("aux", {})
-    for name in ("hs_state", "etr_state", "cnr_est", "spectrum"):
+    for name in ("etr_state", "cnr_est", "spectrum"):
         if name in aux:
             raise NotImplementedError(
                 f"a checkpoint with {name} (a receiver path the port has "
                 "not taken yet, ROADMAP queue 1) cannot be carried over")
-    planes = _planes(d["use_pallas"], d["dev"], 1)
+    dem = _dem_state(d["use_pallas"], d["dev"], 1)
     dc = d["deconv"]
     if "trellis" in dc:
         deconv = _viterbi_state(dc, dc["rate"])
+    elif "resync_period" in dc:              # the --hs deconvolver
+        deconv = {k: dc[k] for k in ("locked", "resync_phase", "backlog")}
     else:
         deconv = {k: dc[k] for k in ("locked", "skip", "backlog")}
     out_aux = {}
+    if "hs_state" in aux:
+        out_aux["hs_state"] = {k: np.asarray(v)
+                               for k, v in aux["hs_state"].items()}
     if "notch" in aux:
         out_aux["notch"] = _notch_state(aux["notch"])
     if "derot" in aux:
@@ -261,7 +262,8 @@ def from_jax_dvbs_checkpoint(blob: bytes) -> bytes:
                                 "_primed": bool(r["_primed"])}
     return pickle.dumps({
         "format": DVBS_FORMAT,
-        "dev": planes,
+        "use_pallas": d["use_pallas"],
+        "dev": dem,
         "meas_backlog": 0,
         "sample_backlog": np.asarray(d["sample_backlog"], np.float32),
         "byte_backlog": d["byte_backlog"],

@@ -35,16 +35,19 @@ ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas=-v"]
 
-# Per-kernel nvcc flags. The demod recurrence and the FIR must round like
-# their plain PyTorch versions (one rounding per operation; the demod's
-# IEEE cosf/sinf/sqrtf and division), so multiply-add contraction is off
-# for them and fast math is never used.
+# Per-kernel nvcc flags. The demod recurrences and the FIR must round like
+# their plain PyTorch versions (one rounding per operation; the demods'
+# IEEE cosf/sinf/sqrtf/logf and division), so multiply-add contraction is
+# off for them and fast math is never used. The --hs demod is integer
+# arithmetic but for mu, which it also keeps uncontracted.
 KERNEL_FLAGS = {
     "demod": ["--fmad=false"],
     "acs": [],
     "acs_banked": [],
     "fir": ["--fmad=false"],
     "fft4096": [],
+    "scan_demod": ["--fmad=false"],
+    "hs_demod": ["--fmad=false"],
 }
 
 

@@ -7,7 +7,8 @@ BPSK/QPSK/8PSK/16APSK/32APSK/64APSK-E/QAM{16,64,256}, and the precomputed
 per-(I,Q)-cell {cost, nearest symbol, phase_error} grid, built with
 vectorized NumPy at setup time.  The demod kernel computes its decisions
 in closed form (dsp/receiver_kernel.py); the LUT serves the Viterbi sync
-maps (fec/viterbi.make_sync_maps).
+maps (fec/viterbi.make_sync_maps) and the exact-LUT scan demod
+(dsp/receiver.py, `lookup_float`).
 
 The quantization semantics of the reference are kept exactly: symbols are
 truncated to signed char after scaling by cstln_amp (sdr.h:492-495), the
@@ -21,6 +22,7 @@ from enum import IntEnum
 from functools import lru_cache
 
 import numpy as np
+import torch
 
 # Target RMS amplitude for AGC (sdr.h:297).
 CSTLN_AMP = 75.0
@@ -246,3 +248,36 @@ def make_dvbs2_constellation(predef: Predef, rate_name: str) -> Cstln:
     elif predef == Predef.APSK64E:
         gamma1, gamma2, gamma3 = 2.4, 4.3, 7.0  # Table 13f
     return make_constellation(predef, gamma1, gamma2, gamma3)
+
+
+def halve_into_s8(I, Q, max_halvings: int = 12):
+    """The reference's overflow halving (sdr.h:470-485) on float32
+    tensors: while I or Q lies outside [-128, 127], both are halved, at
+    most `max_halvings` times. Halving is exact in float32, so the rounds
+    are one multiplication by 2**-k, k read from the exponent bits: the
+    least k that brings each coordinate in range, the largest of the
+    four bounds, at most max_halvings. Returns the scaled (I, Q)."""
+    def need(v, bound, ref):
+        # ceil(log2(v / bound)) for v > bound: bits(v) - k * 2**23 must
+        # not exceed ref = bits(bound) (v and bound normal, positive).
+        k = (v.view(torch.int32) - ref + 0x7FFFFF) >> 23
+        return torch.where(v > bound, k, 0)
+
+    hi, lo = 0x42FE0000, 0x43000000          # bits(127.0), bits(128.0)
+    k = torch.maximum(torch.maximum(need(I, 127.0, hi), need(-I, 128.0, lo)),
+                      torch.maximum(need(Q, 127.0, hi), need(-Q, 128.0, lo)))
+    k = torch.clamp(k, max=max_halvings)
+    scale = ((127 - k) << 23).view(torch.float32)
+    return I * scale, Q * scale
+
+
+def lookup_float(lut_cost, lut_symbol, lut_phase, I, Q, max_halvings=12):
+    """Float lookup with overflow halving (sdr.h:470-485), vectorized
+    (the counterpart of leansdr_tpu/dsp/cstln.py:254-268): the halved
+    coordinates are truncated toward zero to s8 and wrapped to the u8
+    grid index. Returns (cost int16, symbol uint8, phase_error int16)."""
+    I, Q = halve_into_s8(I, Q, max_halvings)
+    i8 = torch.trunc(I).to(torch.int32) & 255
+    q8 = torch.trunc(Q).to(torch.int32) & 255
+    idx = (i8 * 256 + q8).to(torch.int64)
+    return lut_cost[idx], lut_symbol[idx], lut_phase[idx]

@@ -9,6 +9,8 @@ them (same least-squares problem, same float values), so the demod's
 phase error matches the JAX kernel's.
 """
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -58,6 +60,7 @@ def atan2_poly(q: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     return torch.where(q < 0, -t, t)
 
 
+@lru_cache(maxsize=None)
 def trig16_table() -> np.ndarray:
     """The 65536-entry complex exp table of the reference (math.h:95-111)
     as float32 [65536, 2]: entry a is (cos, sin) of a*2*pi/65536 with the
@@ -68,3 +71,16 @@ def trig16_table() -> np.ndarray:
     tab = np.stack([np.cos(af.astype(np.float64)),
                     np.sin(af.astype(np.float64))], axis=-1)
     return tab.astype(np.float32)
+
+
+def expi_u16(table: torch.Tensor, angle_u16: torch.Tensor) -> torch.Tensor:
+    """expi(uint16 a): the (cos, sin) rows of the trig16 table at angles
+    already wrapped to [0, 65536). Returns [..., 2] float32."""
+    return table[angle_u16.to(torch.int64) & 0xFFFF]
+
+
+def expi_float(table: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """expi(float a): the reference casts (uint16)(int16)(int32)a
+    (math.h:108-110), so the float is truncated toward zero to int32
+    first, then wrapped to 16 bits. Returns [..., 2] float32 (cos, sin)."""
+    return table[(torch.trunc(a).to(torch.int32) & 0xFFFF).to(torch.int64)]

@@ -30,9 +30,8 @@ import torch
 from .. import device as _dev
 from .cstln import CSTLN_AMP, Cstln
 from .math_utils import ATAN_COEFFS_F32, atan2_poly
-from .receiver import CHUNK, ReceiverParams
-
-NSTATE = 19
+from .receiver import CHUNK, NSTATE, ReceiverParams, pack_planes, \
+    unpack_planes
 
 _F32 = np.float32
 K2PI = float(_F32(2 * np.pi / 65536))          # u16 angle -> radians
@@ -80,31 +79,15 @@ def is_qpsk_grid(sym_re, sym_im) -> bool:
             == [(True, True), (True, False), (False, True), (False, False)])
 
 
-def pack_state(state: dict) -> torch.Tensor:
-    """Receiver state dict ([C] / [C,3,2] tensors) -> [NSTATE, C] planes."""
-    hp = state["hist_p"]
-    hc = state["hist_c"]
-    rows = [state["mu"], state["phase"], state["freqw"], state["agc_gain"],
-            state["est_insp"], state["est_sp"], state["est_ep"]]
-    rows += [hp[:, k, j] for k in range(3) for j in range(2)]
-    rows += [hc[:, k, j] for k in range(3) for j in range(2)]
-    return torch.stack([r.to(torch.float32) for r in rows]).contiguous()
+# Receiver state dict ([C] / [C,3,2] tensors) -> [NSTATE, C] planes.
+pack_state = pack_planes
 
 
 def unpack_state(planes: torch.Tensor) -> dict:
     """[NSTATE, C] planes -> receiver state dict."""
-    p = planes
-    hist_p = torch.stack([torch.stack([p[7 + 2 * k], p[8 + 2 * k]], -1)
-                          for k in range(3)], 1)
-    hist_c = torch.stack([torch.stack([p[13 + 2 * k], p[14 + 2 * k]], -1)
-                          for k in range(3)], 1)
-    return {
-        "mu": p[0], "phase": p[1], "freqw": p[2], "agc_gain": p[3],
-        "est_insp": p[4], "est_sp": p[5], "est_ep": p[6],
-        "hist_p": hist_p, "hist_c": hist_c,
-        "meas_count": torch.zeros(p.shape[1], dtype=torch.int32,
-                                  device=p.device),
-    }
+    return unpack_planes(planes) | {
+        "meas_count": torch.zeros(planes.shape[1], dtype=torch.int32,
+                                  device=planes.device)}
 
 
 def _wrap_trunc(v):

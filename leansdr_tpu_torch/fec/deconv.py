@@ -183,8 +183,18 @@ def _deconv_plan(rate: str, alt: bool):
     return [(_tap_positions(p)) for p in polys], spec
 
 
+def hs_sync_maps() -> np.ndarray:
+    """The --hs deconvolver's 4 sync LUTs (dvb_deconvol_sync init_syncs,
+    dvb.h:673-701): symbol index -> 2 IQ bits per rotation/conjugation."""
+    return np.array([[0, 1, 2, 3],      # 0 deg
+                     [2, 0, 3, 1],      # 90 deg
+                     [1, 0, 3, 2],      # 0 deg conjugated
+                     [0, 2, 1, 3]],     # 90 deg conjugated
+                    dtype=np.uint8)
+
+
 def deconvolve_block(symbols: np.ndarray, rate: str, sync_id: int,
-                     alt: bool = False) -> np.ndarray:
+                     alt: bool = False, symmap=None) -> np.ndarray:
     """Decode a block of hard symbols into bytes (vectorized readbyte,
     dvb.h:369-389).
 
@@ -197,9 +207,10 @@ def deconvolve_block(symbols: np.ndarray, rate: str, sync_id: int,
 
     Returns the byte array; the number of full bytes is
     floor(P * punctperiod / 8) with P chosen so it divides evenly.
+    `symmap` (4 entries), when given, replaces sync map `sync_id`.
     """
     taps_list, spec = _deconv_plan(rate, alt)
-    m = sync_maps()[sync_id]
+    m = sync_maps()[sync_id] if symmap is None else symmap
     iqbits2 = m[symbols]                       # 2-bit values per symbol
     bits = np.empty(2 * len(symbols), dtype=np.uint8)
     bits[0::2] = (iqbits2 >> 1) & 1            # I first (iq = (iq<<2)|iqbits)
@@ -225,7 +236,8 @@ def deconvolve_block(symbols: np.ndarray, rate: str, sync_id: int,
     return np.packbits(stream)
 
 
-def deconvolve_errors(symbols: np.ndarray, rate: str, sync_id: int) -> int:
+def deconvolve_errors(symbols: np.ndarray, rate: str, sync_id: int,
+                      symmap=None) -> int:
     """Count bits where primary and alternate polynomials disagree
     (readerrors, dvb.h:391-412) — the fastlock election metric.
 
@@ -234,7 +246,7 @@ def deconvolve_errors(symbols: np.ndarray, rate: str, sync_id: int) -> int:
     dvb.h:667)."""
     taps_list, spec = _deconv_plan(rate, False)
     taps2_list, _ = _deconv_plan(rate, True)
-    m = sync_maps()[sync_id]
+    m = sync_maps()[sync_id] if symmap is None else symmap
     iqbits2 = m[symbols]
     bits = np.empty(2 * len(symbols), dtype=np.uint8)
     bits[0::2] = (iqbits2 >> 1) & 1

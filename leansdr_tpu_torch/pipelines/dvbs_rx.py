@@ -1,7 +1,6 @@
 """The single-carrier DVB-S receiver (the leandvb equivalent, reference
 leandvb.cc:157-724), and RxConfig: the counterpart of
-leansdr_tpu/pipelines/dvbs_rx.py on its kernel path (use_pallas=True,
-exact_lut=False).
+leansdr_tpu/pipelines/dvbs_rx.py.
 
 Chain per call of `DvbsReceiver.process`:
 
@@ -10,25 +9,39 @@ Chain per call of `DvbsReceiver.process`:
        cuFFT detection, device trackers), derotation (dsp/blocks.Rotator),
        --resample (dsp/fir_kernel.FirFilterDevice on csrc/fir.cu) or
        --decim
-    -> [--sampler rrc] matched filter (dsp/mf_prefilter.py)
-    -> demod kernel (csrc/demod.cu) on [1, n + readahead, 2], or with
-       `segments=S` (--segments) the fleet's time-segmented demod
-       (pipelines/multi_rx._demod_segmented): the call's samples as S
-       lane-parallel segments, two launches
+    -> the demod on [1, n + readahead, 2], one of two routes, as the JAX
+       receiver builds them:
+         the demod kernel (csrc/demod.cu, `use_pallas`): computed
+           decisions, linear sampler, behind the matched filter
+           (dsp/mf_prefilter.py) with --sampler rrc;
+         the scan demod (dsp/receiver.run_chunks on csrc/scan_demod.cu):
+           --exact-lut (the trig16 table and the 256x256 LUT; with
+           --sampler rrc the polyphase fir_sampler in the loop),
+           --hard-metric (the LUT's cost hardened to +-1), --sampler
+           nearest, or use_pallas=False (computed decisions);
+       or with `segments=S` (--segments) the fleet's time-segmented
+       demod (pipelines/multi_rx._demod_segmented) on either route: the
+       call's samples as S lane-parallel segments, two launches
     -> hard symbols: algebraic deconvolution (fec/deconv.py, host), or
        soft symbols: ViterbiSyncDevice (fec/viterbi.py) on the fleet's
        ACS kernels (csrc/acs.cu at 1/2, csrc/acs_banked.cu otherwise)
     -> MPEG sync (proto/framing.py) -> deinterleave -> RS(204,188)
        -> derandomize (fec/, host NumPy) -> TS packets.
 
-Measurements (FREQ/SS/MER) are snapshots of the demod's state planes at
-the meas_decimation cadence, which also feeds the resampler's carrier
-tracking (freq_tap), exactly as the JAX kernel path takes them.
+--hs (u8 input only) takes the integer fast-QPSK receiver instead
+(dsp/receiver_hs.run_chunks_hs on csrc/hs_demod.cu) and its own
+deconvolver (`_DeconvolSyncHS`, host NumPy).
+
+Measurements (FREQ/SS/MER): on the kernel route, snapshots of the state
+planes at the meas_decimation cadence; on the scan route, the scan's own
+per-chunk measurements (`_collect_meas`). They also feed the resampler's
+carrier tracking (freq_tap), as in the JAX receiver.
 
 Unlike the fleet, this receiver honours `allow_drift` (--drift), as the
 JAX single-carrier receiver does (leansdr_tpu/pipelines/dvbs_rx.py:302).
 """
 
+import copy
 import os
 import pickle
 import sys
@@ -39,7 +52,7 @@ import torch
 
 from .. import device as _dev
 from ..core.generic import RateEstimator
-from ..dsp import blocks, filtergen, mf_prefilter, receiver
+from ..dsp import blocks, filtergen, mf_prefilter, receiver, receiver_hs
 from ..dsp import receiver_kernel as rk
 from ..dsp.blocks_device import AutoNotch1
 from ..dsp.cstln import Predef, make_dvbs2_constellation
@@ -72,9 +85,11 @@ class RxConfig:
     rrc_rej: float = 30.0
     rrc_steps: int = 0
     rolloff: float = 0.35
-    # True: the bit-exact trig16/256x256-LUT decision path; False: the
-    # computed path of the demod kernel. Must be given explicitly (the
-    # JAX package resolves None from its backend; the CLI says False).
+    # True: the bit-exact trig16/256x256-LUT decision path (the scan
+    # demod); False: computed decisions (the demod kernel, or the scan
+    # demod for --sampler nearest and use_pallas=False). Must be given
+    # explicitly (the JAX package resolves None from its backend; the CLI
+    # says False unless --exact-lut).
     exact_lut: bool | None = None
     # Preprocessing chain (leandvb.cc:277-399):
     awgn: float = 0.0
@@ -100,28 +115,21 @@ class RxConfig:
 def _unsupported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported yet (ROADMAP queue 1 item {item}); the "
-        "single-carrier port runs QPSK with the demod kernel "
-        "(exact_lut=False, sampler linear or rrc; sequential or "
-        "segmented), hard or Viterbi decoding, anf/derotate/resample/"
-        "decim preprocessing")
+        "single-carrier port runs QPSK on the demod kernel or the scan "
+        "demod (exact-LUT or computed decisions; nearest, linear or rrc "
+        "sampler; sequential or segmented), --hs, hard or Viterbi "
+        "decoding, anf/derotate/resample/decim preprocessing")
 
 
 def _check_config(cfg: RxConfig):
     if cfg.exact_lut is None:
         raise ValueError("RxConfig.exact_lut must be given explicitly "
-                         "(False: the computed demod path)")
+                         "(False: computed decisions)")
     if cfg.seg_warmup % receiver.CHUNK:
         raise ValueError(
             f"seg_warmup must be a multiple of {receiver.CHUNK}")
-    if cfg.hs:
-        _unsupported("the --hs fast-QPSK receiver", "12")
-    if cfg.exact_lut or cfg.hard_metric:
-        _unsupported("the exact-LUT scan demod (exact_lut, hard_metric)",
-                     "10")
-    if cfg.sampler not in ("linear", "rrc"):
-        _unsupported(f"sampler={cfg.sampler!r}", "10")
-    if cfg.use_pallas is False:
-        _unsupported("a demod without the kernel (use_pallas=False)", "10")
+    if cfg.sampler not in ("nearest", "linear", "rrc"):
+        raise ValueError(f"sampler={cfg.sampler!r}: nearest, linear or rrc")
     if cfg.awgn:
         _unsupported("--awgn (the drand48 noise stream of "
                      "pipelines/chansim.py)", "22")
@@ -132,6 +140,46 @@ def _check_config(cfg: RxConfig):
     if cfg.constellation != Predef.QPSK or cfg.rate not in RATES:
         _unsupported(f"{Predef(cfg.constellation).name} rate {cfg.rate}",
                      "20")
+
+
+def rrc_sampler(Fs: float, cfg: RxConfig) -> tuple:
+    """(coefficients, subsampling) of the polyphase fir_sampler at sample
+    rate Fs (sdr.h:635-689), as the JAX receivers build it."""
+    steps = cfg.rrc_steps or max(1, int(64 * cfg.Fm / Fs))
+    Frrc = Fs * steps
+    transition = (cfg.Fm / 2) * cfg.rolloff
+    order = int(cfg.rrc_rej * Frrc / (22 * transition))
+    return (tuple(filtergen.root_raised_cosine(order, cfg.Fm / Frrc,
+                                               cfg.rolloff).tolist()),
+            steps)
+
+
+def state_to_numpy(st):
+    """A demod state (planes tensor or a dict of tensors) as NumPy."""
+    if isinstance(st, dict):
+        return {k: v.cpu().numpy() for k, v in st.items()}
+    return st.cpu().numpy()
+
+
+def state_from_numpy(v, use_pallas: bool, params, device):
+    """A checkpoint's demod state (planes [19, lanes], or the scan dict
+    of [lanes] / [lanes, 3, 2] / [lanes, nc, 2] arrays) as the route
+    expects it: planes for the demod kernel, the scan dict otherwise."""
+    if use_pallas:
+        if isinstance(v, dict):
+            return rk.pack_state({k: torch.from_numpy(np.asarray(a))
+                                  for k, a in v.items()}).to(device)
+        return torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(
+            device)
+    if not isinstance(v, dict):
+        v = {k: t.numpy() for k, t in rk.unpack_state(torch.from_numpy(
+            np.ascontiguousarray(v, np.float32))).items()}
+    want = receiver.init_state(params, 1, "cpu")
+    if set(v) != set(want):
+        raise ValueError(f"checkpoint demod state {sorted(v)} != "
+                         f"{sorted(want)} (another sampler?)")
+    return {k: torch.from_numpy(np.array(a, want[k].numpy().dtype)).to(
+        device) for k, a in v.items()}
 
 
 class _DeconvolSync:
@@ -208,6 +256,45 @@ class _DeconvolSync:
         return out
 
 
+class _DeconvolSyncHS:
+    """The --hs algebraic deconvolver (dvb_deconvol_sync, dvb.h:612-703;
+    leansdr_tpu/pipelines/dvbs_rx.py:163-199): QPSK 1/2 polynomials
+    0x3ba / 0x38f70 hardcoded, 4 sync LUTs, chunks of 64 bytes (512
+    symbols), election every resync_period chunks by estimated error
+    bits."""
+
+    CHUNK_BYTES = 64
+    STATE = ("locked", "resync_phase", "backlog")
+
+    def __init__(self, fastlock: bool):
+        self.maps = deconv.hs_sync_maps()
+        self.locked = 0
+        self.resync_phase = 0
+        self.resync_period = 1 if fastlock else 32
+        self.backlog = np.empty(0, np.uint8)
+
+    def process(self, symbols: np.ndarray) -> np.ndarray:
+        self.backlog = np.concatenate([self.backlog, symbols])
+        out = []
+        # 512 symbols per chunk + 32-symbol window warmup overlap
+        need = self.CHUNK_BYTES * 8 + deconv.TRACEBACK // 2
+        while len(self.backlog) >= need:
+            if self.resync_phase == 0:
+                errs = [deconv.deconvolve_errors(
+                            self.backlog[:need], "1/2", 0, symmap=self.maps[s])
+                        for s in range(4)]
+                self.locked = int(np.argmin(errs))
+            b = deconv.deconvolve_block(
+                self.backlog[:need], "1/2", 0,
+                symmap=self.maps[self.locked])[:self.CHUNK_BYTES]
+            out.append(b)
+            self.backlog = self.backlog[self.CHUNK_BYTES * 8:]
+            self.resync_phase += 1
+            if self.resync_phase >= self.resync_period:
+                self.resync_phase = 0
+        return np.concatenate(out) if out else np.empty(0, np.uint8)
+
+
 class DvbsReceiver:
     """Single-carrier streaming receiver on the device kernels. Entry
     points run on `device` (default CUDA; CUDA without a GPU raises)."""
@@ -221,7 +308,11 @@ class DvbsReceiver:
         _check_config(cfg)
         self.cfg = cfg
         rate = cfg.rate
-        self.cstln = make_dvbs2_constellation(cfg.constellation, rate)
+        cstln = make_dvbs2_constellation(cfg.constellation, rate)
+        if cfg.hard_metric:
+            cstln = copy.deepcopy(cstln)
+            cstln.harden()
+        self.cstln = cstln
 
         # ---- preprocessing chain (leandvb.cc:277-399) ----
         self.notch = (AutoNotch1(cfg.anf, 0.0, device=self.device)
@@ -252,26 +343,49 @@ class DvbsReceiver:
         self.decim = decim
         self.Fs_eff = Fs_eff
 
-        # --sampler rrc: the matched filter as a device convolution, then
-        # the linear-sampler kernel.
+        # The demod's route, as the JAX receiver picks it on an
+        # accelerator: exact decisions (or --hard-metric) take the scan
+        # demod, with --sampler rrc the polyphase fir_sampler inside it;
+        # computed decisions take the demod kernel, with --sampler rrc
+        # behind the matched filter; --sampler nearest and use_pallas=
+        # False take the scan demod with computed decisions.
+        exact = bool(cfg.exact_lut) or cfg.hard_metric
+        sampler = cfg.sampler
+        rrc_coeffs, rrc_steps = (), 1
         self.mf_taps = None
-        if cfg.sampler == "rrc":
-            self.mf_taps = mf_prefilter.make_mf_taps(
-                Fs_eff, cfg.Fm, cfg.rolloff, cfg.rrc_rej)
+        if sampler == "rrc":
+            if exact:
+                rrc_coeffs, rrc_steps = rrc_sampler(Fs_eff, cfg)
+            else:
+                self.mf_taps = mf_prefilter.make_mf_taps(
+                    Fs_eff, cfg.Fm, cfg.rolloff, cfg.rrc_rej)
+                sampler = "linear"
         self.params = receiver.ReceiverParams(
             omega=Fs_eff / cfg.Fm,
-            sampler="linear",
+            sampler=sampler,
             pll_adjustment=(1.0 / 6 if cfg.viterbi else 1.0),
             allow_drift=cfg.allow_drift,
             meas_decimation=(int(Fs_eff / cfg.Finfo) if cfg.Finfo
                              else 1 << 20),
             nsymbols=self.cstln.nsymbols,
             freq0=cfg.Ftune / Fs_eff,
-            exact_lut=False,
+            rrc_coeffs=rrc_coeffs,
+            rrc_steps=rrc_steps,
+            exact_lut=exact,
         )
-        self._sym_consts = rk.sym_constants(self.cstln)
-        self._planes = rk.pack_state(receiver.init_state(self.params, 1,
-                                                         self.device))
+        use_pallas = cfg.use_pallas
+        if use_pallas is None:
+            use_pallas = sampler == "linear" and not exact
+        self.use_pallas = bool(use_pallas) and sampler == "linear"
+        state = receiver.init_state(self.params, 1, self.device)
+        if self.use_pallas:
+            self._sym_consts = rk.sym_constants(self.cstln)
+            self._planes = rk.pack_state(state)
+            self.tables = self.state = None
+        else:
+            self.tables = receiver.make_tables(self.cstln, self.device)
+            self.state = state
+            self._planes = None
         self._meas_backlog = 0
         # --segments: chunks done (for seg_holdoff), and the segmented
         # demod's per-segment states and the segment length they are for.
@@ -279,17 +393,30 @@ class DvbsReceiver:
         self._seg_state = None
         self._seg_nseg = 0
 
-        if cfg.viterbi:
-            # FEC23 -> FEC46 for QPSK (leandvb.cc:533-537)
-            self.deconv = ViterbiSyncDevice(self.cstln, fleet_rate(rate),
-                                            fastlock=cfg.fastlock,
-                                            device=self.device)
-            on_next = None
+        on_next = None
+        self.hs_state = None
+        if cfg.hs:
+            self.hs_params = receiver_hs.HsParams(
+                omega=Fs_eff / cfg.Fm, freq0=cfg.Ftune / Fs_eff,
+                meas_decimation=(int(Fs_eff / cfg.Finfo) if cfg.Finfo
+                                 else 1 << 20))
+            self.hs_tables = receiver_hs.hs_tables(self.device)
+            self.hs_state = receiver_hs.init_state(self.hs_params, 1,
+                                                   self.device)
+            self.deconv = _DeconvolSyncHS(cfg.fastlock)
+            self.mpeg = MpegSync(fastlock=True,
+                                 resync_period=1 if cfg.fastlock else 32)
         else:
-            self.deconv = _DeconvolSync(fleet_rate(rate), cfg.fastlock,
-                                        debug=cfg.debug)
-            on_next = self.deconv.next_sync
-        self.mpeg = MpegSync(fastlock=cfg.fastlock, on_next_sync=on_next)
+            if cfg.viterbi:
+                # FEC23 -> FEC46 for QPSK (leandvb.cc:533-537)
+                self.deconv = ViterbiSyncDevice(self.cstln, fleet_rate(rate),
+                                                fastlock=cfg.fastlock,
+                                                device=self.device)
+            else:
+                self.deconv = _DeconvolSync(fleet_rate(rate), cfg.fastlock,
+                                            debug=cfg.debug)
+                on_next = self.deconv.next_sync
+            self.mpeg = MpegSync(fastlock=cfg.fastlock, on_next_sync=on_next)
 
         self.sample_backlog = np.empty((0, 2), np.float32)
         self.byte_backlog = np.empty(0, np.uint8)       # deconv -> mpeg_sync
@@ -302,6 +429,7 @@ class DvbsReceiver:
         self.verrcount = 0
         self.meas = {"freq": [], "ss": [], "mer": [], "vber": [],
                      "cnr": []}
+        self.sampled_points = []     # (re, im) for --fd-const SYMBOLS
 
     @property
     def readahead(self) -> int:
@@ -311,11 +439,25 @@ class DvbsReceiver:
             ra += len(self.mf_taps) - 1
         return ra
 
+    @property
+    def dem_state(self):
+        """The demod's state: [19, 1] planes (kernel) or the scan dict."""
+        return self._planes if self.use_pallas else self.state
+
+    @dem_state.setter
+    def dem_state(self, st):
+        if self.use_pallas:
+            self._planes = st
+        else:
+            self.state = st
+
     # -- streaming API -----------------------------------------------------
 
     def process(self, iq: np.ndarray) -> np.ndarray:
         """Feed [n, 2] float32 IQ; returns TS packets [k, 188] decoded so
         far."""
+        if self.cfg.hs:
+            return self._process_hs(iq)
         iq = np.asarray(iq, dtype=np.float32) * np.float32(
             self.cfg.float_scale)
         iq = self._preprocess(iq)
@@ -345,52 +487,120 @@ class DvbsReceiver:
             # The fleet's time-segmented demod on one carrier.
             nseg = n // S
             if self._seg_state is None or self._seg_nseg != nseg:
-                self._seg_state = init_seg_state(self._planes, 1, S, nseg)
+                self._seg_state = init_seg_state(self.dem_state, 1, S, nseg)
                 self._seg_nseg = nseg
-            (self._planes, self._seg_state, sym, valid,
+            (self.dem_state, self._seg_state, sym, valid,
              cost) = _demod_segmented(
-                self.params, self._sym_consts, self.mf_taps, 1, S,
-                self.cfg.seg_warmup, self.cfg.viterbi, self._planes,
-                self._seg_state, xd)
+                self.params, getattr(self, "_sym_consts", None),
+                self.mf_taps, 1, S, self.cfg.seg_warmup, self.cfg.viterbi,
+                self.dem_state, self._seg_state, xd, tables=self.tables)
             valid = valid[:, 0].cpu().numpy()
             syms = sym[:, 0].cpu().numpy()[valid]
             costs = (cost[:, 0].cpu().numpy()[valid] if self.cfg.viterbi
                      else None)
+            self._meas_snapshot(n)
         else:
             # A sequential call moves the stream past the persisted
             # per-segment positions: rebuild them at the next segmented
             # call.
             self._seg_state = None
             if self.mf_taps is not None:
-                xd = mf_prefilter.mf_prefilter(self.mf_taps,
-                                               self._planes[2], xd)
-            self._planes, packed = rk.demod(self.params, self._sym_consts,
-                                            self._planes, xd)
-            p = packed[:, 0].cpu().numpy()
-            valid = ((p >> 24) & 1).astype(bool)
-            syms = ((p >> 16) & 0xFF).astype(np.uint8)[valid]
-            costs = (-(p & 0xFFFF)).astype(np.int16)[valid]
+                freqw = (self._planes[2] if self.use_pallas
+                         else self.state["freqw"])
+                xd = mf_prefilter.mf_prefilter(self.mf_taps, freqw, xd)
+            if self.use_pallas:
+                self._planes, packed = rk.demod(
+                    self.params, self._sym_consts, self._planes, xd)
+                p = packed[:, 0].cpu().numpy()
+                valid = ((p >> 24) & 1).astype(bool)
+                syms = ((p >> 16) & 0xFF).astype(np.uint8)[valid]
+                costs = (-(p & 0xFFFF)).astype(np.int16)[valid]
+                self._meas_snapshot(n)
+            else:
+                self.state, out = receiver.run_chunks(
+                    self.params, self.tables, self.state, xd)
+                valid = out["valid"][0].cpu().numpy()
+                syms = out["symbol"][0].cpu().numpy()[valid]
+                costs = out["cost"][0].cpu().numpy()[valid]
+                self._collect_meas(out)
         self._chunks_done += 1
-
-        # Measurement snapshots from the state planes at the scan path's
-        # meas_decimation cadence (the kernel's output carries no
-        # freq/ss/mer): the --fd-info stream and the resampler's freq_tap.
-        self._meas_backlog += n
-        k = self._meas_backlog // self.params.meas_decimation
-        if k:
-            self._meas_backlog %= self.params.meas_decimation
-            st = self._planes[:, 0].cpu().numpy()
-            mer = 10 * np.log10(st[5] / st[6]) if st[6] > 0 else 0.0
-            for _ in range(int(k)):
-                self.meas["freq"].append(float(st[2] / 65536.0))
-                self.meas["ss"].append(float(np.sqrt(st[4])))
-                self.meas["mer"].append(float(mer))
 
         if self.cfg.viterbi:
             bytes_out = self.deconv.process(syms, costs)
         else:
             bytes_out = self.deconv.process(syms)
         return self._byte_stages(bytes_out)
+
+    def _meas_snapshot(self, n: int):
+        """Measurement snapshots from the demod state at the scan path's
+        meas_decimation cadence (the kernel's and the segmented demod's
+        outputs carry no freq/ss/mer): the --fd-info stream and the
+        resampler's freq_tap."""
+        self._meas_backlog += n
+        k = self._meas_backlog // self.params.meas_decimation
+        if not k:
+            return
+        self._meas_backlog %= self.params.meas_decimation
+        if self.use_pallas:
+            st = self._planes[:, 0].cpu().numpy()
+            freqw, est_insp, est_sp, est_ep = st[2], st[4], st[5], st[6]
+        else:
+            freqw, est_insp, est_sp, est_ep = (
+                self.state[k2][0].cpu().numpy()
+                for k2 in ("freqw", "est_insp", "est_sp", "est_ep"))
+        mer = 10 * np.log10(est_sp / est_ep) if est_ep > 0 else 0.0
+        for _ in range(int(k)):
+            self.meas["freq"].append(float(freqw / 65536.0))
+            self.meas["ss"].append(float(np.sqrt(est_insp)))
+            self.meas["mer"].append(float(mer))
+
+    def _collect_meas(self, out: dict):
+        """The scan's per-chunk measurements, `nmeas` times each (and, for
+        --fd-const, its one sampled point per chunk: p_sampled /
+        cstln_out, sdr.h:860-861)."""
+        nmeas = out["nmeas"][0].cpu().numpy()
+        if nmeas.any():
+            freq, ss, mer = (out[k][0].cpu().numpy()
+                             for k in ("freq", "ss", "mer"))
+            for k in np.nonzero(nmeas)[0]:
+                for _ in range(int(nmeas[k])):
+                    self.meas["freq"].append(float(freq[k]))
+                    self.meas["ss"].append(float(ss[k]))
+                    self.meas["mer"].append(float(mer[k]))
+        if self.cfg.want_const:
+            pts = out["sampled"][0].cpu().numpy()
+            self.sampled_points.extend(map(tuple, pts))
+
+    def _process_hs(self, iq: np.ndarray) -> np.ndarray:
+        """--hs path (run_highspeed, leandvb.cc:727-969): u8 IQ only."""
+        # Undo the u8 -> float conversion of the ingest stage.
+        u8 = (np.asarray(iq, np.float32) + 128.0).astype(np.int32)
+        self.sample_backlog = np.concatenate(
+            [self.sample_backlog, u8.astype(np.float32)])
+        K = (len(self.sample_backlog) - 1) // receiver_hs.CHUNK
+        if K <= 0:
+            return np.empty((0, TS_SIZE), np.uint8)
+        n = K * receiver_hs.CHUNK
+        x = self.sample_backlog[: n + 1].astype(np.int32)
+        self.sample_backlog = self.sample_backlog[n:]
+        self.hs_state, out = receiver_hs.run_chunks_hs(
+            self.hs_params, self.hs_tables, self.hs_state,
+            torch.from_numpy(x[None]).to(self.device))
+        valid = out["valid"][0].cpu().numpy()
+        syms = out["symbol"][0].cpu().numpy()[valid]
+        nmeas = out["nmeas"][0].cpu().numpy()
+        if nmeas.any():
+            freq = out["freq"][0].cpu().numpy()
+            for k in np.nonzero(nmeas)[0]:
+                self.meas["freq"].append(float(freq[k]))
+        if self.cfg.want_const:
+            # cstln_out (fast_qpsk_receiver, sdr.h:1120-1122): one
+            # interpolated point per chunk, u8-centered -> centered.
+            ok = out["sampled_ok"][0].cpu().numpy()
+            sp = out["sampled"][0].cpu().numpy()[ok] - 128
+            self.sampled_points.extend((float(p[0]), float(p[1]))
+                                       for p in sp[-64:])
+        return self._byte_stages(self.deconv.process(syms))
 
     def _preprocess(self, iq: np.ndarray) -> np.ndarray:
         """Notch / derotation / resample / decimation (mirrors the
@@ -477,8 +687,8 @@ class DvbsReceiver:
     # -- checkpoint / resume ----------------------------------------------
 
     def _deconv_state(self) -> dict:
-        if not self.cfg.viterbi:
-            return {k: getattr(self.deconv, k) for k in _DeconvolSync.STATE}
+        if not self.cfg.viterbi or self.cfg.hs:
+            return {k: getattr(self.deconv, k) for k in self.deconv.STATE}
         d = {k: getattr(self.deconv, k) for k in self.VITERBI_STATE}
         dev = getattr(self.deconv, "_dev_state", None)
         d["planes"] = (None if dev is None else
@@ -487,8 +697,8 @@ class DvbsReceiver:
         return d
 
     def _set_deconv_state(self, d: dict):
-        if not self.cfg.viterbi:
-            for k in _DeconvolSync.STATE:
+        if not self.cfg.viterbi or self.cfg.hs:
+            for k in self.deconv.STATE:
                 setattr(self.deconv, k, d[k])
             return
         for k in self.VITERBI_STATE:
@@ -503,8 +713,8 @@ class DvbsReceiver:
 
     def save_state(self) -> bytes:
         """Serialize every mutable piece of the receiver: demod state
-        planes, the preprocessing blocks, all host FSMs and stream
-        backlogs."""
+        (planes or the scan dict; the --hs state), the preprocessing
+        blocks, all host FSMs and stream backlogs."""
         aux = {}
         if self.notch is not None:
             b = self.notch.b
@@ -515,12 +725,15 @@ class DvbsReceiver:
             aux["derot"] = {"index": self.derot.index}
         if self.resampler is not None:
             aux["resampler"] = self.resampler.state()
+        if self.hs_state is not None:
+            aux["hs_state"] = state_to_numpy(self.hs_state)
         return pickle.dumps({
             "format": CHECKPOINT_FORMAT,
-            "dev": self._planes.cpu().numpy(),
+            "use_pallas": self.use_pallas,
+            "dev": state_to_numpy(self.dem_state),
             "chunks_done": self._chunks_done,
             "seg_state": (None if self._seg_state is None
-                          else self._seg_state.cpu().numpy()),
+                          else state_to_numpy(self._seg_state)),
             "seg_nseg": self._seg_nseg,
             "meas_backlog": self._meas_backlog,
             "sample_backlog": self.sample_backlog,
@@ -543,14 +756,17 @@ class DvbsReceiver:
             raise ValueError(
                 f"not a {CHECKPOINT_FORMAT} checkpoint (a leansdr_tpu "
                 "checkpoint goes through convert.from_jax_dvbs_checkpoint)")
-        self._planes = torch.from_numpy(
-            np.ascontiguousarray(d["dev"], np.float32)).to(self.device)
+        # The demod state as this receiver's route keeps it: [19, 1]
+        # planes or the scan dict (either converts to the other, but for
+        # the rrc sampler's state, which only a scan dict carries).
+        self.dem_state = state_from_numpy(d["dev"], self.use_pallas,
+                                          self.params, self.device)
         # A JAX checkpoint carries no segment state (a JAX receiver that
         # loads one starts its holdoff count and segment states afresh).
         self._chunks_done = d.get("chunks_done", 0)
         seg = d.get("seg_state")
-        self._seg_state = (None if seg is None else torch.from_numpy(
-            np.ascontiguousarray(seg, np.float32)).to(self.device))
+        self._seg_state = (None if seg is None else state_from_numpy(
+            seg, self.use_pallas, self.params, self.device))
         self._seg_nseg = d.get("seg_nseg", 0)
         self._meas_backlog = d["meas_backlog"]
         self.sample_backlog = d["sample_backlog"]
@@ -579,3 +795,10 @@ class DvbsReceiver:
             self.derot.index = int(aux["derot"]["index"])
         if "resampler" in aux:
             self.resampler.set_state(aux["resampler"])
+        if ("hs_state" in aux) != (self.hs_state is not None):
+            raise ValueError("checkpoint --hs state does not match this "
+                             "receiver's configuration")
+        if "hs_state" in aux:
+            self.hs_state = {
+                k: torch.from_numpy(np.array(v)).to(self.device)
+                for k, v in aux["hs_state"].items()}

@@ -4,11 +4,17 @@ leansdr_tpu/pipelines/multi_rx.py).
 
 Chain per chunk, all on the device until one packed fetch:
 
-  [matched filter (dsp/mf_prefilter.py), with sampler="rrc"; the
-   linear sampler reads the input as it is]
-    -> demod kernel (csrc/demod.cu: PLL + M&M timing + soft demap), one
-       launch per chunk, or with `segments=S` two launches over S lanes
-       per carrier (the time-segmented demod, `_demod_segmented`)
+  [matched filter (dsp/mf_prefilter.py), with sampler="rrc" and
+   computed decisions; the linear sampler reads the input as it is]
+    -> the demod, one launch per chunk, or with `segments=S` two
+       launches over S lanes per carrier (the time-segmented demod,
+       `_demod_segmented`), on one of two routes:
+         the demod kernel (csrc/demod.cu: PLL + M&M timing + computed
+           soft demap; state as [19, C] planes);
+         the scan demod (dsp/receiver.run_chunks on csrc/scan_demod.cu)
+           with exact_lut=True (the trig16 table and the 256x256 LUT;
+           sampler="rrc": the polyphase fir_sampler in the loop),
+           sampler="nearest" or use_pallas=False (state as JAX's dict)
     -> symbol ring append (fec/deconv_device.py: cumsum + scatter)
     -> with viterbi=True, soft Viterbi over the sync replicas with
        election:
@@ -46,7 +52,8 @@ from ..fec.viterbi_banked import fleet_rate
 from ..fec.viterbi_device import MultiViterbiSync, decoder
 from ..native import NativeByteBackend
 from ..proto.framing import RS_SIZE, MpegSync
-from .dvbs_rx import RATES, RxConfig, TS_SIZE
+from .dvbs_rx import (RATES, RxConfig, TS_SIZE, rrc_sampler, state_from_numpy,
+                      state_to_numpy)
 
 CHECKPOINT_FORMAT = "leansdr_tpu_torch.multi_rx/1"
 
@@ -96,21 +103,71 @@ def seg_positions(S: int, nseg: int, T: int = _SEG_T):
     return [nseg + T - n] + [(j + 1) * nseg - n for j in range(1, S)]
 
 
-def init_seg_state(planes: torch.Tensor, nchan: int, S: int, nseg: int,
-                   T: int = _SEG_T) -> torch.Tensor:
+# The demod state of either route: [NSTATE, lanes] planes (the demod
+# kernel) or the scan demod's dict of [lanes, ...] tensors.
+
+def _lanes(st, lo: int, hi: int):
+    if isinstance(st, dict):
+        return {k: v[lo:hi] for k, v in st.items()}
+    return st[:, lo:hi]
+
+
+def _cat(a, b):
+    if isinstance(a, dict):
+        return {k: torch.cat([a[k], b[k]]) for k in a}
+    return torch.cat([a, b], dim=1)
+
+
+def nlanes(st) -> int:
+    return st["mu"].shape[0] if isinstance(st, dict) else st.shape[1]
+
+
+def _freqw(st):
+    return st["freqw"] if isinstance(st, dict) else st[2]
+
+
+def _phase(st):
+    return st["phase"] if isinstance(st, dict) else st[1]
+
+
+def _with_phase(st, phase):
+    if isinstance(st, dict):
+        return dict(st, phase=phase)
+    st = st.clone()
+    st[1] = phase
+    return st
+
+
+def demod(params, sym_consts, tables, st, x):
+    """One demod launch over x [lanes, n + readahead, 2] from either
+    route's state. Returns (state, sym [n, lanes] u8, valid bool, cost
+    i16)."""
+    if isinstance(st, dict):
+        st, out = receiver.run_chunks(params, tables, st, x)
+        return st, out["symbol"].T, out["valid"].T, out["cost"].T
+    st, packed = rk.demod(params, sym_consts, st, x.contiguous())
+    return (st,) + _extract_sym_valid(packed)
+
+
+def init_seg_state(dem_state, nchan: int, S: int, nseg: int,
+                   T: int = _SEG_T):
     """Cold-start per-segment persisted state: the carried chunk-head
-    planes [NSTATE, C] replicated into S*C lanes (lane s*C + c) positioned
+    state of C lanes replicated into S*C lanes (lane s*C + c) positioned
     at seg_positions(S, nseg), with the lock phase advanced by freqw x
     position, so the first segmented chunk's pass-1 seeding is exactly a
     prediction from the chunk head, and every later chunk's a one-chunk
-    advance of each segment's own trajectory. Returns [NSTATE, S*C]."""
+    advance of each segment's own trajectory. Planes [NSTATE, C] give
+    [NSTATE, S*C]; a scan dict gives the dict of S*C lanes."""
     C = nchan
+    head = _lanes(dem_state, 0, C)
     pos = torch.tensor(seg_positions(S, nseg, T), dtype=torch.float32,
-                       device=planes.device).repeat_interleave(C)
-    rep = planes[:, :C].repeat(1, S)
-    adv = _wrap_u16(_wrap_u16(rep[2] * 128.0) * (pos / 128.0))
-    rep[1] = _wrap_u16(rep[1] + adv)
-    return rep
+                       device=_freqw(head).device).repeat_interleave(C)
+    if isinstance(head, dict):
+        rep = {k: torch.cat([v] * S) for k, v in head.items()}
+    else:
+        rep = head.repeat(1, S)
+    adv = _wrap_u16(_wrap_u16(_freqw(rep) * 128.0) * (pos / 128.0))
+    return _with_phase(rep, _wrap_u16(_phase(rep) + adv))
 
 
 def _rot_label(sb: torch.Tensor, r):
@@ -132,7 +189,7 @@ def _rot_label(sb: torch.Tensor, r):
 
 
 def _demod_segmented(params, sym_consts, mf_taps, nchan, S, W, want_cost,
-                     dem_state, seg_state, x):
+                     dem_state, seg_state, x, tables=None):
     """Two-pass time-segmented demod with per-segment persistent state
     (the counterpart of leansdr_tpu/pipelines/multi_rx.py:109-401): each
     carrier's chunk is split into S time segments demodulated in
@@ -155,9 +212,12 @@ def _demod_segmented(params, sym_consts, mf_taps, nchan, S, W, want_cost,
     decision agreement in the overlap window) and its persisted phase
     derotated. Every float step is in the JAX version's order.
 
-    dem_state [NSTATE, C], seg_state [NSTATE, S*C], x [C, n + readahead,
-    2] with n a multiple of S*CHUNK. Returns (dem_state, seg_state,
-    sym [n, C] u8, valid [n, C] bool, cost [n, C] i16 or None).
+    The demod is the demod kernel on planes (dem_state [NSTATE, C],
+    seg_state [NSTATE, S*C]) or the scan demod on its dicts of C and S*C
+    lanes (with its `tables`), as the JAX engine takes either. x [C, n +
+    readahead, 2] with n a multiple of S*CHUNK. Returns (dem_state,
+    seg_state, sym [n, C] u8, valid [n, C] bool, cost [n, C] i16 or
+    None).
     """
     C = nchan
     T = _SEG_T
@@ -190,15 +250,15 @@ def _demod_segmented(params, sym_consts, mf_taps, nchan, S, W, want_cost,
         return mf_prefilter.mf_prefilter(mf_taps, freqw, xs)
 
     # -- pass 1: precursor windows from the persisted per-segment states
-    p1 = seg_state[:, :J].clone()
-    adv = _wrap_u16(_wrap_u16(p1[2] * 128.0) * (gapv / 128.0))
-    p1[1] = _wrap_u16(p1[1] + adv)
-    st1, _ = rk.demod(params, sym_consts, p1, mf(p1[2], xs1))
+    p1 = _lanes(seg_state, 0, J)
+    adv = _wrap_u16(_wrap_u16(_freqw(p1) * 128.0) * (gapv / 128.0))
+    p1 = _with_phase(p1, _wrap_u16(_phase(p1) + adv))
+    st1 = demod(params, sym_consts, tables, p1, mf(_freqw(p1), xs1))[0]
     # -- pass 2: emit windows; lane 0 = the carried chunk-head state, lane
     # s>=1 = pass-1 lane s-1's exactly positioned end state.
-    p2 = torch.cat([dem_state, st1], dim=1)
-    seg_out, packed = rk.demod(params, sym_consts, p2, mf(p2[2], xs2))
-    sym, valid, cost = _extract_sym_valid(packed)       # [L2, S*C]
+    p2 = _cat(dem_state, st1)
+    seg_out, sym, valid, cost = demod(params, sym_consts, tables, p2,
+                                      mf(_freqw(p2), xs2))  # [L2, S*C]
 
     # Local rows per segment: segment 0 owns [0, nseg) ([nseg, L2) is
     # padding for window uniformity); segment s>=1 has its boundary
@@ -272,8 +332,11 @@ def _demod_segmented(params, sym_consts, mf_taps, nchan, S, W, want_cost,
     # Derotate every persisted segment's lock phase into the stream frame
     # (segment S-1's state is also the next chunk's exact segment-0 seed).
     if qpsk:
-        seg_out[1] = _wrap_u16(seg_out[1] - torch.cat(seg_rot))
-    dem_state = seg_out[:, (S - 1) * C:].contiguous()
+        seg_out = _with_phase(seg_out,
+                              _wrap_u16(_phase(seg_out) - torch.cat(seg_rot)))
+    dem_state = _lanes(seg_out, (S - 1) * C, S * C)
+    if not isinstance(dem_state, dict):
+        dem_state = dem_state.contiguous()
 
     def splice(a, segs=None):
         get = segs.__getitem__ if segs else (lambda s: seg_of(a, s))
@@ -289,25 +352,26 @@ def _demod_segmented(params, sym_consts, mf_taps, nchan, S, W, want_cost,
 
 
 def _fused_chunk(params, sym_consts, mf_taps, kind, plan, plan_dec, maps,
-                 schedule, planes, seg_state, dstate, x, segments=1,
-                 seg_warmup=2048):
+                 schedule, dem_state, seg_state, dstate, x, segments=1,
+                 seg_warmup=2048, tables=None):
     """One chunk of device work: [matched filter, when mf_taps is not
-    None] -> demod kernel (or the segmented demod when segments > 1) ->
+    None] -> the demod (the demod kernel on planes, or the scan demod on
+    its dict with `tables`; the segmented demod when segments > 1) ->
     sym/valid(/cost for the Viterbi kinds) extraction -> ring append(s)
     -> `schedule` decodes (the decoder of `kind`) -> the packed fetch
-    buffer. Plain eager PyTorch around the kernels. Returns (planes,
+    buffer. Plain eager PyTorch around the kernels. Returns (dem_state,
     seg_state, dstate, packed_out)."""
     decode = decoder(kind)
     want_cost = kind.startswith("viterbi")
     if segments > 1:
-        planes, seg_state, sym, valid, cost = _demod_segmented(
-            params, sym_consts, mf_taps, planes.shape[1], segments,
-            seg_warmup, want_cost, planes, seg_state, x)
+        dem_state, seg_state, sym, valid, cost = _demod_segmented(
+            params, sym_consts, mf_taps, nlanes(dem_state), segments,
+            seg_warmup, want_cost, dem_state, seg_state, x, tables=tables)
     else:
         if mf_taps is not None:
-            x = mf_prefilter.mf_prefilter(mf_taps, planes[2], x)
-        planes, packed = rk.demod(params, sym_consts, planes, x.contiguous())
-        sym, valid, cost = _extract_sym_valid(packed)
+            x = mf_prefilter.mf_prefilter(mf_taps, _freqw(dem_state), x)
+        dem_state, sym, valid, cost = demod(params, sym_consts, tables,
+                                            dem_state, x)
         if not want_cost:
             cost = None
     n = sym.shape[0]
@@ -320,17 +384,18 @@ def _fused_chunk(params, sym_consts, mf_taps, kind, plan, plan_dec, maps,
         for _ in range(schedule[i]):
             dstate, by, errs, under = decode(plan_dec, dstate, maps)
             flat += [by, errs, under]
-    return planes, seg_state, dstate, _pack_fetch(dstate["fill"], flat)
+    return dem_state, seg_state, dstate, _pack_fetch(dstate["fill"], flat)
 
 
 def _unsupported(what: str, item: str):
     raise NotImplementedError(
         f"{what} is not ported yet (ROADMAP queue 1 item {item}); the "
-        f"port runs QPSK at rates {', '.join(RATES)} with exact_lut=False "
-        "and sampler 'linear' or 'rrc'")
+        f"port runs QPSK at rates {', '.join(RATES)} on the demod kernel "
+        "or the scan demod (exact-LUT or computed decisions; nearest, "
+        "linear or rrc sampler)")
 
 
-def _check_config(cfg: RxConfig, use_pallas, segments, seg_warmup):
+def _check_config(cfg: RxConfig, segments, seg_warmup):
     """Raise for a setting the port has not taken (NotImplementedError
     naming its ROADMAP item) or that is invalid (ValueError)."""
     if segments < 1:
@@ -342,15 +407,11 @@ def _check_config(cfg: RxConfig, use_pallas, segments, seg_warmup):
                      "20")
     if cfg.exact_lut is None:
         raise ValueError("RxConfig.exact_lut must be given explicitly "
-                         "(False: the computed demod path)")
-    if cfg.exact_lut:
-        _unsupported("the exact-LUT scan demod (exact_lut=True)", "10")
-    if cfg.sampler not in ("linear", "rrc"):
-        _unsupported(f"sampler={cfg.sampler!r}", "10")
+                         "(False: computed decisions)")
+    if cfg.sampler not in ("nearest", "linear", "rrc"):
+        raise ValueError(f"sampler={cfg.sampler!r}: nearest, linear or rrc")
     if cfg.anf or cfg.cnr or cfg.want_spectrum:
         _unsupported("fleet preprocessing (anf, cnr, spectrum)", "13")
-    if use_pallas is False:
-        _unsupported("a demod without the kernel (use_pallas=False)", "10")
 
 
 class _ByteBackend:
@@ -476,7 +537,7 @@ class MultiDvbsReceiver:
                  chunk_samples: int | None = None, native=None,
                  segments: int = 1, seg_warmup: int = 2048,
                  seg_holdoff: int = 8, device=None):
-        _check_config(cfg, use_pallas, segments, seg_warmup)
+        _check_config(cfg, segments, seg_warmup)
         self.device = _dev.resolve_device(device)
         self.cfg = cfg
         self.nchan = nchan
@@ -492,26 +553,49 @@ class MultiDvbsReceiver:
         self._seg_nseg = 0         # the segment length it was built for
         cstln = make_dvbs2_constellation(cfg.constellation, cfg.rate)
         self.cstln = cstln
-        # sampler="rrc": the matched filter at input rate, then the
-        # linear-sampler demod; sampler="linear": the demod alone.
-        self.mf_taps = (mf_prefilter.make_mf_taps(cfg.Fs, cfg.Fm,
-                                                  cfg.rolloff, cfg.rrc_rej)
-                        if cfg.sampler == "rrc" else None)
+        # The demod's route, as the JAX fleet picks it on an accelerator:
+        # computed decisions on the demod kernel (sampler="rrc": the
+        # matched filter at input rate, then the linear sampler;
+        # "linear": the demod alone); exact decisions (exact_lut=True),
+        # sampler="nearest" or use_pallas=False on the scan demod, with
+        # "rrc" the polyphase fir_sampler at Fs inside it.
+        exact = bool(cfg.exact_lut)
+        sampler = cfg.sampler
+        rrc_coeffs, rrc_steps = (), 1
+        self.mf_taps = None
+        if sampler == "rrc":
+            if exact:
+                rrc_coeffs, rrc_steps = rrc_sampler(cfg.Fs, cfg)
+            else:
+                self.mf_taps = mf_prefilter.make_mf_taps(
+                    cfg.Fs, cfg.Fm, cfg.rolloff, cfg.rrc_rej)
+                sampler = "linear"
         # Built as the JAX fleet builds it: the fleet never sets
         # allow_drift, so freqw is always clamped to the frequency limits
         # (leansdr_tpu/pipelines/multi_rx.py:717-726, ROADMAP queue 3),
         # and the PLL's gain is cut for the soft path only.
         self.params = receiver.ReceiverParams(
             omega=cfg.Fs / cfg.Fm,
-            sampler="linear",
+            sampler=sampler,
             nsymbols=cstln.nsymbols,
             freq0=cfg.Ftune / cfg.Fs,
-            exact_lut=False,
+            exact_lut=exact,
+            rrc_coeffs=rrc_coeffs,
+            rrc_steps=rrc_steps,
             pll_adjustment=1.0 / 6 if cfg.viterbi else 1.0,
         )
-        self._sym_consts = rk.sym_constants(cstln)
-        self._planes = rk.pack_state(
-            receiver.init_state(self.params, nchan, self.device))
+        if use_pallas is None:
+            use_pallas = sampler == "linear" and not exact
+        self.use_pallas = bool(use_pallas) and sampler == "linear"
+        state = receiver.init_state(self.params, nchan, self.device)
+        if self.use_pallas:
+            self._sym_consts = rk.sym_constants(cstln)
+            self._planes = rk.pack_state(state)
+            self.tables = self.state = None
+        else:
+            self._sym_consts = self._planes = None
+            self.tables = receiver.make_tables(cstln, self.device)
+            self.state = state
         self.rate = fleet_rate(cfg.rate)
         self.omega = cfg.Fs / cfg.Fm
         nominal = chunk_samples or (1 << 16)
@@ -537,6 +621,18 @@ class MultiDvbsReceiver:
         self._fetch_pool = None
         self._backend_pool = None
         self._jobs = None
+
+    @property
+    def dem_state(self):
+        """The demod's state: [19, C] planes (kernel) or the scan dict."""
+        return self._planes if self.use_pallas else self.state
+
+    @dem_state.setter
+    def dem_state(self, st):
+        if self.use_pallas:
+            self._planes = st
+        else:
+            self.state = st
 
     @property
     def readahead(self) -> int:
@@ -603,15 +699,15 @@ class MultiDvbsReceiver:
         if S > 1 and (self._seg_state is None or self._seg_nseg != n // S):
             # The persisted states assume a constant segment length:
             # (re)build them from the carried chunk-head state.
-            self._seg_state = init_seg_state(self._planes, self.nchan, S,
+            self._seg_state = init_seg_state(self.dem_state, self.nchan, S,
                                              n // S)
             self._seg_nseg = n // S
-        (self._planes, seg_state, self.deconv.state,
+        (self.dem_state, seg_state, self.deconv.state,
          packed_out) = _fused_chunk(
             self.params, self._sym_consts, self.mf_taps, self.deconv.kind,
             self.deconv.plan, plan_dec, self.deconv.maps, schedule,
-            self._planes, self._seg_state, self.deconv.state, x,
-            segments=S, seg_warmup=self.seg_warmup)
+            self.dem_state, self._seg_state, self.deconv.state, x,
+            segments=S, seg_warmup=self.seg_warmup, tables=self.tables)
         if S > 1:
             self._seg_state = seg_state
         self._chunk_count += 1
@@ -733,8 +829,9 @@ class MultiDvbsReceiver:
         seg = self._seg_state
         return pickle.dumps({
             "format": CHECKPOINT_FORMAT,
-            "dev": self._planes.cpu().numpy(),
-            "seg_state": None if seg is None else seg.cpu().numpy(),
+            "use_pallas": self.use_pallas,
+            "dev": state_to_numpy(self.dem_state),
+            "seg_state": None if seg is None else state_to_numpy(seg),
             "seg_nseg": self._seg_nseg,
             "deconv_state": {k: v.cpu().numpy()
                              for k, v in self.deconv.state.items()},
@@ -756,20 +853,20 @@ class MultiDvbsReceiver:
                              "(convert a JAX one with "
                              "convert.from_jax_checkpoint)")
         dev = self.device
-        planes = torch.from_numpy(np.asarray(d["dev"], np.float32))
-        if tuple(planes.shape) != (rk.NSTATE, self.nchan):
-            raise ValueError(f"checkpoint demod state {tuple(planes.shape)}"
-                             f" != {(rk.NSTATE, self.nchan)}")
-        self._planes = planes.to(dev).contiguous()
+        # Planes or a scan dict, converted to this receiver's route.
+        st = state_from_numpy(d["dev"], self.use_pallas, self.params, dev)
+        if nlanes(st) != self.nchan:
+            raise ValueError(f"checkpoint demod state of {nlanes(st)} "
+                             f"channels != {self.nchan}")
+        self.dem_state = st
         seg = d.get("seg_state")
         if seg is not None:
-            seg = torch.from_numpy(np.asarray(seg, np.float32))
-            want = (rk.NSTATE, self.segments * self.nchan)
-            if tuple(seg.shape) != want:
-                raise ValueError(f"checkpoint segment states "
-                                 f"{tuple(seg.shape)} != {want} (another "
+            seg = state_from_numpy(seg, self.use_pallas, self.params, dev)
+            if nlanes(seg) != self.segments * self.nchan:
+                raise ValueError(f"checkpoint segment states of "
+                                 f"{nlanes(seg)} lanes != "
+                                 f"{self.segments * self.nchan} (another "
                                  "segments=?)")
-            seg = seg.to(dev).contiguous()
         self._seg_state = seg
         self._seg_nseg = d.get("seg_nseg", 0)
         if set(d["deconv_state"]) != set(self.deconv.state):
@@ -792,8 +889,13 @@ class MultiDvbsReceiver:
         """Per-channel measurement snapshot (one small device->host copy;
         call at info rate, ~1 Hz): dict of [C] arrays freq (fraction of
         Fs), ss, mer_db (sdr.h:852-889 estimator state)."""
-        p = self._planes.cpu().numpy()
-        freqw, est_insp, est_sp, est_ep = p[2], p[4], p[5], p[6]
+        if self.use_pallas:
+            p = self._planes.cpu().numpy()
+            freqw, est_insp, est_sp, est_ep = p[2], p[4], p[5], p[6]
+        else:
+            freqw, est_insp, est_sp, est_ep = (
+                self.state[k].cpu().numpy()
+                for k in ("freqw", "est_insp", "est_sp", "est_ep"))
         mer = np.where(est_ep > 0,
                        10 * np.log10(np.maximum(est_sp, 1e-30)
                                      / np.maximum(est_ep, 1e-30)), 0.0)

@@ -68,3 +68,12 @@ class ConstWriter:
             pts = " ".join(f"{int(re)},{int(im)}" for re, im in symbols)
             self.f.write(f"CONST {len(symbols)} {pts}\n")
         self.f.flush()
+
+    def symbols(self, iq):
+        """A batch of sampled IQ points (fixed_size=128 in the reference)."""
+        if self.json:
+            pts = ",".join(f"[{re:.0f},{im:.0f}]" for re, im in iq)
+            self.f.write(f"SYMBOLS [{pts}]\n")
+        else:
+            pts = " ".join(f"{re:.0f},{im:.0f}" for re, im in iq)
+            self.f.write(f"SYMBOLS {len(iq)} {pts}\n")

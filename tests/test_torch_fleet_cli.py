@@ -10,8 +10,8 @@ on the plain versions of the kernels (--device cpu):
 2. `-h` in a process where jax and leansdr_tpu cannot be imported;
 3. parse_args against the JAX CLI's;
 4. the flags of unported paths raise NotImplementedError naming their
-   ROADMAP item before any input is read; --out-template opens one file
-   per channel.
+   ROADMAP item before any input is read, those of ported item 10 reach
+   the scan demod; --out-template opens one file per channel.
 
 Tolerance: none (TS packets and parsed configurations are compared
 exactly).
@@ -137,16 +137,45 @@ def test_fleet_cli_parse_args_matches_jax(argv):
     (["--const", "8PSK"], "item 20")])
 def test_fleet_cli_unported_flags_raise(flags, item, monkeypatch):
     """Raised before stdin is read (a stdin that fails on read), and
-    before a device is asked for (the default, CUDA)."""
+    before a device is asked for (the default, CUDA). The flags of item
+    10, ported, reach the scan demod: the CLI builds its fleet on it
+    (--exact-lut with the default linear sampler, --sampler nearest with
+    computed decisions) and one chunk of 2 x 1024 frames goes through."""
     from leansdr_tpu_torch.apps import leandvbfleet
+    from leansdr_tpu_torch.pipelines import multi_rx
 
-    class NoRead:
-        class buffer:
-            def read(n=-1):
-                raise AssertionError("input read")
-    monkeypatch.setattr(sys, "stdin", NoRead)
-    with pytest.raises(NotImplementedError, match=item):
-        leandvbfleet.main(["--nchan", "2"] + flags)
+    if item != "item 10":
+        class NoRead:
+            class buffer:
+                def read(n=-1):
+                    raise AssertionError("input read")
+        monkeypatch.setattr(sys, "stdin", NoRead)
+        with pytest.raises(NotImplementedError, match=item):
+            leandvbfleet.main(["--nchan", "2"] + flags)
+        return
+    built = []
+
+    class Recorded(multi_rx.MultiDvbsReceiver):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+    monkeypatch.setattr(multi_rx, "MultiDvbsReceiver", Recorded)
+    iq = np.random.default_rng(0).standard_normal((1024, NCHAN, 2))
+
+    class Stdin:
+        buffer = io.BytesIO(iq.astype(np.float32).tobytes())
+    monkeypatch.setattr(sys, "stdin", Stdin)
+    monkeypatch.setattr(sys, "stdout", type("Out", (), {
+        "buffer": io.BytesIO()}))
+    assert leandvbfleet.main(["--nchan", "2", "--chunk", "1024",
+                              "--device", "cpu"] + flags) == 0
+    rx, = built
+    assert not rx.use_pallas and rx._planes is None
+    assert rx.params.exact_lut == (flags == ["--exact-lut"])
+    assert rx.params.sampler == ("nearest" if "nearest" in flags
+                                 else "linear")
+    assert rx._chunk_count == 1 and rx.state["mu"].shape == (NCHAN,)
 
 
 def test_fleet_cli_out_template(tmp_path, monkeypatch):

@@ -103,21 +103,34 @@ def test_hard_fleet_entry_points_default_to_cuda():
 
 
 def test_unported_settings_raise():
+    """The fleet's settings of unported paths raise NotImplementedError
+    naming their ROADMAP item; those of item 10 (ported) reach the scan
+    demod: sampler="nearest", exact_lut=True (with "rrc", the polyphase
+    fir_sampler at Fs: 499 taps in steps of 32) and use_pallas=False."""
     from leansdr_tpu_torch.dsp.cstln import Predef
     from leansdr_tpu_torch.pipelines.dvbs_rx import RxConfig
     from leansdr_tpu_torch.pipelines.multi_rx import MultiDvbsReceiver
     base = dict(Fs=4e6, Fm=2e6, rate="1/2", fastlock=True, float_scale=75,
                 exact_lut=False, viterbi=True, sampler="rrc")
     for change, item in ((dict(constellation=Predef.PSK8), "item 20"),
-                         (dict(sampler="nearest"), "item 10"),
-                         (dict(exact_lut=True), "item 10"),
                          (dict(anf=1), "item 13"),
                          (dict(cnr=True), "item 13")):
         with pytest.raises(NotImplementedError, match=item):
             MultiDvbsReceiver(RxConfig(**(base | change)), 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        MultiDvbsReceiver(RxConfig(**base), 2, use_pallas=False,
-                          device="cpu")
+    for change, kw, sampler, exact, mf in (
+            (dict(sampler="nearest"), {}, "nearest", False, False),
+            (dict(exact_lut=True), {}, "rrc", True, False),
+            ({}, dict(use_pallas=False), "linear", False, True)):
+        rx = MultiDvbsReceiver(RxConfig(**(base | change)), 2, device="cpu",
+                               **kw)
+        assert not rx.use_pallas and rx._planes is None
+        assert (rx.params.sampler, rx.params.exact_lut) == (sampler, exact)
+        assert set(rx.state) >= {"mu", "phase", "freqw"}
+        assert (rx.mf_taps is not None) == mf
+        if exact:
+            assert (len(rx.params.rrc_coeffs), rx.params.rrc_steps) == \
+                (499, 32)
+            assert rx.params.readahead == 16
 
 
 def test_leandvb_help_runs_without_jax():
@@ -156,12 +169,51 @@ def test_single_carrier_entry_points_default_to_cuda():
     (["--exact-lut"], "item 10"), (["--hard-metric"], "item 10"),
     (["--sampler", "nearest"], "item 10"), (["--hdlc"], "item 21"),
     (["--const", "8PSK"], "item 20")])
-def test_leandvb_unported_flags_raise(flags, item):
+def test_leandvb_unported_flags_raise(flags, item, monkeypatch):
     """Each flag of a path the port has not taken raises
-    NotImplementedError naming its ROADMAP item, before reading input."""
+    NotImplementedError naming its ROADMAP item, before reading input.
+    The flags of items 10 and 12, ported, reach their path: the CLI
+    builds its receiver on the scan demod (--exact-lut, --hard-metric
+    with the LUT's cost hardened to -1/0, --sampler nearest) or the --hs
+    demod, and one 2048-sample u8 read (--anf 0) goes through it."""
+    import io
+    import numpy as np
     from leansdr_tpu_torch.apps import leandvb
-    with pytest.raises(NotImplementedError, match=item):
-        leandvb.main(flags + ["--device", "cpu"])
+    from leansdr_tpu_torch.pipelines import dvbs_rx
+    if item not in ("item 10", "item 12"):
+        with pytest.raises(NotImplementedError, match=item):
+            leandvb.main(flags + ["--device", "cpu"])
+        return
+    built = []
+
+    class Recorded(dvbs_rx.DvbsReceiver):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            built.append(self)
+
+    monkeypatch.setattr(dvbs_rx, "DvbsReceiver", Recorded)
+    raw = np.random.default_rng(0).integers(98, 158, 4096, dtype=np.uint8)
+
+    class Stdin:
+        buffer = io.BytesIO(raw.tobytes())
+    monkeypatch.setattr(sys, "stdin", Stdin)
+    monkeypatch.setattr(sys, "stdout", type("Out", (), {
+        "buffer": io.BytesIO()}))
+    assert leandvb.main(flags + ["--anf", "0", "--device", "cpu"]) == 0
+    rx, = built
+    if flags == ["--hs"]:
+        assert rx.cfg.hs
+        st, ra = rx.hs_state, 1
+    else:
+        assert not rx.use_pallas and rx._planes is None
+        assert rx.params.exact_lut == (flags != ["--sampler", "nearest"])
+        assert rx.params.sampler == ("nearest" if "nearest" in flags
+                                     else "linear")
+        costs = set(rx.tables["lut_cost"].tolist())
+        assert (costs <= {-1, 0}) == (flags == ["--hard-metric"])
+        st, ra = rx.state, rx.readahead
+    # Whole chunks of 128 samples demodulated (the rest waits for more).
+    assert int(st["meas_count"][0]) == (2048 - ra) // 128 * 128
 
 
 ARGVS = [

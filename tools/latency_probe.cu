@@ -25,6 +25,8 @@
 //   each loads a neighbour's word; the banked ACS's per-block exchange)
 //   22 STS + __syncwarp + LDS: the same round within one warp
 //   23 VIADDMNMX (Hopper's fused add-min, __viaddmin_s32)
+//   24 LDG (a pointer chase in device memory that stays in L1: the
+//   scan demods' table gathers at indices a locked loop revisits)
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC tools/latency_probe.cu -o liblatency_probe.so
@@ -32,7 +34,10 @@
 #include <cuda_runtime.h>
 
 #define REP 512
-#define NPROBE 24
+#define NPROBE 25
+
+// Probe 24's chase: the word points at itself (set by the probe).
+__device__ unsigned long long chase_word;
 
 template <int OP>
 __global__ void probe(const float* fin, const int* iin, float* fout,
@@ -49,6 +54,11 @@ __global__ void probe(const float* fin, const int* iin, float* fout,
   const int ia0 = ia - 1;                  // 0
   const int next = (threadIdx.x + ia) & 31;  // the next lane
   unsigned u = base;
+  if (OP == 24) {
+    chase_word = (unsigned long long)&chase_word;
+    __threadfence();
+  }
+  unsigned long long g = (unsigned long long)&chase_word;
   const bool p = fa > 0.5f;                // true, known only at run time
   const long long t0 = clock64();
   // Every chain starts from the clock read (adds 0: the compiler cannot
@@ -57,6 +67,7 @@ __global__ void probe(const float* fin, const int* iin, float* fout,
   k += zero;
   u += zero;
   x = __int_as_float(__float_as_int(x) + zero);
+  g += zero;
 #pragma unroll
   for (int r = 0; r < REP; ++r) {
     if (OP == 0) asm volatile("add.f32 %0, %0, %1;" : "+f"(x) : "f"(fb));
@@ -115,13 +126,14 @@ __global__ void probe(const float* fin, const int* iin, float* fout,
       k = xch[threadIdx.x ^ ia] + ia0;     // the neighbour's word
     }
     if (OP == 23) k = __viaddmin_s32(k, ia, k + 2);
+    if (OP == 24) asm volatile("ld.global.ca.u64 %0, [%0];" : "+l"(g));
   }
   // A branch on every chain's result: the clock is read after the last
   // instruction of the chain has finished (the compiler would otherwise
   // be free to sink a chain that only the final store reads past it).
-  if (x == 0.125f && k == 7 && u == 3u) fout[NPROBE] = 0.0f;
+  if (x == 0.125f && k == 7 && u == 3u && g == 5ull) fout[NPROBE] = 0.0f;
   const long long t1 = clock64();
-  fout[OP] = x + (float)k + (float)u;      // keeps every chain live
+  fout[OP] = x + (float)k + (float)u + (float)(g & 1);  // keeps chains live
   cyc[OP] = t1 - t0;
 }
 

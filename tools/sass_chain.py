@@ -215,11 +215,15 @@ def inner_loop(instrs, labels, marker="STS", also="MUFU",
     return best
 
 
-def hot_path(instrs, labels, first, last, exchange=False) -> list:
+def hot_path(instrs, labels, first, last, exchange=False,
+             hot_loads=False) -> list:
     """The loop body less its slow-path blocks and else-arms (see the
     module docstring), without the branches themselves; with `exchange`,
     also less each block a guarded forward branch skips that holds a
-    barrier (a step taken in some passes only)."""
+    barrier (a step taken in some passes only); with `hot_loads`, a
+    block's global loads (LDG) do not make it a slow path (the scan
+    demods gather their tables in the emitting step)."""
+    slow = _SLOW - {"LDG"} if hot_loads else _SLOW
     index = {ins.addr: i for i, ins in enumerate(instrs)}
     cold = set()
     for j in range(first, last):
@@ -231,7 +235,7 @@ def hot_path(instrs, labels, first, last, exchange=False) -> list:
         loops = any((target(instrs[k], labels) or 1 << 62)
                     <= instrs[k].addr for k in block)
         if not instrs[j].pred or ("MUFU" not in fams
-                                  and (fams & _SLOW or loops)) or (
+                                  and (fams & slow or loops)) or (
                                       exchange and "BAR" in fams):
             cold.update(block)
     return [instrs[k] for k in range(first, last + 1)
@@ -298,19 +302,20 @@ def issue_cycles(body, latency: dict, passes: int = 24,
 
 def analyse(text: str, function: str, latency: dict, marker="STS",
             also="MUFU", per_step=1.0, min_markers=1,
-            exchange=False) -> dict:
+            exchange=False, hot_loads=False) -> dict:
     """The chain per loop step of `function` (a substring of its mangled
     name) in a cuobjdump -sass listing, with the loop's instruction mix.
     The loop holds at least `min_markers` of `marker` (and `also`,
     unless None); `per_step` markers make one step; `exchange` counts the
-    shared-memory exchange behind each barrier (module docstring)."""
+    shared-memory exchange behind each barrier (module docstring);
+    `hot_loads` keeps blocks with global loads on the hot path."""
     funcs = functions(text)
     names = [f for f in funcs if function in f]
     if len(names) != 1:
         raise ValueError(f"{len(names)} functions match {function!r}")
     instrs, labels = parse(funcs[names[0]])
     first, last = inner_loop(instrs, labels, marker, also, min_markers)
-    body = hot_path(instrs, labels, first, last, exchange)
+    body = hot_path(instrs, labels, first, last, exchange, hot_loads)
     unroll = sum(i.family == marker for i in body) / per_step
     mix = {}
     for i in body:
@@ -341,12 +346,15 @@ def main(argv) -> int:
                     help="markers per loop step")
     ap.add_argument("--exchange", action="store_true",
                     help="count the shared-memory exchange behind barriers")
+    ap.add_argument("--hot-loads", action="store_true",
+                    help="keep blocks with global loads (LDG) hot")
     a = ap.parse_args(argv)
     lat = json.load(open(a.latency)) if a.latency else {"fixed": 4.0}
     also = None if a.also.lower() == "none" else a.also
     print(json.dumps(analyse(open(a.sass).read(), a.function, lat,
                              a.marker, also, a.per_step,
-                             exchange=a.exchange), indent=1))
+                             exchange=a.exchange, hot_loads=a.hot_loads),
+                     indent=1))
     return 0
 
 
