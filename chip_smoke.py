@@ -33,9 +33,13 @@ Phases (any failure exits non-zero):
   2. the demod's rotation (sincosf) == torch.cos / torch.sin bit for bit
      on all 65536 u16 angles; scan_demod == run_chunks_ref and hs_demod
      == run_chunks_hs_ref on every output and state plane (each sampler
-     x decision mode, and --hs, at C=1 and C=64, cold and live state;
-     the four sincos entries hs_demod takes from the table), and the
-     scan demods' serial chains per emitted symbol from their SASS;
+     x decision mode, the rrc sampler at its 4 and 2.4 Msps geometries,
+     a general tap count and taps past shared memory, and --hs at omega
+     2.0 and 1.2, at C = 1, 37 and 64, cold and live state; the kernel
+     leaves its input state as it was; the four sincos entries hs_demod
+     takes from the table), and the scan demods' serial chains per
+     emitted symbol from their SASS, their gathers priced at L1 and at L2
+     hits (tools/latency_probe.cu's two pointer chases);
      demod kernel == demod_ref, every packed
      word and every state plane bit for bit (DEMOD_CHECKS: QPSK at C=64
      and C=8192, 8PSK at C=64, 4096 samples; QPSK and 16APSK at C in
@@ -97,7 +101,9 @@ Phases (any failure exits non-zero):
      Viterbi at S=1 and S=8 and with hard decisions, each with its own
      counters and gate, a first and a mid-stream scan launch against
      run_chunks_ref on SCAN_PLAIN samples, and scan_demod's and
-     hs_demod's times at the main paths' shapes; then the single-carrier
+     hs_demod's times at the main paths' shapes (SCAN_TIMED: the fleet's
+     launch, the S=8 fleet's pass 2, one carrier's read at 4 and 2.4
+     Msps; hs_demod at omega 2.0 and 1.2); then the single-carrier
      receiver (leandvb's DvbsReceiver,
      in its 2^17-sample reads) on ten streams, each with its own zeroed
      counters: rtl_sdr u8 at 2.4 Msps with a birdie (the CLI defaults:
@@ -181,7 +187,7 @@ DEMOD_CHECKS = (
 ASSUMED_CHAIN_CYCLES = 90 * 4
 DEMOD_QPSK_FUNCTION = "demod_kernelILb1E"     # demod_kernel<true>
 TOOLS = Path(__file__).resolve().parent / "tools"
-LATENCY_PROBES = 25                           # tools/latency_probe.cu
+LATENCY_PROBES = 26                           # tools/latency_probe.cu
 # The ACS kernel's per-block chain, from its SASS the same way: per
 # mode (function, marker, markers per block, least markers in the
 # loop). This kernel's loops hold its warp reductions (REDUX, no MUFU):
@@ -203,16 +209,33 @@ SC_LIVE_LAUNCH = {"demod": 20, "cfir": 20, "acs": 4000, "acs_banked": 4000,
                   "scan_demod": 20, "hs_demod": 20}
 SC_DEMOD_CHECK = 1024
 # The scan demods (slice 6) against their plain versions: every sampler
-# x decision mode (and --hs) at these channel counts over SCAN_CHUNKS
-# chunks, from the cold state and again from the kernel's end state; the
-# fleet's main-path launches on their first SCAN_PLAIN samples.
-SCAN_CHECK_C = (1, NCHAN)
+# x decision mode (and --hs) at these channel counts (37: a ragged last
+# block) over SCAN_CHUNKS chunks, from the cold state and again from the
+# kernel's end state; the fleet's main-path launches on their first
+# SCAN_PLAIN samples.
+SCAN_CHECK_C = (1, 37, NCHAN)
 SCAN_CHUNKS = 2
 SCAN_PLAIN = 256
-SCAN_FUNCTIONS = {                 # scan_kernel<SAMPLER, EXACT> in SASS
-    ("nearest", True): "scan_kernelILi0ELb1E",
-    ("linear", True): "scan_kernelILi1ELb1E",
-    ("linear", False): "scan_kernelILi1ELb0E",
+# The rrc geometries held against the twin: (label, sample rate, RxConfig
+# fields): the fleet's at 4 Msps (499 coefficients in steps of 32, 16 taps
+# per window), the 2.4 Msps stream's (497 in 53, 10 taps), a tap count
+# with no instance of its own (rrc_rej 15: 251 in 32, 8 taps; the general
+# shared-memory instance) and taps that do not fit beside the input ring
+# (rrc_steps 2048: 31917 in 2048, 16 taps; the device-memory instance).
+SCAN_RRC = (("rrc", 4e6, {}), ("rrc 2.4 Msps", 2.4e6, {}),
+            ("rrc rej 15", 4e6, {"rrc_rej": 15.0}),
+            ("rrc steps 2048", 4e6, {"rrc_steps": 2048}))
+# The scan kernels' sample loops in SASS: scan_kernel<SAMPLER, EXACT, NT,
+# SUB, TAPS_SHARED> by its mangled name, the instances the timed shapes
+# run (SCAN_TIMED). The loop is the smallest one holding the packed
+# word's STG and FMNMX (mucorr's clamp; the rrc re-shift loop holds
+# neither).
+SCAN_FUNCTIONS = {
+    "nearest exact": "scan_kernelILi0ELb1ELi0ELi0ELb0E",
+    "linear exact": "scan_kernelILi1ELb1ELi0ELi0ELb0E",
+    "linear computed": "scan_kernelILi1ELb0ELi0ELi0ELb0E",
+    "rrc exact": "scan_kernelILi2ELb1ELi16ELi32ELb1E",
+    "rrc exact 2.4 Msps": "scan_kernelILi2ELb1ELi10ELi53ELb1E",
 }
 # Item 24's stimulus (ROADMAP): a 2 Msym/s rate-1/2 carrier at 2.4 Msps
 # behind a brick-wall front end, resample_poly(z, 6, 5), no noise.
@@ -303,7 +326,9 @@ def latency_table(build, dev) -> tuple:
     fixed-latency pipe) is the largest of FADD, FMUL, FFMA, FMNMX, FSEL,
     SHF and IMAD; FSETP, MUFU.RCP, MUFU.SIN and MUFU.RSQ are their pair
     less the partner; F2I and I2F(P) half their pair; LDG a load that hits
-    L1 (the scan demods' table gathers). Returns (the
+    L1 (the scan demods' table gathers) and LDG.L2 one that hits L2 (no
+    SASS opcode reads that key: scan_chain prices LDG with it to bound a
+    chain whose gathers miss L1). Returns (the
     demod's table, the keys its chain count uses; the integer table for
     the ACS kernels: that plus SHFL.IDX, SHFL.BFLY, IMNMX/VIMNMX/VIMNMX3,
     SEL, ISETP (its pair less SEL), REDUX, VIADDMNMX, and the shared-memory
@@ -330,7 +355,7 @@ def latency_table(build, dev) -> tuple:
             fail(f"latency probe: CUDA error {err}")
     (fadd, fmul, ffma, fmnmx, fsel, fsetp_fsel, shf, imad, conv_pair, trunc,
      floor, rcp_fadd, sin_pair, rsq_fadd, lds, shfl_idx, shfl_bfly, imnmx,
-     sel, isetp_sel, redux, xchg_bar, xchg_warp, viaddmnmx, ldg) = (
+     sel, isetp_sel, redux, xchg_bar, xchg_warp, viaddmnmx, ldg, ldg_l2) = (
         cyc.cpu().double() / lib.probe_rep()).tolist()
     lat = {"fixed": max(fadd, fmul, ffma, fmnmx, fsel, shf, imad),
            "FSETP": fsetp_fsel - fsel, "F2I": conv_pair / 2,
@@ -338,7 +363,7 @@ def latency_table(build, dev) -> tuple:
            "FRND.FLOOR": floor, "FRND": max(trunc, floor),
            "MUFU.RCP": rcp_fadd - fadd, "MUFU.SIN": sin_pair - fmul,
            "MUFU.COS": sin_pair - fmul, "MUFU.RSQ": rsq_fadd - fadd,
-           "LDS": lds, "LDG": ldg}
+           "LDS": lds, "LDG": ldg, "LDG.L2": ldg_l2}
     lat_int = dict(lat, **{"SHFL.IDX": shfl_idx, "SHFL.BFLY": shfl_bfly,
                            "IMNMX": imnmx, "VIMNMX": imnmx,
                            "VIMNMX3": imnmx, "SEL": sel,
@@ -1757,15 +1782,16 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
 
 # ------------------------------------------- the scan demods (slice 6)
 
-def scan_params(sampler, exact, fs=4e6):
+def scan_params(sampler, exact, fs=4e6, **fields):
     """The scan demod's parameters as the receivers build them at sample
     rate fs for 2 Msym/s QPSK (the rrc sampler's polyphase coefficients
-    at fs: 499 taps in steps of 32 at 4 Msps, 497 in 53 at 2.4 Msps)."""
+    at fs: 499 taps in steps of 32 at 4 Msps, 497 in 53 at 2.4 Msps;
+    `fields` are further RxConfig fields, rrc_rej)."""
     from leansdr_tpu_torch.dsp import receiver
     from leansdr_tpu_torch.pipelines.dvbs_rx import RxConfig, rrc_sampler
     co, steps = ((), 1)
     if sampler == "rrc":
-        co, steps = rrc_sampler(fs, RxConfig(Fs=fs, Fm=2e6))
+        co, steps = rrc_sampler(fs, RxConfig(Fs=fs, Fm=2e6, **fields))
     return receiver.ReceiverParams(omega=fs / 2e6, sampler=sampler,
                                    exact_lut=exact, rrc_coeffs=co,
                                    rrc_steps=steps)
@@ -1773,9 +1799,13 @@ def scan_params(sampler, exact, fs=4e6):
 
 def _scan_compare(tag, kern, ref, args):
     """kern(*args) and ref(*args): every output and state plane equal
-    (torch.equal). Returns (kernel result, plain ms)."""
+    (torch.equal), and the kernel left its input state as it was. Returns
+    (kernel result, plain ms)."""
+    before = _flat(_clone(args[2]))
     k = kern(*args)
     torch.cuda.synchronize()
+    if not all(torch.equal(u, w) for u, w in zip(before, _flat(args[2]))):
+        fail(f"{tag}: the kernel wrote its input state")
     t0 = time.perf_counter()
     r = ref(*args)
     torch.cuda.synchronize()
@@ -1792,51 +1822,68 @@ def _scan_compare(tag, kern, ref, args):
 def check_scan_demod(dev, gen):
     """scan_demod == run_chunks_ref and hs_demod == run_chunks_hs_ref, on
     every output and state plane bit for bit: each sampler (nearest,
-    linear, rrc at 4 Msps) x decision mode (exact LUT, computed) and
-    --hs, at C in SCAN_CHECK_C over SCAN_CHUNKS chunks, from the cold
-    state and again from the kernel's end state on the next samples.
-    Also the four sincos entries hs_demod takes from the table. Returns
-    (max |diff| 0.0, the plain version's ms and shape)."""
+    linear, and rrc at each SCAN_RRC geometry: the 16- and 10-tap
+    instances, the general shared-memory one, the device-memory one) x
+    decision mode (exact LUT, computed) and --hs (omega 2.0 and 1.2), at C
+    in SCAN_CHECK_C over SCAN_CHUNKS chunks, from the cold state and again
+    from the kernel's end state on the next samples; the rrc launches'
+    instance from the wrapper's counter. Also the four sincos entries
+    hs_demod takes from the table. Returns (max |diff| 0.0, the plain
+    version's ms per case)."""
     from leansdr_tpu_torch.dsp import receiver, receiver_hs
     from leansdr_tpu_torch.dsp.cstln import Predef, make_dvbs2_constellation
     tables = receiver.make_tables(make_dvbs2_constellation(Predef.QPSK, "1/2"),
                                   dev)
     plain = {}
-    for sampler in ("nearest", "linear", "rrc"):
+    cases = [(s, 4e6, {}) for s in ("nearest", "linear")] + list(SCAN_RRC)
+    for label, fs, fields in cases:
         for exact in (True, False):
-            p = scan_params(sampler, exact)
+            p = scan_params(label.split()[0], exact, fs, **fields)
+            device_taps = (p.sampler == "rrc"
+                           and not receiver.taps_in_shared(p, 4))
+            if device_taps != ("steps 2048" in label):
+                fail(f"scan_demod {label}: taps_in_shared "
+                     f"{not device_taps}, smem {receiver.smem_bytes(p, 4)}")
             n = SCAN_CHUNKS * receiver.CHUNK
             for C in SCAN_CHECK_C:
                 x = demod_stimulus("QPSK", "1/2", C, 2 * n + p.readahead - 1,
                                    dev, gen)
                 st = receiver.init_state(p, C, dev)
                 emitted = 0
+                d0 = receiver.run_chunks.launches_device_taps
                 for part in (0, 1):
                     xs = x[:, part * n:(part + 1) * n + p.readahead]
                     (st, out), ms = _scan_compare(
-                        f"scan_demod {sampler} exact={exact} C={C}",
+                        f"scan_demod {label} exact={exact} C={C}",
                         receiver.run_chunks, receiver.run_chunks_ref,
                         (p, tables, st, xs.contiguous()))
                     emitted += int(out["valid"].sum())
-                plain[(sampler, exact, C)] = ms
+                if receiver.run_chunks.launches_device_taps - d0 != (
+                        2 if device_taps else 0):
+                    fail(f"scan_demod {label} C={C}: not the "
+                         f"{'device' if device_taps else 'shared'}-memory "
+                         "instance")
+                plain[(label, exact, C)] = ms
                 if emitted < C * n // 2:
-                    fail(f"scan_demod {sampler} exact={exact} C={C}: "
+                    fail(f"scan_demod {label} exact={exact} C={C}: "
                          f"{emitted} symbols in {2 * n} samples")
-    hp = receiver_hs.HsParams(omega=2.0)
     ht = receiver_hs.hs_tables(dev)
-    for C in SCAN_CHECK_C:
-        n = SCAN_CHUNKS * receiver_hs.CHUNK
-        x = demod_stimulus("QPSK", "1/2", C, 2 * n, dev, gen)
-        x = torch.clamp(torch.round(x * (40 / 75.0) + 128), 0,
-                        255).to(torch.int32)
-        st = receiver_hs.init_state(hp, C, dev)
-        for part in (0, 1):
-            (st, out), ms = _scan_compare(
-                f"hs_demod C={C}", receiver_hs.run_chunks_hs,
-                receiver_hs.run_chunks_hs_ref,
-                (hp, ht, st, x[:, part * n:(part + 1) * n + 1].contiguous()))
-        plain[("hs", C)] = ms
-    args = receiver_hs._hs_args(hp)
+    for omega in (2.0, 1.2):
+        hp = receiver_hs.HsParams(omega=omega)
+        for C in SCAN_CHECK_C:
+            n = SCAN_CHUNKS * receiver_hs.CHUNK
+            x = demod_stimulus("QPSK", "1/2", C, 2 * n, dev, gen)
+            x = torch.clamp(torch.round(x * (40 / 75.0) + 128), 0,
+                            255).to(torch.int32)
+            st = receiver_hs.init_state(hp, C, dev)
+            for part in (0, 1):
+                (st, out), ms = _scan_compare(
+                    f"hs_demod omega={omega} C={C}",
+                    receiver_hs.run_chunks_hs, receiver_hs.run_chunks_hs_ref,
+                    (hp, ht, st,
+                     x[:, part * n:(part + 1) * n + 1].contiguous()))
+            plain[("hs", omega, C)] = ms
+    args = receiver_hs._hs_args(receiver_hs.HsParams(omega=2.0))
     want = [(int(ht["sincos_re"][i]), int(ht["sincos_im"][i]))
             for i in receiver_hs.SINCOS_AT]
     if list(zip(args.sc_re, args.sc_im)) != want:
@@ -1844,8 +1891,9 @@ def check_scan_demod(dev, gen):
              f" != the table's {want}")
     print(f"scan_demod == run_chunks_ref and hs_demod == run_chunks_hs_ref "
           f"bit for bit (every output and state plane; 2 x {SCAN_CHUNKS} "
-          f"chunks at C in {SCAN_CHECK_C}; samplers nearest, linear, rrc x "
-          f"exact, computed); hs sincos entries at {receiver_hs.SINCOS_AT} "
+          f"chunks at C in {SCAN_CHECK_C}; samplers nearest, linear, "
+          f"{', '.join(r[0] for r in SCAN_RRC)} x exact, computed; hs at "
+          f"omega 2.0, 1.2); hs sincos entries at {receiver_hs.SINCOS_AT} "
           f"== table {want}; plain ms per call: " + ", ".join(
               f"{k} {v:.0f}" for k, v in plain.items()))
     return 0.0, plain
@@ -1853,34 +1901,36 @@ def check_scan_demod(dev, gen):
 
 def scan_chain(built, lat, clock) -> dict:
     """The scan demods' serial chain per emitted symbol from their built
-    libraries' SASS (tools/sass_chain.py --hot-loads: the sample loop,
-    the one holding the packed word's STS and F2I, with the emitting
-    step's table gathers kept and priced at the LDG latency of
-    tools/latency_probe.cu): scan_kernel per SCAN_FUNCTIONS and hs_kernel
-    per sample. The rrc variant's emitting step holds its tap loop, which
-    the tool leaves out; its chain is the nearest step's (the same
-    rotation, decision and loops) plus the tap sum's ntaps dependent adds
-    at the table's fixed latency."""
+    libraries' SASS (tools/sass_chain.py --hot-loads: the symbol loop per
+    SCAN_FUNCTIONS, the emitting step with its table gathers kept),
+    scan_kernel per emitted symbol and hs_kernel per sample. The scan
+    kernels' gathers (LDG) are priced twice: at the L1-hit latency of
+    tools/latency_probe.cu (`cycles_per_step`) and at its L2-hit latency
+    (`cycles_per_step_l2`); hs_kernel's gathers are shared-memory loads
+    (LDS)."""
     sys.path.insert(0, str(TOOLS))
     import sass_chain
     text = sass_of(built["scan_demod"][0])
+    lat_l2 = dict(lat, LDG=lat["LDG.L2"])
     out = {}
-    for (sampler, exact), fn in SCAN_FUNCTIONS.items():
-        out[f"{sampler} {'exact' if exact else 'computed'}"] = \
-            sass_chain.analyse(text, fn, lat, "STS", "F2I", hot_loads=True)
-    ntaps = scan_params("rrc", True).readahead
-    out["rrc exact"] = dict(out["nearest exact"], tap_adds=ntaps,
-                            cycles_per_step=out["nearest exact"][
-                                "cycles_per_step"] + ntaps * lat["fixed"])
+    for key, fn in SCAN_FUNCTIONS.items():
+        r = sass_chain.analyse(text, fn, lat, "STG", "FMNMX", hot_loads=True)
+        r["cycles_per_step_l2"] = sass_chain.analyse(
+            text, fn, lat_l2, "STG", "FMNMX",
+            hot_loads=True)["cycles_per_step"]
+        out[key] = r
     out["hs"] = sass_chain.analyse(sass_of(built["hs_demod"][0]),
                                    "hs_kernel", lat, "STS", "F2I")
+    out["hs"]["cycles_per_step_l2"] = out["hs"]["cycles_per_step"]
     for k, r in out.items():
-        print(f"scan chain [{k}] (tools/sass_chain.py, {r['function'][:40]}"
+        print(f"scan chain [{k}] (tools/sass_chain.py, {r['function'][:48]}"
               f" loop {r['loop'][0]}-{r['loop'][1]}): "
               f"{r['cycles_per_step']:.1f} cycles per step "
-              f"({r['cycles_per_step'] / clock * 1e9:.1f} ns), "
+              f"({r['cycles_per_step'] / clock * 1e9:.1f} ns; gathers at "
+              f"L2 {r['cycles_per_step_l2']:.1f}), "
               f"{r['path_instructions_per_step']:.1f} instructions on the "
-              f"path, issue {r['issue_cycles_per_step']:.1f} cycles; "
+              f"path, {r['instructions_per_step']:.1f} per step, issue "
+              f"{r['issue_cycles_per_step']:.1f} cycles; mix {r['mix']}; "
               f"priced as fixed-pipe: {', '.join(r['priced_as_fixed'])}")
     return out
 
@@ -1918,27 +1968,58 @@ def exact_fleet_path(dev, frames, S=1, viterbi=True):
     return run
 
 
+def stimulus_24(frames, n):
+    """Carrier 0 of the fleet's 4 Msps stimulus resampled to 2.4 Msps (a
+    2 Msym/s carrier at 1.2 samples per symbol, as the canonical stream),
+    [1, n, 2] float32 on the stimulus's device."""
+    from scipy.signal import resample_poly
+    m = int(n / 0.6) + 64
+    z = frames[0, :m].double().cpu().numpy()
+    y = resample_poly(z[:, 0] + 1j * z[:, 1], 3, 5)[:n]
+    return torch.from_numpy(np.stack([y.real, y.imag], -1)[None].astype(
+        np.float32)).to(frames.device)
+
+
+# scan_times' shapes: (key, C, samples, sampler, sample rate, chain key);
+# C=512 x (2^15 + 128) is the S=8 fleet's pass-2 launch.
+SCAN_TIMED = (("fleet", NCHAN, CHUNK_SAMPLES, "rrc", 4e6, "rrc exact"),
+              ("pass2", 512, (1 << 15) + 128, "rrc", 4e6, "rrc exact"),
+              ("single", 1, 1 << 17, "linear", 4e6, "linear exact"),
+              ("single rrc 2.4", 1, 1 << 17, "rrc", 2.4e6,
+               "rrc exact 2.4 Msps"))
+
+
 def scan_times(dev, frames, chains, clock) -> dict:
-    """The scan demods at the main paths' shapes (CUDA events), on the
-    fleet's rate-1/2 stimulus: the fleet launch (C=64, one 2^18-sample
-    chunk, exact LUT, polyphase rrc), a single carrier's per-read launch
-    (C=1, 2^17 samples, exact LUT, linear) and hs_demod's (C=1, 2^17,
-    the stimulus as u8 at 40 LSB), each from the state one launch over
-    the same samples left. Bounds: bytes (input, tables and state read
-    once, packed words and per-chunk measurements written once) over
-    3.35 TB/s; the serial chain of scan_chain times the symbols this
-    input emits per carrier (hs: per sample) over the max SM clock."""
+    """The scan demods at the main paths' shapes (CUDA events), exact LUT,
+    SCAN_TIMED: the fleet launch (C=64, one 2^18-sample chunk, polyphase
+    rrc), the S=8 fleet's pass-2 launch (C=512: eight 2^15 + 128-sample
+    windows of each carrier), a single carrier's per-read launch (C=1,
+    2^17 samples, linear at 4 Msps; rrc at 2.4 Msps on carrier 0
+    resampled), and hs_demod's (C=1, 2^17, the stimulus as u8 at 40 LSB,
+    at omega 2.0 and, resampled, the --hs stream's 1.2), each from the
+    state one launch over the same samples left. Bounds: bytes (input,
+    tables and state read once, packed words and per-chunk measurements
+    written once) over 3.35 TB/s; the serial chain of scan_chain times
+    the symbols this input emits per carrier (hs: per sample) over the
+    max SM clock, its gathers priced at L1 and at L2 hits. Beside each,
+    the cycles per emitted symbol (hs: per sample) the time gives."""
     from leansdr_tpu_torch.dsp import receiver, receiver_hs
     from leansdr_tpu_torch.dsp.cstln import Predef, make_dvbs2_constellation
     tables = receiver.make_tables(make_dvbs2_constellation(Predef.QPSK, "1/2"),
                                   dev)
     tab_bytes = sum(t.numel() * t.element_size() for t in tables.values())
+    x24 = stimulus_24(frames, (1 << 17) + 64)
     out = {}
-    for key, C, n, sampler, chain_key in (
-            ("fleet", NCHAN, CHUNK_SAMPLES, "rrc", "rrc exact"),
-            ("single", 1, 1 << 17, "linear", "linear exact")):
-        p = scan_params(sampler, True)
-        x = frames[:C, :n + p.readahead].contiguous()
+    for key, C, n, sampler, fs, chain_key in SCAN_TIMED:
+        p = scan_params(sampler, True, fs)
+        n1 = n + p.readahead
+        if key == "pass2":
+            x = torch.cat([frames[:, o:o + n1] for o in range(
+                0, 8 << 15, 1 << 15)]).contiguous()
+        elif fs == 2.4e6:
+            x = x24[:, :n1].contiguous()
+        else:
+            x = frames[:C, :n1].contiguous()
         st = receiver.init_state(p, C, dev)
         st, o = receiver.run_chunks(p, tables, st, x)   # a locked state
         ms = cuda_time(lambda: receiver.run_chunks(p, tables, st, x), reps=3)
@@ -1946,31 +2027,43 @@ def scan_times(dev, frames, chains, clock) -> dict:
         K = n // receiver.CHUNK
         nbytes = (x.numel() * 4 + tab_bytes + C * n * 4 + C * K * 24
                   + 2 * C * (21 * 4 + len(p.rrc_coeffs) * 8))
-        cyc = chains[chain_key]["cycles_per_step"]
-        chain_b = emitted / C * cyc / clock * 1e3
+        ch = chains[chain_key]
+        per = emitted / C / clock * 1e3
         # ~100 float operations per emitted symbol (sampler, decision,
         # loops), 8 per sample: far below the bytes.
         out[key] = dict(ms=ms, bound=bound_ms(nbytes, emitted * 100.0
                                               + C * n * 8.0),
-                        chain_bound_ms=chain_b, emitted=emitted,
-                        shape=f"C={C} nsamp={n} {sampler} exact")
-    hp = receiver_hs.HsParams(omega=2.0)
+                        chain_bound_ms=per * ch["cycles_per_step"],
+                        chain_bound_ms_l2=per * ch["cycles_per_step_l2"],
+                        cycles_per_step=ms / per, emitted=emitted,
+                        shape=f"C={C} nsamp={n} {sampler} exact"
+                              f"{'' if fs == 4e6 else ' 2.4 Msps'}")
     ht = receiver_hs.hs_tables(dev)
     n = 1 << 17
-    x = torch.clamp(torch.round(frames[:1, :n + 1] * (40 / 75.0) + 128), 0,
-                    255).to(torch.int32)
-    st, _ = receiver_hs.run_chunks_hs(hp, ht, receiver_hs.init_state(hp, 1,
-                                                                      dev), x)
-    ms = cuda_time(lambda: receiver_hs.run_chunks_hs(hp, ht, st, x), reps=3)
     htab = sum(ht[k].numel() * ht[k].element_size()
-               for k in ("polar_a16", "polar_r8", "rect_re8", "rect_im8"))
-    out["hs"] = dict(ms=ms, bound=bound_ms(x.numel() * 4 + htab + n * 4, 0.0),
-                     chain_bound_ms=n * chains["hs"]["cycles_per_step"]
-                     / clock * 1e3, shape=f"C=1 nsamp={n}")
+               for k in ("polar_a16", "rect16", "polar_w"))
+    for key, omega, src in (("hs", 2.0, frames[:1]), ("hs 1.2", 1.2, x24)):
+        hp = receiver_hs.HsParams(omega=omega)
+        x = torch.clamp(torch.round(src[:, :n + 1] * (40 / 75.0) + 128), 0,
+                        255).to(torch.int32).contiguous()
+        st, _ = receiver_hs.run_chunks_hs(
+            hp, ht, receiver_hs.init_state(hp, 1, dev), x)
+        ms = cuda_time(lambda: receiver_hs.run_chunks_hs(hp, ht, st, x),
+                       reps=3)
+        per = n / clock * 1e3
+        out[key] = dict(ms=ms, bound=bound_ms(x.numel() * 4 + htab + n * 4,
+                                              0.0),
+                        chain_bound_ms=per * chains["hs"]["cycles_per_step"],
+                        cycles_per_step=ms / per,
+                        shape=f"C=1 nsamp={n} omega {omega}")
     for k, v in out.items():
-        print(f"kernel scan/{k} {v['shape']}: {v['ms']:.3f} ms, bound "
-              f"{v['bound'][0]:.4f} ms ({v['bound'][1]}), serial chain "
-              f"{v['chain_bound_ms']:.3f} ms")
+        print(f"kernel scan/{k} {v['shape']}: {v['ms']:.3f} ms "
+              f"({v['cycles_per_step']:.1f} cycles per "
+              f"{'sample' if k.startswith('hs') else 'emitted symbol'}), "
+              f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}), serial chain "
+              f"{v['chain_bound_ms']:.3f} ms" + (
+                  f" (gathers at L2: {v['chain_bound_ms_l2']:.3f})"
+                  if "chain_bound_ms_l2" in v else ""))
     return out
 
 
@@ -2429,7 +2522,9 @@ def main() -> int:
           f"(g++): {native_s:.1f} s")
     for name, (so, report) in built.items():
         lines = [l.strip() for l in report.splitlines()
-                 if "registers" in l or "spill" in l]
+                 if "registers" in l or "spill" in l
+                 or (name in ("scan_demod", "hs_demod")
+                     and "Compiling entry" in l)]
         print(f"  {name}: {so.name}: " + " | ".join(lines))
 
     clock = max_sm_clock_hz()
@@ -2675,14 +2770,18 @@ def main() -> int:
          "chain_bound_ms": stimes["fleet"]["chain_bound_ms"],
          "chain_source": "tools/sass_chain.py --hot-loads on cuobjdump "
                          "-sass of the built scan_demod, per emitted "
-                         "symbol (rrc: + its tap adds), latencies from "
-                         "tools/latency_probe.cu on this card",
+                         "symbol, latencies from tools/latency_probe.cu on "
+                         "this card (gathers at its L1 and L2 hits)",
          "chain_cycles_per_symbol": {k: r["cycles_per_step"]
                                      for k, r in s_chain.items()
                                      if k != "hs"},
-         "single": {k: stimes["single"][k] for k in (
-             "ms", "chain_bound_ms", "shape")} | {
-             "bound_ms": stimes["single"]["bound"][0]},
+         "chain_cycles_per_symbol_l2": {k: r["cycles_per_step_l2"]
+                                        for k, r in s_chain.items()
+                                        if k != "hs"},
+         "shapes": {k: {f: v[f] for f in (
+             "ms", "chain_bound_ms", "chain_bound_ms_l2", "cycles_per_step",
+             "shape")} | {"bound_ms": v["bound"][0]}
+             for k, v in stimes.items() if not k.startswith("hs")},
          "plain_ms_by_case": {str(k): v for k, v in s_plain.items()
                               if k[0] != "hs"}},
         {"name": "hs_demod", "route": "cuda",
@@ -2691,14 +2790,17 @@ def main() -> int:
                      "a lax.scan: no Pallas kernel)",
          "launches": hs_run["launches"]["hs_demod"],
          "launches_path": "hs (single carrier)",
-         "max_abs_err": s_err, "ms": stimes["hs"]["ms"],
-         "plain_ms": s_plain[("hs", NCHAN)],
-         "plain_shape": f"C={NCHAN} nsamp={SCAN_CHUNKS * 128}",
-         "bound_ms": stimes["hs"]["bound"][0],
-         "bound_by": stimes["hs"]["bound"][1], "library_ms": None,
-         "shape": stimes["hs"]["shape"],
-         "chain_bound_ms": stimes["hs"]["chain_bound_ms"],
-         "chain_cycles_per_sample": s_chain["hs"]["cycles_per_step"]},
+         "max_abs_err": s_err, "ms": stimes["hs 1.2"]["ms"],
+         "plain_ms": s_plain[("hs", 1.2, NCHAN)],
+         "plain_shape": f"C={NCHAN} nsamp={SCAN_CHUNKS * 128} omega 1.2",
+         "bound_ms": stimes["hs 1.2"]["bound"][0],
+         "bound_by": stimes["hs 1.2"]["bound"][1], "library_ms": None,
+         "shape": stimes["hs 1.2"]["shape"],
+         "chain_bound_ms": stimes["hs 1.2"]["chain_bound_ms"],
+         "chain_cycles_per_sample": s_chain["hs"]["cycles_per_step"],
+         "cycles_per_sample": stimes["hs 1.2"]["cycles_per_step"],
+         "omega_2": {f: stimes["hs"][f] for f in (
+             "ms", "chain_bound_ms", "cycles_per_step", "shape")}},
     ]
     for k in kernels:
         k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}

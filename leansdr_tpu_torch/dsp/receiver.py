@@ -421,6 +421,7 @@ NSTATE = 19      # float planes: mu, phase, freqw, agc_gain, est_insp,
 SMEM_LIMIT = 232448
 
 
+
 class _ScanArgs(ctypes.Structure):
     """Mirror of `struct ScanArgs` in csrc/scan_demod.cu."""
     _fields_ = [
@@ -436,6 +437,7 @@ class _ScanArgs(ctypes.Structure):
         ("allow_drift", ctypes.c_int), ("meas_decimation", ctypes.c_int),
         ("ncoeffs", ctypes.c_int), ("sub", ctypes.c_int),
         ("ntaps", ctypes.c_int), ("readahead", ctypes.c_int),
+        ("taps_shared", ctypes.c_int),
     ]
 
 
@@ -488,16 +490,33 @@ def _scan_args(params: ReceiverParams, nsym: int) -> _ScanArgs:
     a.meas_decimation = params.meas_decimation
     if params.sampler == "rrc":
         a.ncoeffs, a.sub, a.ntaps = _rrc(params)
+        a.taps_shared = int(taps_in_shared(params, nsym))
     a.readahead = params.readahead
     return a
 
 
+def _ring_bytes(params: ReceiverParams, nsym: int) -> int:
+    """One channel's two stages of CHUNK + readahead input rows and the
+    constellation rows."""
+    return 2 * (CHUNK + params.readahead) * 8 + 3 * nsym * 4
+
+
+def taps_in_shared(params: ReceiverParams, nsym: int) -> bool:
+    """Whether the rrc sampler's shifted coefficients (one channel's
+    ncoeffs float2) fit in the kernel's shared memory beside the input
+    ring: the shared-memory instance of the kernel, else the
+    device-memory one (past ~29,000 coefficients; the CLI's geometries
+    have 499 and 497)."""
+    return (params.sampler == "rrc" and _ring_bytes(params, nsym)
+            + len(params.rrc_coeffs) * 8 <= SMEM_LIMIT)
+
+
 def smem_bytes(params: ReceiverParams, nsym: int) -> int:
-    """The kernel's dynamic shared memory: two stages of CHUNK +
-    readahead input rows for 32 channels, the packed-word tile and the
-    constellation rows (the formula of scan_demod_launch)."""
-    return (2 * (CHUNK + params.readahead) * 32 * 8 + CHUNK * 32 * 4
-            + 3 * nsym * 4)
+    """The kernel's dynamic shared memory (the formula of
+    scan_demod_launch): the input ring and constellation rows, plus the
+    rrc taps where they fit (`taps_in_shared`)."""
+    taps = len(params.rrc_coeffs) * 8 if taps_in_shared(params, nsym) else 0
+    return _ring_bytes(params, nsym) + taps
 
 
 @lru_cache(maxsize=64)
@@ -529,7 +548,9 @@ def run_chunks(params: ReceiverParams, tables: dict, state: dict,
     scan state dict. Returns (state, outputs) as `run_chunks_ref`.
 
     CPU tensors run `run_chunks_ref`; CUDA tensors launch
-    csrc/scan_demod.cu (one launch for the C channels x K chunks)."""
+    csrc/scan_demod.cu (one launch for the C channels x K chunks; with
+    the rrc sampler its shared-memory instance where the taps fit, else
+    its device-memory instance)."""
     if x.device.type == "cpu":
         return run_chunks_ref(params, tables, state, x)
     C, nsamp, K = _geometry(params, x)
@@ -553,8 +574,10 @@ def run_chunks(params: ReceiverParams, tables: dict, state: dict,
         nc = len(params.rrc_coeffs)
         _dev.check_tensor("rrc_shifted", state["rrc_shifted"].contiguous(),
                           torch.float32, (C, nc, 2), dev)
-        # [nc, C, 2]: a chunk's re-shift stores coalesced across the warp.
-        shifted = state["rrc_shifted"].transpose(0, 1).contiguous()
+        # [nc, C, 2], coalesced across the warp; a copy, which the kernel
+        # overwrites with the end state (never the caller's tensor).
+        shifted = state["rrc_shifted"].transpose(0, 1).clone(
+            memory_format=torch.contiguous_format)
     else:
         shifted = torch.empty(0, dtype=torch.float32, device=dev)
     fp_out, ip_out = torch.empty_like(fp), torch.empty_like(ip)
@@ -571,6 +594,8 @@ def run_chunks(params: ReceiverParams, tables: dict, state: dict,
         _dev.stream_handle(x))
     _dev.check_launch("scan_demod", err)
     _SCAN.launches += 1
+    if rrc and not args.taps_shared:
+        _SCAN.launches_device_taps += 1
     st = unpack_state(fp_out, ip_out,
                       shifted.transpose(0, 1) if rrc else None)
     return st, _outputs(words.T, meta, nmeas)
@@ -578,6 +603,8 @@ def run_chunks(params: ReceiverParams, tables: dict, state: dict,
 
 # Launch count of the kernel (a plain integer; increments only where the
 # kernel launches), bound through an alias so a caller that rebinds the
-# module attribute still counts.
+# module attribute still counts; `launches_device_taps` counts those of
+# them that ran the rrc device-memory instance (taps_in_shared False).
 run_chunks.launches = 0
+run_chunks.launches_device_taps = 0
 _SCAN = run_chunks

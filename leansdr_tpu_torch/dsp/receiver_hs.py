@@ -64,15 +64,37 @@ def _tables_np() -> dict:
     }
 
 
+# The largest polar radius is trunc(hypot(128, 128)) = 181, so of the rect
+# index a * 256 + (r >> 1) only the columns r >> 1 < RECT_COLS are reached.
+RECT_COLS = 91
+
+
 def hs_tables(device) -> dict:
     """The JAX hs_tables on `device` (int32 entries), plus the kernel's
-    narrow copies: polar angle i16 and radius u8, rect planes u8."""
-    t = {k: torch.from_numpy(v).to(device) for k, v in _tables_np().items()}
+    three: `polar_a16`, the polar angle plane in i16; `polar_w`, the
+    polar word of each raw sample index (angle & 0xFFFF | radius << 16,
+    int32); `rect16`, the reachable rect entries packed rect_re |
+    rect_im << 8 radius-major ([RECT_COLS * 256] u16 bits in int16:
+    entry (r >> 1) * 256 + a)."""
+    tab = _tables_np()
+    t = {k: torch.from_numpy(v).to(device) for k, v in tab.items()}
     t["polar_a16"] = t["polar_a"].to(torch.int16)
-    t["polar_r8"] = t["polar_r"].to(torch.uint8)
-    t["rect_re8"] = t["rect_re"].to(torch.uint8)
-    t["rect_im8"] = t["rect_im"].to(torch.uint8)
+    t["polar_w"] = (t["polar_a"] & 0xFFFF) | (t["polar_r"] << 16)
+    re = tab["rect_re"].reshape(RLUT_ANGLES, 256)[:, :RECT_COLS]
+    im = tab["rect_im"].reshape(RLUT_ANGLES, 256)[:, :RECT_COLS]
+    packed = (re | im << 8).T.astype(np.uint16).view(np.int16)
+    t["rect16"] = torch.from_numpy(np.ascontiguousarray(packed).reshape(-1)
+                                   ).to(device)
     return t
+
+
+def polar_words(tables: dict, x: torch.Tensor) -> torch.Tensor:
+    """The polar word of every sample of x [C, nsamp+1, 2] (u8 IQ values)
+    as the kernel reads them: [nsamp+1, C] int32 rows, angle & 0xFFFF |
+    radius << 16 (the twin's pa[flat] and pr[flat], gathered in bulk as
+    JAX hoists them out of its scan)."""
+    flat = ((x[:, :, 0] * 256 + x[:, :, 1]) & 0xFFFF).to(torch.int64)
+    return tables["polar_w"][flat].T.contiguous()
 
 
 @dataclass(frozen=True)
@@ -270,7 +292,7 @@ def _kernel():
         lib = _dev.load("hs_demod")
         lib.hs_demod_launch.restype = ctypes.c_int
         lib.hs_demod_launch.argtypes = (
-            [ctypes.POINTER(_HsArgs)] + [ctypes.c_void_p] * 12
+            [ctypes.POINTER(_HsArgs)] + [ctypes.c_void_p] * 10
             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         _lib = lib
     return _lib
@@ -301,17 +323,18 @@ def run_chunks_hs(params: HsParams, tables: dict, state: dict,
     state dict. Returns (state, outputs) as `run_chunks_hs_ref`.
 
     CPU tensors run `run_chunks_hs_ref`; CUDA tensors launch
-    csrc/hs_demod.cu (one launch for the C channels x K chunks)."""
+    csrc/hs_demod.cu (one launch for the C channels x K chunks) on the
+    samples' polar words (`polar_words`)."""
     if x.device.type == "cpu":
         return run_chunks_hs_ref(params, tables, state, x)
     C, nsamp, K = _geometry(x)
     dev = x.device
     _dev.check_tensor("x", x, torch.int32, (C, nsamp + 1, 2), dev)
-    for k, dt in (("polar_a16", torch.int16), ("polar_r8", torch.uint8),
-                  ("rect_re8", torch.uint8), ("rect_im8", torch.uint8)):
-        _dev.check_tensor(k, tables[k], dt, (65536,), dev)
-    # The polar index of every sample, [nsamp+1, C]: coalesced rows.
-    flat = ((x[:, :, 0] * 256 + x[:, :, 1]) & 0xFFFF).T.contiguous()
+    for k, dt, n in (("polar_a16", torch.int16, 65536),
+                     ("polar_w", torch.int32, 65536),
+                     ("rect16", torch.int16, RECT_COLS * 256)):
+        _dev.check_tensor(k, tables[k], dt, (n,), dev)
+    pw = polar_words(tables, x)            # [nsamp+1, C]: coalesced rows
     mu, ip = pack_state(state)
     mu_out, ip_out = torch.empty_like(mu), torch.empty_like(ip)
     words = torch.empty((nsamp, C), dtype=torch.int32, device=dev)
@@ -319,8 +342,7 @@ def run_chunks_hs(params: HsParams, tables: dict, state: dict,
     meta = torch.empty((4, K, C), dtype=torch.int32, device=dev)
     err = _kernel().hs_demod_launch(
         ctypes.byref(_hs_args(params)), tables["polar_a16"].data_ptr(),
-        tables["polar_r8"].data_ptr(), tables["rect_re8"].data_ptr(),
-        tables["rect_im8"].data_ptr(), flat.data_ptr(), mu.data_ptr(),
+        tables["rect16"].data_ptr(), pw.data_ptr(), mu.data_ptr(),
         mu_out.data_ptr(), ip.data_ptr(), ip_out.data_ptr(),
         words.data_ptr(), freq.data_ptr(), meta.data_ptr(), C, nsamp,
         _dev.stream_handle(x))

@@ -62,10 +62,13 @@ def test_hs_tables_match_jax():
     for k, a in want.items():
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(a),
                                       err_msg=k)
-    for k8, k in (("polar_a16", "polar_a"), ("polar_r8", "polar_r"),
-                  ("rect_re8", "rect_re"), ("rect_im8", "rect_im")):
-        np.testing.assert_array_equal(got[k8].numpy().astype(np.int32),
-                                      np.asarray(want[k]), err_msg=k8)
+    # The kernel's polar tables (rect16: tests/test_torch_scan_layout.py).
+    np.testing.assert_array_equal(got["polar_a16"].numpy().astype(np.int32),
+                                  np.asarray(want["polar_a"]))
+    w = got["polar_w"].numpy()
+    np.testing.assert_array_equal(((w & 0xFFFF) ^ 0x8000) - 0x8000,
+                                  np.asarray(want["polar_a"]))
+    np.testing.assert_array_equal(w >> 16, np.asarray(want["polar_r"]))
     a = T._hs_args(T.HsParams(omega=2.0))
     sc = [(int(want["sincos_re"][i]), int(want["sincos_im"][i]))
           for i in T.SINCOS_AT]

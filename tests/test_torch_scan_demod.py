@@ -260,6 +260,25 @@ def test_lookup_float_and_expi_match_jax(jax):
         jax()["expi"])
 
 
+def test_agc_gain_is_correctly_rounded():
+    """The AGC's 75 / sqrt(est_insp) is the double quotient rounded once to
+    float32, at the first chunk end where JAX's differs ("nearest exact",
+    call 0, chunk 0, channel 2: est_insp 5604.848, bits 0x45af26c9; the
+    double quotient 1.0017961034606753 rounds to 1.00179613, the port's;
+    JAX's 1.00179601 is the float below it, from XLA:CPU's rewrite into a
+    multiply by an rsqrt that is not correctly rounded). No JAX here."""
+    fields, K = CASES["nearest exact"]
+    p = _params(T, fields)
+    x = np.ascontiguousarray(_calls(p, K)[0][:, :T.CHUNK + p.readahead])
+    st, _ = T.run_chunks(p, _tables(), T.init_state(p, C, "cpu"),
+                         torch.from_numpy(x))
+    e = st["est_insp"].numpy()
+    want = (75.0 / np.sqrt(e.astype(np.float64))).astype(np.float32)
+    np.testing.assert_array_equal(st["agc_gain"].numpy(), want)
+    assert e[2].view(np.uint32) == 0x45AF26C9
+    assert st["agc_gain"][2].item() == np.float32(1.00179613)
+
+
 def test_scan_kernel_build_geometry():
     """The kernel's launch geometry the wrapper checks on the CPU side:
     the staged input ring for the rrc readahead fits the shared memory

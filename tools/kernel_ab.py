@@ -1,6 +1,6 @@
-"""Time the demod, fft4096, acs, acs_banked, cfir and fir kernels of two
-checkouts of the port in one process on one card: a parent checkout and
-this tree.
+"""Time the demod, fft4096, acs, acs_banked, cfir, fir, scan_demod and
+hs_demod kernels of two checkouts of the port in one process on one
+card: a parent checkout and this tree.
 
     git archive <parent> | tar -x -C .chip_archive/parent
     python3 tools/kernel_ab.py --parent .chip_archive/parent
@@ -29,7 +29,15 @@ fleet's 3/4 and 7/8 shapes: ACQUIRE (512 lanes x 2^16 blocks; 1024 x
 2^15) and TRACK (64 lanes), costs 0..-79, and the hq 3/4 single
 carrier's launch (8 lanes x 128 blocks, from CUDA-graph replays); outputs
 equal. fir runs at 128 rows x 2^18 samples, 65 taps (the mean of 20
-calls); outputs equal. A time is the wrapper's:
+calls); outputs equal. scan_demod runs with the exact LUT at the main
+paths' shapes (SCAN_SHAPES): the fleet's rrc launch (64 x 2^18, 4 Msps),
+the S=8 fleet's pass 2 (512 x (2^15 + 128)), one carrier's read (1 x
+2^17) with the linear sampler at 4 Msps and the rrc sampler at 2.4 Msps,
+on noisy QPSK at the sample rate's samples per symbol with the fleet
+stimulus's carrier offsets (scaled by the rrc sampler's steps, its
+polyphase gain), from one state that a launch of the change left; hs_demod at one carrier's read (1 x 2^17) at omega 2.0
+and 1.2 (the --hs stream's), the same stimulus as u8 at 40 LSB; every
+output and state plane equal. A time is the wrapper's:
 kernel, input transpose and the parent's per-call table copy (cfir and
 the N=4 acs: the mean over 50 calls from CUDA-graph replays, as
 chip_smoke.py times them, so the host does not pace them). Also counts each side's acs loop chain
@@ -70,6 +78,13 @@ ACS_SHAPES = ((256, 1 << 17, False, 2), (64, 1 << 17, True, 2),
 BANKED_SHAPES = (("3/4", 512, 1 << 16, 1), ("3/4", 64, 1 << 16, 1),
                  ("7/8", 1024, 1 << 15, 1), ("7/8", 64, 1 << 15, 1),
                  ("3/4", 8, 128, GRAPH_CALLS))
+# (lanes, samples, sampler, sample rate, calls per timing)
+SCAN_SHAPES = ((64, 1 << 18, "rrc", 4e6, 1),
+               (512, (1 << 15) + 128, "rrc", 4e6, 2),
+               (1, 1 << 17, "linear", 4e6, 2),
+               (1, 1 << 17, "rrc", 2.4e6, 2))
+# (lanes, samples, omega, calls per timing)
+HS_SHAPES = ((1, 1 << 17, 2.0, 2), (1, 1 << 17, 1.2, 2))
 
 
 def load_port(root: Path, alias: str):
@@ -84,7 +99,8 @@ def load_port(root: Path, alias: str):
     return {m: importlib.import_module(f"{alias}.{m}")
             for m in ("device", "dsp.receiver", "dsp.receiver_kernel",
                       "dsp.fft_kernel", "dsp.cstln", "dsp.fir_kernel",
-                      "fec.viterbi_device", "fec.viterbi_banked")}
+                      "fec.viterbi_device", "fec.viterbi_banked",
+                      "dsp.receiver_hs", "pipelines.dvbs_rx")}
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -110,6 +126,103 @@ def qpsk(C: int, n: int, gen) -> torch.Tensor:
     x = (1 - d) * s[:, :-1] + d * s[:, 1:]
     return (x + 6.0 * torch.randn(x.shape, device=dev, generator=gen)
             ).contiguous()
+
+
+def qpsk_at(C: int, n: int, gen, sps: float) -> torch.Tensor:
+    """[C, n+1, 2]: random QPSK at `sps` samples per symbol (linear
+    interpolation), amplitude ~75, per-carrier fractional delays, carrier
+    offsets ((c % 64) - 32) * 5e-6 cycles per sample (the fleet
+    stimulus's; they move the trig16 index as a real carrier does),
+    noise."""
+    dev = gen.device
+    sym = (torch.randint(0, 2, (C, int(n / sps) + 3, 2), device=dev,
+                         generator=gen) * 2 - 1).float() * 53.0
+    d = torch.rand((C, 1), device=dev, generator=gen)
+    t = torch.arange(n + 1, device=dev)[None, :] / sps + d
+    i = t.long()
+    f = (t - i)[..., None]
+    x = (1 - f) * torch.gather(sym, 1, i[..., None].expand(-1, -1, 2)) \
+        + f * torch.gather(sym, 1, (i + 1)[..., None].expand(-1, -1, 2))
+    off = ((torch.arange(C, device=dev) % 64) - 32).double() * 5e-6
+    ang = (2 * np.pi * off[:, None] * torch.arange(
+        n + 1, device=dev).double()).float()
+    z = torch.complex(x[..., 0], x[..., 1]) * torch.polar(
+        torch.ones_like(ang), ang)
+    x = torch.stack([z.real, z.imag], -1)
+    return (x + 6.0 * torch.randn(x.shape, device=dev, generator=gen)
+            ).contiguous()
+
+
+def _clone(st: dict) -> dict:
+    return {k: v.clone() for k, v in st.items()}
+
+
+def _equal(a, b) -> bool:
+    """(state, outputs) of two wrappers: every tensor equal."""
+    def flat(v):
+        if torch.is_tensor(v):
+            return [v]
+        return [t for k in sorted(v) for t in flat(v[k])] if isinstance(
+            v, dict) else [t for w in v for t in flat(w)]
+    fa, fb = flat(a), flat(b)
+    return len(fa) == len(fb) and all(torch.equal(u, w)
+                                      for u, w in zip(fa, fb))
+
+
+def scan_case(ports, C, n, sampler, fs, reps, gen, pairs):
+    """scan_demod, exact LUT, from the state one launch of the change
+    left; each side times its own copy of that state."""
+    change = ports["change"]
+    co, steps = ((), 1)
+    if sampler == "rrc":
+        co, steps = change["pipelines.dvbs_rx"].rrc_sampler(
+            fs, change["pipelines.dvbs_rx"].RxConfig(Fs=fs, Fm=2e6))
+    fields = dict(omega=fs / 2e6, sampler=sampler, exact_lut=True,
+                  rrc_coeffs=co, rrc_steps=steps)
+    ra = change["dsp.receiver"].ReceiverParams(**fields).readahead
+    x = qpsk_at(C, n + ra - 1, gen, fs / 2e6) * float(steps)
+    fns, outs = {}, {}
+    st0 = None
+    for tag in ("change", "parent"):
+        rc = ports[tag]["dsp.receiver"]
+        cst = ports[tag]["dsp.cstln"]
+        params = rc.ReceiverParams(**fields)
+        tables = rc.make_tables(cst.make_dvbs2_constellation(
+            cst.Predef.QPSK, "1/2"), x.device)
+        if st0 is None:
+            st0, _ = rc.run_chunks(params, tables,
+                                   rc.init_state(params, C, x.device), x)
+            st0 = _clone(st0)
+        outs[tag] = rc.run_chunks(params, tables, _clone(st0), x)
+        st = _clone(st0)
+        fns[tag] = (lambda f, a: lambda: f(*a))(rc.run_chunks,
+                                                (params, tables, st, x))
+    return dict(kernel="scan_demod",
+                shape=f"C={C} nsamp={n} {sampler} exact {fs / 1e6:g} Msps",
+                equal=_equal(outs["parent"], outs["change"]),
+                **summary(paired(fns, reps, pairs)))
+
+
+def hs_case(ports, C, n, omega, reps, gen, pairs):
+    x = torch.clamp(torch.round(qpsk_at(C, n, gen, omega) * (40 / 75.0)
+                                + 128), 0, 255).to(torch.int32)
+    fns, outs = {}, {}
+    st0 = None
+    for tag in ("change", "parent"):
+        hs = ports[tag]["dsp.receiver_hs"]
+        params = hs.HsParams(omega=omega)
+        tables = hs.hs_tables(x.device)
+        if st0 is None:
+            st0, _ = hs.run_chunks_hs(params, tables,
+                                      hs.init_state(params, C, x.device), x)
+            st0 = _clone(st0)
+        outs[tag] = hs.run_chunks_hs(params, tables, _clone(st0), x)
+        st = _clone(st0)
+        fns[tag] = (lambda f, a: lambda: f(*a))(hs.run_chunks_hs,
+                                                (params, tables, st, x))
+    return dict(kernel="hs_demod", shape=f"C={C} nsamp={n} omega {omega}",
+                equal=_equal(outs["parent"], outs["change"]),
+                **summary(paired(fns, reps, pairs)))
 
 
 def paired(fns: dict, reps: int, pairs: int) -> dict:
@@ -328,7 +441,8 @@ def main(argv=None) -> int:
     ports = {"parent": load_port(a.parent.resolve(), "port_parent"),
              "change": load_port(REPO, "port_change")}
     for m in ports.values():
-        m["device"].build(["demod", "fft4096", "acs", "acs_banked", "fir"])
+        m["device"].build(["demod", "fft4096", "acs", "acs_banked", "fir",
+                           "scan_demod", "hs_demod"])
     chains = acs_chains(ports, torch.device("cuda", 0))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -341,6 +455,10 @@ def main(argv=None) -> int:
     rows += [demod_case(ports, C, n, om, reps, gen, a.pairs)
              for C, n, om, reps in DEMOD_SHAPES]
     rows.append(fft_case(ports, gen, a.pairs))
+    rows += [scan_case(ports, C, n, smp, fs, reps, gen, a.pairs)
+             for C, n, smp, fs, reps in SCAN_SHAPES]
+    rows += [hs_case(ports, C, n, om, reps, gen, a.pairs)
+             for C, n, om, reps in HS_SHAPES]
     for r in rows:
         sides = "; ".join(
             f"{k} {r[k]['median']:.4f} ms ({r[k]['q1']:.4f}-{r[k]['q3']:.4f})"

@@ -1,5 +1,5 @@
 // Dependent-instruction latencies on the card, for the serial bounds of
-// the demod and the ACS kernels (chip_smoke.py reads a kernel's loop
+// the demod, ACS and scan-demod kernels (chip_smoke.py reads a kernel's loop
 // from its SASS with tools/sass_chain.py and prices each instruction
 // with these).
 //
@@ -27,6 +27,8 @@
 //   23 VIADDMNMX (Hopper's fused add-min, __viaddmin_s32)
 //   24 LDG (a pointer chase in device memory that stays in L1: the
 //   scan demods' table gathers at indices a locked loop revisits)
+//   25 LDG that hits L2 (the same chase with ld.global.cg, which does not
+//   cache in L1: a table gather whose line has left L1)
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 //        -Xcompiler -fPIC tools/latency_probe.cu -o liblatency_probe.so
@@ -34,7 +36,7 @@
 #include <cuda_runtime.h>
 
 #define REP 512
-#define NPROBE 25
+#define NPROBE 26
 
 // Probe 24's chase: the word points at itself (set by the probe).
 __device__ unsigned long long chase_word;
@@ -54,7 +56,7 @@ __global__ void probe(const float* fin, const int* iin, float* fout,
   const int ia0 = ia - 1;                  // 0
   const int next = (threadIdx.x + ia) & 31;  // the next lane
   unsigned u = base;
-  if (OP == 24) {
+  if (OP == 24 || OP == 25) {
     chase_word = (unsigned long long)&chase_word;
     __threadfence();
   }
@@ -127,6 +129,7 @@ __global__ void probe(const float* fin, const int* iin, float* fout,
     }
     if (OP == 23) k = __viaddmin_s32(k, ia, k + 2);
     if (OP == 24) asm volatile("ld.global.ca.u64 %0, [%0];" : "+l"(g));
+    if (OP == 25) asm volatile("ld.global.cg.u64 %0, [%0];" : "+l"(g));
   }
   // A branch on every chain's result: the clock is read after the last
   // instruction of the chain has finished (the compiler would otherwise

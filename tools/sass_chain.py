@@ -17,7 +17,10 @@ memory access or a loop of its own, but no `MUFU`: the slow paths of
 IEEE cosf/sinf (Payne-Hanek reduction) and of division. (The division's
 own fast path, `MUFU.RCP` and its refinement, sits in a block that a
 zero-divisor test jumps over; it stays.) An unconditional forward
-branch's skipped block (the other arm of an if/else) is left out too.
+branch's skipped block (the other arm of an if/else) is left out too;
+with `hot_loads` (the scan demods), unless the if-arm before it was left
+out (a general loop beside its fast path), and blocks are then judged
+innermost first (`hot_path`).
 
 The hot instructions run in address order, as one straight line, pass
 after pass with unlimited issue: each starts when the registers and
@@ -220,24 +223,55 @@ def hot_path(instrs, labels, first, last, exchange=False,
     """The loop body less its slow-path blocks and else-arms (see the
     module docstring), without the branches themselves; with `exchange`,
     also less each block a guarded forward branch skips that holds a
-    barrier (a step taken in some passes only); with `hot_loads`, a
-    block's global loads (LDG) do not make it a slow path (the scan
-    demods gather their tables in the emitting step)."""
+    barrier (a step taken in some passes only). With `hot_loads` (the
+    scan demods' emitting step, which gathers its tables and holds the
+    rrc window's general loop beside its fast path), a block's global
+    loads (LDG) do not make it a slow path, blocks are judged innermost
+    first without the nested blocks already left out, and an else-arm
+    whose if-arm is left out is judged like any block. (Without it, a
+    block holding a nested slow path is left out whole: the demod's
+    large-argument sincos block holds an infinity test and its x * 0
+    beside the Payne-Hanek loop.)"""
     slow = _SLOW - {"LDG"} if hot_loads else _SLOW
     index = {ins.addr: i for i, ins in enumerate(instrs)}
-    cold = set()
+    skipped = []
     for j in range(first, last):
         t = target(instrs[j], labels)
         if t is None or t <= instrs[j].addr or index.get(t, last + 1) > last:
             continue
-        block = range(j + 1, index[t])
+        skipped.append((j, index[t]))
+    cold = set()
+
+    def is_slow(j, end):
+        block = [k for k in range(j + 1, end) if k not in cold]
         fams = {instrs[k].family for k in block}
         loops = any((target(instrs[k], labels) or 1 << 62)
                     <= instrs[k].addr for k in block)
-        if not instrs[j].pred or ("MUFU" not in fams
-                                  and (fams & slow or loops)) or (
-                                      exchange and "BAR" in fams):
-            cold.update(block)
+        return ("MUFU" not in fams and (fams & slow or loops)) or (
+            exchange and "BAR" in fams)
+
+    if not hot_loads:
+        for j, end in skipped:
+            if not instrs[j].pred or is_slow(j, end):
+                cold.update(range(j + 1, end))
+    else:
+        # The scan demods' emitting step holds the rrc window's general
+        # loop beside its fast path: guarded blocks innermost first, each
+        # judged on what is left of it once the blocks nested in it that
+        # are left out are gone; then the else-arms (the blocks
+        # unconditional branches skip): left out, unless the if-arm before
+        # it was, when the else-arm is judged like any block.
+        guarded = sorted((b for b in skipped if instrs[b[0]].pred),
+                         key=lambda b: b[1] - b[0])
+        for j, end in guarded:
+            if is_slow(j, end):
+                cold.update(range(j + 1, end))
+        for j, end in sorted((b for b in skipped if not instrs[b[0]].pred),
+                             key=lambda b: b[1] - b[0]):
+            if_arm_cold = any(e == j + 1 and all(
+                k in cold for k in range(g + 1, j + 1)) for g, e in guarded)
+            if not if_arm_cold or is_slow(j, end):
+                cold.update(range(j + 1, end))
     return [instrs[k] for k in range(first, last + 1)
             if k not in cold and instrs[k].family != "BRA"]
 
