@@ -18,9 +18,11 @@ fft4096 kernel); and the single-carrier receiver of leandvb on ten
 streams (the CLI defaults, the same with --segments 8, --resample on
 the complex FIR kernel, --hq at 1/2 and 3/4, and on the scan demods
 --exact-lut, --exact-lut --sampler rrc, --hard-metric, --sampler
-nearest and --hs), from DVB-S stimulus the port modulates itself, and
-checks that every carrier locks and decodes the TS packets that were
-sent.
+nearest and --hs), from DVB-S stimulus the port modulates itself; and
+the canonical pipe `leantsgen | leandvbtx | leanchansim | leandvb` from
+the port's own CLIs, the receiver's --awgn and its --hdlc; and checks
+that every carrier locks and decodes the TS packets (or HDLC frames)
+that were sent.
 
 Phases (any failure exits non-zero):
   1. card name and power limit, versions, kernel build time; dependent
@@ -120,7 +122,18 @@ Phases (any failure exits non-zero):
      the first 1024 samples of the read: its plain version costs ~3 ms
      per sample on the card); then ROADMAP item 24's brick-wall stimulus
      on the kernel path and the exact-LUT polyphase path (MER and lock
-     printed, not a gate);
+     printed, not a gate); then the canonical pipe (pipe_path: leantsgen
+     -c 2000 | leandvbtx -f 2 --cr 1/2 | leanchansim --if32 --of32 --awgn
+     -14 --deterministic | leandvb --f32 --float-scale 75 -f 4e6 --sr 2e6
+     --anf 0 --fastlock, each stage a child process, leandvb on the card
+     writing its launch counts at exit; each stage alone and the whole
+     pipe timed; lock, the demod launched, >= 90% of the packets sent
+     after lock), the receiver's --awgn (Es/N0 12 dB on a clean 4 Msps
+     stream, beside the same stream without it: the MER it costs) and
+     --hdlc --packetized (random frames, HDLC-framed, ETR192-scrambled,
+     rate 1/2; >= 90% of the frames sent after lock; the descrambler's
+     and the HDLC sync's host times), each gated and replayed against
+     the plain versions as the other single-carrier streams;
   5. kernel times at the main path's shapes (the demod also at the
      segmented launches' shapes and at one carrier; the ACS at N=256,
      N=64 and N=4; the banked ACS at every rate's ACQUIRE and TRACK
@@ -263,6 +276,17 @@ FIR_EDGE_LENGTHS = (1, 5, 511, 512, 513, 1024, 1025)
 CLI_CHUNKS = 8
 CLI_CAPTURE = (0, 4)
 CLI_MIN_PACKETS = 50
+# Slice 7's paths: the canonical pipe's TS packets from leantsgen (2 Msym/s
+# rate 1/2 at 4 Msps: ~1.6 s of signal) and its leanchansim noise (dB);
+# the receiver's own --awgn at this Es/N0 (dB) on a clean stream; --hdlc
+# on seconds of one carrier of random frames of these lengths (bytes).
+PIPE_PACKETS = 2000
+PIPE_AWGN_DB = -14
+PIPE_TIMEOUT_S = 300             # each stage alone, and the whole pipe
+AWGN_ESN0_DB = 12.0
+AWGN_SECONDS = 1.0
+HDLC_SECONDS = 1.0
+HDLC_FRAME_BYTES = (32, 256)
 CHILDREN = []                    # processes this script started
 
 
@@ -1629,20 +1653,21 @@ def sc_plain_checks(name, inputs):
 
 
 def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
-                   f_off, esn0_db, birdie):
+                   f_off, esn0_db, birdie, stimulus=None):
     """One single-carrier path: the wire stream through DvbsReceiver in
     leandvb's 2^17-sample reads (read_iq -> process), with every kernel's
     launch count zeroed just before and read just after, device stages
     timed with CUDA events and host stages with the host clock; then the
     inputs of chosen launches against the plain versions
     (sc_plain_checks). Paths with the same stimulus parameters read the
-    same bytes (`stimuli` keeps them)."""
+    same bytes (`stimuli` keeps them); `stimulus` = (bytes, frames sent)
+    gives an --hdlc path its own, gated on its frames (check_frames)."""
     from leansdr_tpu_torch.dsp import fir_kernel as fk
     from leansdr_tpu_torch.dsp import mf_prefilter, receiver, receiver_hs
     from leansdr_tpu_torch.dsp import receiver_kernel as rk
     from leansdr_tpu_torch.fec import viterbi_banked as vb
     from leansdr_tpu_torch.fec import viterbi_device as vd
-    from leansdr_tpu_torch.pipelines import multi_rx
+    from leansdr_tpu_torch.pipelines import dvbs_rx, multi_rx
     from leansdr_tpu_torch.pipelines.dvbs_rx import DvbsReceiver, RxConfig
     from leansdr_tpu_torch.util.iofmt import read_iq
 
@@ -1650,9 +1675,13 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
     cfg = RxConfig(**(dict(anf=1, exact_lut=False) | fields))
     t0 = time.perf_counter()
     key = (cfg.rate, cfg.Fs, seconds, updown, f_off, esn0_db, birdie, fmt)
-    if key not in stimuli:
-        stimuli[key] = sc_stimulus(*key, rng)
-    raw, npkt = stimuli[key]
+    if stimulus is not None:
+        raw, sent = stimulus
+        npkt = len(sent)
+    else:
+        if key not in stimuli:
+            stimuli[key] = sc_stimulus(*key, rng)
+        raw, npkt = stimuli[key]
     print(f"[{name}] stimulus: {len(raw)} bytes {fmt} at {cfg.Fs / 1e6:g} "
           f"Msps ({seconds:.3f} s of signal) in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -1709,10 +1738,16 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
                 timed("segmented", multi_rx._demod_segmented))]
     patches += [(m, a, timed(k, captured(k, getattr(m, a))))
                 for k, (m, a) in kernels.items()]
-    for attr in ("notch", "resampler", "deconv"):
-        blk = getattr(rx, attr)
+    for attr in ("notch", "resampler", "deconv", "hdlc_sync"):
+        blk = getattr(rx, attr, None)
         if blk is not None:
             patches.append((blk, "process", hosttimed(attr, blk.process)))
+    if cfg.awgn:
+        patches.append((dvbs_rx.chansim, "wgn_c",
+                        hosttimed("wgn_c", dvbs_rx.chansim.wgn_c)))
+    if cfg.hdlc:
+        patches.append((dvbs_rx, "etr192_descramble",
+                        hosttimed("etr192", dvbs_rx.etr192_descramble)))
     patches.append((rx, "_byte_stages", hosttimed("bytes", rx._byte_stages)))
     saved = [(obj, a, getattr(obj, a)) for obj, a, _ in patches]
     for obj, a, fn in patches:
@@ -1740,23 +1775,28 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
     device = {}
     for key, s, e in events:
         device[key] = device.get(key, 0.0) + s.elapsed_time(e)
-    pkts = np.concatenate(ts) if ts else np.empty((0, 188), np.uint8)
-    n_after, n_good, span = check_packets(0, list(pkts))
+    if cfg.hdlc:
+        n_after, n_good, span = check_frames(rx.hdlc_frames.tobytes(), sent)
+        lock, unit = rx.hdlc_sync.lock_state, "frames"
+    else:
+        pkts = np.concatenate(ts) if ts else np.empty((0, 188), np.uint8)
+        n_after, n_good, span = check_packets(0, list(pkts))
+        lock, unit = rx.lock, "packets"
     demod_key = ("hs_demod" if cfg.hs else "demod" if rx.use_pallas
                  else "scan_demod")
     need = [demod_key] + (["cfir"] if cfg.resample else []) + (
         ["acs" if cfg.rate == "1/2" else "acs_banked"] if cfg.viterbi
         else [])
     slots = None if rx.notch is None else rx.notch.b.slot_i.tolist()
-    print(f"[{name}] launches {launches}; lock {rx.lock}, locktime "
+    print(f"[{name}] launches {launches}; lock {lock}, locktime "
           f"{rx.locktime}, VBER {rx.vber:.2e}, notch slots "
-          f"{slots}; {n_good} sent packets of "
+          f"{slots}; {n_good} sent {unit} of "
           f"{n_after} after lock (span {span}; {npkt} sent)")
     if any(launches[k] < 1 for k in need):
         fail(f"{name}: the path did not run through {need}: {launches}")
-    if not rx.lock or n_good < 100 or n_good < 0.9 * max(n_after, span):
-        fail(f"{name}: {n_good} sent packets decoded of {n_after} after "
-             f"lock, span {span}, lock {rx.lock}")
+    if not lock or n_good < 100 or n_good < 0.9 * max(n_after, span):
+        fail(f"{name}: {n_good} sent {unit} decoded of {n_after} after "
+             f"lock, span {span}, lock {lock}")
     short = [k for k in need if len(inputs.get(k, ())) < 2 + (
         k == "demod" and cfg.segments > 1)]
     if short:
@@ -1774,6 +1814,7 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
                 msamples_per_s=nsamp / wall / 1e6, x_real_time=xrt,
                 device_ms=device, host_ms=host, launches=launches,
                 packets_good=int(n_good), packets_after_lock=int(n_after),
+                unit=unit,
                 slots=slots, mer_db=(rx.meas["mer"][-1] if rx.meas["mer"]
                                      else None),
                 plain_checks=[dict(kernel=k, launch=n, shapes=sh,
@@ -2104,6 +2145,281 @@ def brickwall(dev):
               f"{np.median(tail):.2f}) over the last {len(tail)} readings; "
               f"lock {rx.lock}, TS packets {npk}")
     return out
+
+# ------------------------------ slice 7: the pipe, --awgn and --hdlc
+
+RX_WRAPPER = """
+import atexit, json, runpy, sys, time
+from chip_smoke import kernel_wrappers
+out = sys.argv[1]
+counted = kernel_wrappers()
+t0 = time.perf_counter()
+def dump():
+    with open(out, "w") as f:
+        json.dump(dict(launches={k: w.launches for k, w in counted.items()},
+                       main_s=time.perf_counter() - t0), f)
+atexit.register(dump)
+sys.argv = ["leandvb"] + sys.argv[2:]
+runpy.run_module("leansdr_tpu_torch.apps.leandvb", run_name="__main__")
+"""
+
+
+def pipe_path(dev):
+    """The repo's canonical drive (the verify notes' pipe) with every
+    stage from the port, each a child process: `leantsgen -c
+    PIPE_PACKETS | leandvbtx -f 2 --cr 1/2 | leanchansim --if32 --of32
+    --awgn PIPE_AWGN_DB --deterministic | leandvb --f32 --float-scale 75
+    -f 4e6 --sr 2e6 --anf 0 --fastlock` (leandvb through RX_WRAPPER,
+    which writes its kernel launch counts at exit). First each stage
+    alone, from a file of the bytes of the one before to a file
+    (timed), then the whole pipe (timed), whose TS must equal the
+    stage-by-stage run's. The stages' ends are files, or the pipes
+    between them, which this process neither reads nor writes: no
+    stage's progress waits on this process polling it (a stage fed and
+    drained through Popen.communicate has been seen to stall). Gate:
+    LOCK 1 on --fd-info, the demod kernel launched, >= 90% of the packets sent after lock out equal
+    (check_packets)."""
+    import signal
+    import tempfile
+    py = sys.executable
+    mod = [py, "-m"]
+    gen = mod + ["leansdr_tpu_torch.apps.leantsgen", "-c", str(PIPE_PACKETS)]
+    tx = mod + ["leansdr_tpu_torch.apps.leandvbtx", "-f", "2", "--cr", "1/2"]
+    ch = mod + ["leansdr_tpu_torch.apps.leanchansim", "--if32", "--of32",
+                "--awgn", str(PIPE_AWGN_DB), "--deterministic"]
+    rx_args = ["--f32", "--float-scale", "75", "-f", "4e6", "--sr", "2e6",
+               "--anf", "0", "--fastlock", "--fd-info", "2"]
+    root = Path(__file__).resolve().parent
+    # A stage past its time is sent SIGABRT: Python's fault handler then
+    # prints every thread's stack on its stderr, which the failure shows.
+    env = dict(os.environ, PYTHONFAULTHANDLER="1")
+    alone = {}
+
+    def wait(name, procs, errf):
+        t = time.perf_counter()
+        for proc in procs:
+            try:
+                proc.wait(timeout=max(1.0, PIPE_TIMEOUT_S
+                                      - (time.perf_counter() - t)))
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.send_signal(signal.SIGABRT)
+                time.sleep(5)
+                for q in procs:
+                    q.kill()
+                fail(f"{name} still running after {PIPE_TIMEOUT_S} s:\n"
+                     + errf.read_text(errors="replace")[-6000:])
+        if any(p.returncode for p in procs):
+            fail(f"{name}: exit codes {[p.returncode for p in procs]}:\n"
+                 + errf.read_text(errors="replace")[-3000:])
+
+    def run(name, cmd, src, dst, tmp):
+        errf = tmp / f"{name}.err"
+        t = time.perf_counter()
+        with open(src, "rb") as fi, open(dst, "wb") as fo, \
+                open(errf, "wb") as fe:
+            proc = subprocess.Popen(cmd, cwd=root, stdin=fi, stdout=fo,
+                                    stderr=fe, env=env)
+        CHILDREN.append(proc)
+        wait(f"pipe: {name}", [proc], errf)
+        alone[name] = time.perf_counter() - t
+        print(f"[pipe] {name} alone: {alone[name]:.3f} s", flush=True)
+
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        rx = [py, "-c", RX_WRAPPER, str(tmp / "alone.json")] + rx_args
+        run("leantsgen", gen, os.devnull, tmp / "ts", tmp)
+        run("leandvbtx", tx, tmp / "ts", tmp / "iq", tmp)
+        run("leanchansim", ch, tmp / "iq", tmp / "noisy", tmp)
+        run("leandvb", rx, tmp / "noisy", tmp / "ts_alone", tmp)
+        rec_alone = json.loads((tmp / "alone.json").read_text())
+        rx[3] = str(tmp / "pipe.json")
+        errf = tmp / "pipe.err"
+        t = time.perf_counter()
+        procs, src = [], subprocess.DEVNULL
+        with open(tmp / "ts_pipe", "wb") as fo, open(errf, "wb") as fe:
+            for cmd in (gen, tx, ch, rx):
+                last = cmd is rx
+                procs.append(subprocess.Popen(
+                    cmd, cwd=root, stdin=src,
+                    stdout=fo if last else subprocess.PIPE,
+                    stderr=fe, env=env))
+                CHILDREN.append(procs[-1])
+                if src is not subprocess.DEVNULL:
+                    src.close()         # the next stage owns the pipe
+                src = procs[-1].stdout
+        wait("pipe", procs, errf)
+        wall = time.perf_counter() - t
+        rec = json.loads((tmp / "pipe.json").read_text())
+        ts = (tmp / "ts_pipe").read_bytes()
+        if ts != (tmp / "ts_alone").read_bytes():
+            fail("pipe: the piped TS differs from the stage-by-stage run's")
+        info = errf.read_text(errors="replace").splitlines()
+        nsamp = (tmp / "noisy").stat().st_size // 8
+    launches = rec["launches"]
+    locks = [ln for ln in info if ln.startswith("LOCK ")]
+    lock = bool(locks) and locks[-1] == "LOCK 1"
+    pkts = list(np.frombuffer(ts[:len(ts) // 188 * 188], np.uint8)
+                .reshape(-1, 188))
+    n_after, n_good, span = check_packets(0, pkts)
+    signal_s = nsamp / 4e6
+    res = dict(packets_sent=PIPE_PACKETS, samples=nsamp, signal_s=signal_s,
+               wall_s=wall, x_real_time=signal_s / wall,
+               stage_alone_s=alone,
+               receiver_main_s=rec["main_s"],
+               receiver_alone_main_s=rec_alone["main_s"],
+               x_real_time_receiver_alone=signal_s / alone["leandvb"],
+               launches=launches, lock=lock, packets_good=int(n_good),
+               packets_after_lock=int(n_after), span=int(span),
+               info_last={tag: next((ln for ln in reversed(info)
+                                     if ln.startswith(tag + " ")), None)
+                          for tag in ("MER", "LOCK", "VBER")})
+    print(f"[pipe] leantsgen -c {PIPE_PACKETS} | leandvbtx | leanchansim "
+          f"--awgn {PIPE_AWGN_DB} | leandvb: {nsamp} samples "
+          f"({signal_s:.3f} s of signal), wall {wall:.3f} s "
+          f"({res['x_real_time']:.3f}x real time); each stage alone "
+          "(wall, process start included): " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in alone.items())
+          + f"; leandvb main() {rec['main_s']:.3f} s in the pipe, "
+          f"{rec_alone['main_s']:.3f} s alone; launches {launches}; lock "
+          f"{lock}; {n_good} sent packets of {n_after} after lock (span "
+          f"{span}); last --fd-info lines {list(res['info_last'].values())}")
+    if launches["demod"] < 1:
+        fail(f"pipe: leandvb did not launch the demod kernel: {launches}")
+    if not lock or n_good < 100 or n_good < 0.9 * max(n_after, span):
+        fail(f"pipe: {n_good} sent packets decoded of {n_after} after lock, "
+             f"span {span}, lock {lock}")
+    return res
+
+
+def awgn_path(dev, rng, stimuli):
+    """The receiver's own --awgn: AWGN_SECONDS of a clean 2 Msym/s rate-1/2
+    carrier at 4 Msps f32 (sc_stimulus as for hq 1/2, no noise of its
+    own) through DvbsReceiver with awgn set for Es/N0 = AWGN_ESN0_DB
+    (--anf 0, --fastlock, hard decisions on the demod kernel), gated and
+    replayed against the plain versions as every single-carrier path;
+    the same stream without --awgn beside it, for the MER the noise
+    costs."""
+    fields = dict(Fs=4e6, Fm=2e6, rate="1/2", fastlock=True, anf=0,
+                  float_scale=75.0)
+    # Unit rms per component, 75 after --float-scale, 2 samples per
+    # symbol: Es = 2 * 2 * 75^2; the noise's N0 = 2 sigma^2 per sample.
+    sigma = float(np.sqrt(2 * 2 * 75.0 ** 2 / 10 ** (AWGN_ESN0_DB / 10)
+                          / 2))
+    args = ("f32", AWGN_SECONDS, (3, 3, True), 20e3, np.inf, None)
+    clean = single_carrier(dev, rng, stimuli, "awgn off", fields, *args)
+    noisy = single_carrier(dev, rng, stimuli, "awgn",
+                           fields | {"awgn": sigma}, *args)
+    print(f"[awgn] --awgn {sigma:.4f} (Es/N0 {AWGN_ESN0_DB:g} dB): MER "
+          f"{noisy['mer_db']:.2f} dB, without --awgn {clean['mer_db']:.2f}"
+          " dB")
+    if not noisy["mer_db"] < clean["mer_db"] - 1.0:
+        fail("awgn: the MER does not show the noise")
+    noisy["awgn_sigma"] = sigma
+    noisy["mer_db_without_awgn"] = clean["mer_db"]
+    return clean, noisy
+
+
+def hdlc_encode(frames) -> np.ndarray:
+    """HDLC bit stream of `frames`: opening and closing flags, each frame
+    LSB first with its CRC16-CCITT (reflected 0x8408, init 0xffff, sent
+    inverted) behind it, a 0 stuffed after five 1s, packed MSB first."""
+    bits = [0, 1, 1, 1, 1, 1, 1, 0]
+    for f in frames:
+        crc = 0xFFFF
+        for b in f:
+            crc ^= int(b)
+            for _ in range(8):
+                crc = (crc >> 1) ^ 0x8408 if crc & 1 else crc >> 1
+        crc ^= 0xFFFF
+        ones = 0
+        for b in list(f) + [crc & 0xFF, crc >> 8]:
+            for k in range(8):
+                bit = (int(b) >> k) & 1
+                bits.append(bit)
+                ones = ones + 1 if bit else 0
+                if ones == 5:
+                    bits.append(0)
+                    ones = 0
+        bits += [0, 1, 1, 1, 1, 1, 1, 0]
+    bits += [0] * (-len(bits) % 8)
+    return np.packbits(np.array(bits, np.uint8))
+
+
+def hdlc_stimulus(rng, seconds):
+    """f32 wire bytes of `seconds` of one 2 Msym/s carrier at 4 Msps
+    (unit rms, 20 kHz off, Es/N0 20 dB) carrying random frames of
+    HDLC_FRAME_BYTES: HDLC-framed (hdlc_encode), ETR192-scrambled, the
+    rate-1/2 convolutional code, QPSK, the modulator's RRC at 2 samples
+    per symbol, resampled as sc_stimulus does for hq 1/2. Returns
+    (bytes, frames sent)."""
+    from scipy.signal import resample_poly
+    from leansdr_tpu_torch.dsp import filtergen
+    from leansdr_tpu_torch.dsp.cstln import Predef, make_dvbs2_constellation
+    from leansdr_tpu_torch.fec import convenc
+    from leansdr_tpu_torch.proto.hdlc import etr192_scramble
+    n = int(round(seconds * 4e6))
+    lo, hi = HDLC_FRAME_BYTES
+    # Bits of 2 samples per symbol, one bit per symbol, ~1.03 per byte
+    # for flags and stuffing.
+    nframes = int(n / 2 / 8 / ((lo + hi) / 2 + 3.2)) + 16
+    frames = [rng.integers(0, 256, int(rng.integers(lo, hi + 1)),
+                           dtype=np.uint8) for _ in range(nframes)]
+    data, _, _ = etr192_scramble(hdlc_encode(frames))
+    syms, _ = convenc.encode(data, "1/2", 2)
+    pts = make_dvbs2_constellation(Predef.QPSK, "1/2").symbols
+    up = np.zeros(2 * len(syms), np.complex128)
+    up[::2] = pts[syms, 0] + 1j * pts[syms, 1]
+    z = np.convolve(up, filtergen.root_raised_cosine(20, 0.5, 0.35))
+    z = resample_poly(z, 3, 1)[3::3]
+    if len(z) < n:
+        fail(f"hdlc stimulus: {len(z)} samples < {n}")
+    z = z[:n] * np.exp(2j * np.pi * 20e3 / 4e6 * np.arange(n))
+    ps = float(np.mean(np.abs(z) ** 2))
+    sigma = np.sqrt(ps * 2 / 10 ** (20 / 10) / 2)
+    z = z + sigma * (rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    x = np.stack([z.real, z.imag], -1).reshape(-1)
+    x /= np.sqrt(np.mean(np.abs(z) ** 2) / 2)
+    return x.astype(np.float32).tobytes(), [f.tobytes() for f in frames]
+
+
+def check_frames(out: bytes, sent: list):
+    """--hdlc --packetized output ([u16 big-endian length][frame] ...)
+    against the frames sent: from the first frame that equals a sent one
+    on, how many are sent frames, and how many of the frames sent in that
+    span came out. Returns (n_after_lock, n_good, n_span)."""
+    index = {f: i for i, f in enumerate(sent)}
+    got, o = [], 0
+    while o + 2 <= len(out):
+        n = out[o] << 8 | out[o + 1]
+        got.append(index.get(out[o + 2:o + 2 + n], -1))
+        o += 2 + n
+    if o != len(out):
+        fail(f"hdlc: {len(out) - o} bytes past the last whole frame")
+    ok = [i >= 0 for i in got]
+    if not any(ok):
+        return 0, 0, 1
+    first = ok.index(True)
+    good = sorted({i for i in got[first:] if i >= 0})
+    return len(got) - first, len(good), good[-1] - good[0] + 1
+
+
+def hdlc_path(dev, rng):
+    """--hdlc --packetized on one carrier: hdlc_stimulus through
+    DvbsReceiver (--anf 0, --fastlock, hard decisions on the demod
+    kernel; the ETR192 descrambler and the HDLC sync on the host, each
+    timed apart), gated on its frames and replayed against the plain
+    versions as every single-carrier path."""
+    t0 = time.perf_counter()
+    stim = hdlc_stimulus(rng, HDLC_SECONDS)
+    print(f"[hdlc] {len(stim[1])} frames of {HDLC_FRAME_BYTES[0]}.."
+          f"{HDLC_FRAME_BYTES[1]} bytes framed, scrambled and modulated in "
+          f"{time.perf_counter() - t0:.1f} s")
+    fields = dict(Fs=4e6, Fm=2e6, rate="1/2", fastlock=True, anf=0,
+                  float_scale=75.0, hdlc=True, packetized=True)
+    return single_carrier(dev, rng, {}, "hdlc", fields, "f32", HDLC_SECONDS,
+                          (3, 3, True), 20e3, 20.0, None, stimulus=stim)
+
 
 
 # ---------------------------------------------------------------- phase 5
@@ -2612,6 +2928,10 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     stimuli = {}
     single = [single_carrier(dev, rng, stimuli, *p) for p in SC_PATHS]
+    # Slice 7: the canonical pipe from the port's CLIs, --awgn, --hdlc.
+    pipe = pipe_path(dev)
+    awgn_off, awgn = awgn_path(dev, rng, stimuli)
+    hdlc = hdlc_path(dev, rng)
     del stimuli
     item24 = brickwall(dev)
     ftimes = fir_times(dev, gen)
@@ -2623,7 +2943,9 @@ def main() -> int:
     by_path.update({f"exact fleet {r}": p["launches"]
                     for r, p in exact.items()})
     by_path["leandvbfleet --acq"] = cli["launches"]
-    by_path.update({r["path"]: r["launches"] for r in single})
+    by_path.update({r["path"]: r["launches"]
+                    for r in single + [awgn_off, awgn, hdlc]})
+    by_path["pipe (leandvb child)"] = pipe["launches"]
     resample = next(r for r in single if r["path"] == "resample")
     hs_run = next(r for r in single if r["path"] == "hs")
 
@@ -2821,6 +3143,8 @@ def main() -> int:
                       "segment_sweep": sweep, "hard": hard_out,
                       "exact_fleet": exact_out, "leandvbfleet": cli,
                       "single_carrier": single, "item24_brickwall": item24,
+                      "pipe": pipe, "awgn": awgn, "awgn_off": awgn_off,
+                      "hdlc": hdlc,
                       "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

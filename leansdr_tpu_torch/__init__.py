@@ -1,6 +1,6 @@
 """leansdr_tpu_torch — the DVB-S fleet receiver and the single-carrier
 receiver with its CLI leandvb in PyTorch, with hand-written CUDA kernels
-for an NVIDIA H100 (sm_90a).
+for an NVIDIA H100 (sm_90a), and the host apps around them.
 
 A port of `leansdr_tpu` (JAX + Pallas for the TPU), which stays beside it
 as the reference the port is tested against. This package imports
@@ -25,15 +25,23 @@ name:
   fec/       convolutional code tables, the algebraic deconvolver, the
              symbol ring, the Viterbi decoders around the ACS kernels,
              RS/PRBS/interleaver
-  proto/     MPEG-TS sync and framing
+  proto/     MPEG-TS sync and framing; hdlc.py, the HDLC deframer and
+             the ETR192 (de)scrambler of --hdlc
   native/    the C++ host byte backend of the fleet (MPEG framing,
              deinterleave, RS decode, derandomize), loaded with ctypes
   core/      generic host blocks (the VBER rate estimator)
-  util/      wire sample formats and the --fd-info/--fd-const writers
+  util/      wire sample formats and the --fd-info/--fd-const writers;
+             ad936x.py (AD936x rate planning and FIR text) and pmp.py
+             (PMP buffer descriptors) for leaniio
   pipelines/ the multi-carrier receiver `multi_rx.MultiDvbsReceiver`, the
-             single-carrier `dvbs_rx.DvbsReceiver` and RxConfig, and the
-             stimulus generators tsgen / dvbs_tx
-  apps/      leandvb, the single-carrier CLI, and leandvbfleet
+             single-carrier `dvbs_rx.DvbsReceiver` and RxConfig, the
+             TS generator tsgen, the modulator dvbs_tx (batch `modulate`
+             and streaming `TxStream`) and the channel simulator chansim
+             (drand48 AWGN, LO drift; also --awgn)
+  apps/      leandvb, the single-carrier CLI, and leandvbfleet; the host
+             apps leantsgen, leandvbtx, leanchansim, leansdrcat,
+             leansdrserv, leandvb_tui and leaniio (host NumPy; they
+             need no card)
   convert.py carries a `leansdr_tpu` receiver checkpoint into the port
 """
 

@@ -11,8 +11,10 @@ versions instead, for tests and CPU drives.
 Decisions are computed (--no-exact-lut, the default: the demod kernel)
 unless --exact-lut or --hard-metric take the scan demod's 256x256 LUT;
 --sampler nearest also runs on the scan demod, and --hs on the integer
-fast-QPSK demod. The flags of paths not ported yet raise
-NotImplementedError naming their ROADMAP item.
+fast-QPSK demod. --awgn adds the drand48 noise stream before the
+preprocessing; --hdlc writes HDLC frames instead of TS. The flags of
+paths not ported yet raise NotImplementedError naming their ROADMAP
+item.
 """
 
 import sys
@@ -30,6 +32,7 @@ def usage(code=0, f=sys.stderr):
         "  -f FREQ                 Sampling rate (Hz)\n"
         "  --loop                  Repeat input file forever\n"
         "\nPreprocessing options:\n"
+        "  --awgn STDDEV           Add white gaussian noise\n"
         "  --anf INT               Number of birdies to remove (default 1)\n"
         "  --derotate FREQ         Shift frequency (Hz)\n"
         "  --resample              Lowpass and decimate to ~4 sps\n"
@@ -53,6 +56,10 @@ def usage(code=0, f=sys.stderr):
         "  --hard-metric           Hard decisions for Viterbi (implies\n"
         "                          --exact-lut)\n"
         "  --hs                    Integer fast-QPSK receiver (u8 input)\n"
+        "  --hdlc                  ETR192-descrambled HDLC frames on\n"
+        "                          stdout instead of TS\n"
+        "  --packetized            With --hdlc: a 16-bit length before\n"
+        "                          each frame\n"
         "  --fastlock              Synchronize more aggressively\n"
         "  --acq                   FFT coarse carrier search on the\n"
         "                          first chunk seeds --tune (not in the\n"
@@ -71,8 +78,8 @@ def usage(code=0, f=sys.stderr):
         "  --device DEV            cuda (default) or cpu (plain PyTorch\n"
         "                          versions of the kernels)\n"
         "\nNot ported yet (raise NotImplementedError): --cnr,\n"
-        "--fd-spectrum (ROADMAP item 13), --awgn (22), --hdlc (21),\n"
-        "constellations other than QPSK (20).\n")
+        "--fd-spectrum (ROADMAP item 13), constellations other than\n"
+        "QPSK (20).\n")
     sys.exit(code)
 
 
@@ -205,11 +212,18 @@ def main(argv=None):
 
     if opts["debug"]:
         # Glyph legend (leandvb.cc:700-713).
-        sys.stderr.write(
-            "Output:\n"
-            "  '_': packet received without errors\n"
-            "  '.': error-corrected packet\n"
-            "  '!': packet with remaining errors\n")
+        if not cfg.hdlc:
+            sys.stderr.write(
+                "Output:\n"
+                "  '_': packet received without errors\n"
+                "  '.': error-corrected packet\n"
+                "  '!': packet with remaining errors\n")
+        else:
+            sys.stderr.write(
+                "Output:\n"
+                "  '_': HDLC frame with correct checksum\n"
+                "  '!': HDLC frame with invalid checksum\n"
+                "  '^': HDLC framing error\n")
 
     info = None
     if opts["fd_info"] >= 0:
@@ -287,7 +301,14 @@ def main(argv=None):
                       file=sys.stderr)
             rx = DvbsReceiver(cfg, device=opts["device"])
         ts = rx.process(iq)
-        if len(ts):
+        if cfg.hdlc:
+            # HDLC frames (with --packetized behind their 16-bit length)
+            # instead of TS.
+            if len(rx.hdlc_frames):
+                out.write(rx.hdlc_frames.tobytes())
+                out.flush()
+                rx.hdlc_frames = rx.hdlc_frames[:0]
+        elif len(ts):
             out.write(np.ascontiguousarray(ts).tobytes())
             out.flush()
         flush_info()

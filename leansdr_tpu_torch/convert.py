@@ -144,6 +144,7 @@ class _Unread:
 def _stand_ins() -> dict:
     from .dsp import blocks_device
     from .fec import deconv, viterbi
+    from .proto import hdlc
     return {
         ("jax._src.array", "_reconstruct_array"): _np_array,
         ("leansdr_tpu.fec.deconv", "DeconvSpec"): deconv.DeconvSpec,
@@ -153,6 +154,7 @@ def _stand_ins() -> dict:
             blocks_device.BatchedAutoNotch,
         ("leansdr_tpu.dsp.blocks_device", "_Backlog"):
             blocks_device._Backlog,
+        ("leansdr_tpu.proto.hdlc", "HdlcDec"): hdlc.HdlcDec,
     }
 
 
@@ -225,16 +227,18 @@ def from_jax_dvbs_checkpoint(blob: bytes) -> bytes:
     to NumPy, so neither jax nor leansdr_tpu is imported. Carried over:
     the demod state (kernel planes to [19, 1], or the scan path's dict),
     the --hs receiver's state, the sample, byte and MPEG backlogs, the
-    derandomizer phase, the decoder's streaming state (the --hs
-    deconvolver's too), the MPEG sync FSM, counters, measurements, and
-    the notch / derotator / resampler streaming state. The measurement
-    phase is not in the JAX pickle and starts at 0, as in a JAX receiver
-    that loads it. Paths of the JAX receiver the port has not taken
+    derandomizer phase, the --awgn noise stream's draw count, the
+    decoder's streaming state (the --hs deconvolver's too), the MPEG
+    sync FSM, counters, measurements, the notch / derotator / resampler
+    streaming state, and with --hdlc the ETR192 descrambler state and
+    the HDLC sync's fields (its two HdlcDec deframers as the port's).
+    The measurement phase is not in the JAX pickle and starts at 0, as
+    in a JAX receiver that loads it. Paths of the JAX receiver the port has not taken
     raise."""
     from .pipelines.dvbs_rx import CHECKPOINT_FORMAT as DVBS_FORMAT
     d = _JaxFreeUnpickler(io.BytesIO(blob)).load()
     aux = d.get("aux", {})
-    for name in ("etr_state", "cnr_est", "spectrum"):
+    for name in ("cnr_est", "spectrum"):
         if name in aux:
             raise NotImplementedError(
                 f"a checkpoint with {name} (a receiver path the port has "
@@ -248,6 +252,9 @@ def from_jax_dvbs_checkpoint(blob: bytes) -> bytes:
     else:
         deconv = {k: dc[k] for k in ("locked", "skip", "backlog")}
     out_aux = {}
+    if "etr_state" in aux:
+        out_aux["etr_state"] = tuple(int(v) for v in aux["etr_state"])
+        out_aux["hdlc_sync"] = dict(aux["hdlc_sync"])
     if "hs_state" in aux:
         out_aux["hs_state"] = {k: np.asarray(v)
                                for k, v in aux["hs_state"].items()}
@@ -270,6 +277,7 @@ def from_jax_dvbs_checkpoint(blob: bytes) -> bytes:
         "mpegbyte_backlog": d["mpegbyte_backlog"],
         "derand_pos": d["derand_pos"],
         "first_derand": d["first_derand"],
+        "noise_draws": d.get("noise_draws", 0),
         "deconv": deconv,
         "mpeg": d["mpeg"],
         "vbitcount": d["vbitcount"],

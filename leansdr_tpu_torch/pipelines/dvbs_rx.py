@@ -5,7 +5,9 @@ leansdr_tpu/pipelines/dvbs_rx.py.
 Chain per call of `DvbsReceiver.process`:
 
   IQ [n, 2] float32 -> float scale
-    -> preprocessing (host unless noted): auto-notch (dsp/blocks_device:
+    -> preprocessing (host unless noted): --awgn (the drand48 Gaussian
+       noise of pipelines/chansim.py, continued across calls),
+       auto-notch (dsp/blocks_device:
        cuFFT detection, device trackers), derotation (dsp/blocks.Rotator),
        --resample (dsp/fir_kernel.FirFilterDevice on csrc/fir.cu) or
        --decim
@@ -26,7 +28,10 @@ Chain per call of `DvbsReceiver.process`:
        soft symbols: ViterbiSyncDevice (fec/viterbi.py) on the fleet's
        ACS kernels (csrc/acs.cu at 1/2, csrc/acs_banked.cu otherwise)
     -> MPEG sync (proto/framing.py) -> deinterleave -> RS(204,188)
-       -> derandomize (fec/, host NumPy) -> TS packets.
+       -> derandomize (fec/, host NumPy) -> TS packets;
+       or with --hdlc the ETR192 descrambler and the HDLC deframer
+       (proto/hdlc.py, host) -> frames in `hdlc_frames` (with
+       --packetized each behind its 16-bit length).
 
 --hs (u8 input only) takes the integer fast-QPSK receiver instead
 (dsp/receiver_hs.run_chunks_hs on csrc/hs_demod.cu) and its own
@@ -61,6 +66,8 @@ from ..fec import deconv, interleave, prbs, rs
 from ..fec.viterbi import ViterbiSyncDevice
 from ..fec.viterbi_banked import fleet_rate
 from ..proto.framing import MpegSync
+from ..proto.hdlc import HdlcSync, etr192_descramble
+from . import chansim
 
 TS_SIZE = 188
 RS_SIZE = 204
@@ -118,7 +125,8 @@ def _unsupported(what: str, item: str):
         "single-carrier port runs QPSK on the demod kernel or the scan "
         "demod (exact-LUT or computed decisions; nearest, linear or rrc "
         "sampler; sequential or segmented), --hs, hard or Viterbi "
-        "decoding, anf/derotate/resample/decim preprocessing")
+        "decoding, awgn/anf/derotate/resample/decim preprocessing, TS or "
+        "--hdlc output")
 
 
 def _check_config(cfg: RxConfig):
@@ -130,13 +138,8 @@ def _check_config(cfg: RxConfig):
             f"seg_warmup must be a multiple of {receiver.CHUNK}")
     if cfg.sampler not in ("nearest", "linear", "rrc"):
         raise ValueError(f"sampler={cfg.sampler!r}: nearest, linear or rrc")
-    if cfg.awgn:
-        _unsupported("--awgn (the drand48 noise stream of "
-                     "pipelines/chansim.py)", "22")
     if cfg.cnr or cfg.want_spectrum:
         _unsupported("--cnr and --fd-spectrum", "13")
-    if cfg.hdlc:
-        _unsupported("--hdlc (proto/hdlc.py)", "21")
     if cfg.constellation != Predef.QPSK or cfg.rate not in RATES:
         _unsupported(f"{Predef(cfg.constellation).name} rate {cfg.rate}",
                      "20")
@@ -315,6 +318,7 @@ class DvbsReceiver:
         self.cstln = cstln
 
         # ---- preprocessing chain (leandvb.cc:277-399) ----
+        self.noise_draws = 0          # drand48 draws of --awgn so far
         self.notch = (AutoNotch1(cfg.anf, 0.0, device=self.device)
                       if cfg.anf else None)
         self.derot = (blocks.Rotator(-cfg.Fderot / cfg.Fs)
@@ -417,6 +421,16 @@ class DvbsReceiver:
                                             debug=cfg.debug)
                 on_next = self.deconv.next_sync
             self.mpeg = MpegSync(fastlock=cfg.fastlock, on_next_sync=on_next)
+        if cfg.hdlc:
+            # ETR192 descrambler state (shift register, counter) and the
+            # HDLC deframer; on the --hs path too, whose bytes reach the
+            # same byte stages (the JAX receiver builds them on the other
+            # paths only, so its --hs --hdlc fails on the first bytes).
+            self.hdlc_sync = HdlcSync(2, 278, fastlock=cfg.fastlock,
+                                      header16=cfg.packetized)
+            self.hdlc_sync.debug = cfg.debug
+            self.etr_state = (0, 0)
+            self.hdlc_frames = np.empty(0, np.uint8)
 
         self.sample_backlog = np.empty((0, 2), np.float32)
         self.byte_backlog = np.empty(0, np.uint8)       # deconv -> mpeg_sync
@@ -603,8 +617,16 @@ class DvbsReceiver:
         return self._byte_stages(self.deconv.process(syms))
 
     def _preprocess(self, iq: np.ndarray) -> np.ndarray:
-        """Notch / derotation / resample / decimation (mirrors the
+        """Noise / notch / derotation / resample / decimation (mirrors the
         p_preprocessed chain, leandvb.cc:277-399)."""
+        if self.cfg.awgn:
+            # Continue the drand48 stream across reads (jump to the state
+            # after the draws consumed so far, dsp.h:172-183).
+            noise, used = chansim.wgn_c(
+                len(iq), self.cfg.awgn,
+                seed=chansim.drand48_jump(self.noise_draws))
+            self.noise_draws += used
+            iq = iq + noise
         if not (self.notch or self.derot or self.resampler
                 or self.decim > 1):
             return iq
@@ -621,7 +643,17 @@ class DvbsReceiver:
         return np.stack([z.real, z.imag], axis=-1).astype(np.float32)
 
     def _byte_stages(self, bytes_out: np.ndarray) -> np.ndarray:
-        """MPEG sync -> deinterleave -> RS -> derandomize (host)."""
+        """MPEG sync -> deinterleave -> RS -> derandomize (host); with
+        --hdlc instead ETR192 descramble -> HDLC deframe (leandvb.cc:
+        546-556), whose frames gather in `hdlc_frames` (no TS out)."""
+        if self.cfg.hdlc:
+            if len(bytes_out):
+                sr, ctr = self.etr_state
+                descr, sr, ctr = etr192_descramble(bytes_out, sr, ctr)
+                self.etr_state = (sr, ctr)
+                self.hdlc_frames = np.concatenate(
+                    [self.hdlc_frames, self.hdlc_sync.process(descr)])
+            return np.empty((0, TS_SIZE), np.uint8)
         if len(bytes_out):
             self.byte_backlog = np.concatenate([self.byte_backlog, bytes_out])
         pkts, consumed = self.mpeg.process(self.byte_backlog)
@@ -727,6 +759,9 @@ class DvbsReceiver:
             aux["resampler"] = self.resampler.state()
         if self.hs_state is not None:
             aux["hs_state"] = state_to_numpy(self.hs_state)
+        if self.cfg.hdlc:
+            aux["etr_state"] = self.etr_state
+            aux["hdlc_sync"] = self.hdlc_sync.__dict__
         return pickle.dumps({
             "format": CHECKPOINT_FORMAT,
             "use_pallas": self.use_pallas,
@@ -741,6 +776,7 @@ class DvbsReceiver:
             "mpegbyte_backlog": self.mpegbyte_backlog,
             "derand_pos": self.derand_pos,
             "first_derand": self.first_derand,
+            "noise_draws": self.noise_draws,
             "deconv": self._deconv_state(),
             "mpeg": {k: v for k, v in self.mpeg.__dict__.items()
                      if k != "on_next_sync"},
@@ -774,6 +810,7 @@ class DvbsReceiver:
         self.mpegbyte_backlog = d["mpegbyte_backlog"]
         self.derand_pos = d["derand_pos"]
         self.first_derand = d["first_derand"]
+        self.noise_draws = d.get("noise_draws", 0)
         self._set_deconv_state(d["deconv"])
         self.mpeg.__dict__.update(d["mpeg"])
         self.vbitcount = d["vbitcount"]
@@ -795,6 +832,12 @@ class DvbsReceiver:
             self.derot.index = int(aux["derot"]["index"])
         if "resampler" in aux:
             self.resampler.set_state(aux["resampler"])
+        if ("etr_state" in aux) != bool(self.cfg.hdlc):
+            raise ValueError("checkpoint --hdlc state does not match this "
+                             "receiver's configuration")
+        if "etr_state" in aux:
+            self.etr_state = tuple(aux["etr_state"])
+            self.hdlc_sync.__dict__.update(aux["hdlc_sync"])
         if ("hs_state" in aux) != (self.hs_state is not None):
             raise ValueError("checkpoint --hs state does not match this "
                              "receiver's configuration")

@@ -26,7 +26,19 @@ def test_import_loads_no_jax():
             "leansdr_tpu_torch.dsp.acquisition",
             "leansdr_tpu_torch.fec.deconv_device",
             "leansdr_tpu_torch.apps.leandvbfleet",
-            "leansdr_tpu_torch.pipelines.multi_rx"} <= set(_modules())
+            "leansdr_tpu_torch.pipelines.multi_rx",
+            "leansdr_tpu_torch.pipelines.chansim",
+            "leansdr_tpu_torch.pipelines.dvbs_tx",
+            "leansdr_tpu_torch.proto.hdlc",
+            "leansdr_tpu_torch.util.ad936x",
+            "leansdr_tpu_torch.util.pmp",
+            "leansdr_tpu_torch.apps.leantsgen",
+            "leansdr_tpu_torch.apps.leandvbtx",
+            "leansdr_tpu_torch.apps.leanchansim",
+            "leansdr_tpu_torch.apps.leansdrcat",
+            "leansdr_tpu_torch.apps.leansdrserv",
+            "leansdr_tpu_torch.apps.leandvb_tui",
+            "leansdr_tpu_torch.apps.leaniio"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {list(_modules())!r}:\n"
@@ -172,15 +184,17 @@ def test_single_carrier_entry_points_default_to_cuda():
 def test_leandvb_unported_flags_raise(flags, item, monkeypatch):
     """Each flag of a path the port has not taken raises
     NotImplementedError naming its ROADMAP item, before reading input.
-    The flags of items 10 and 12, ported, reach their path: the CLI
-    builds its receiver on the scan demod (--exact-lut, --hard-metric
-    with the LUT's cost hardened to -1/0, --sampler nearest) or the --hs
-    demod, and one 2048-sample u8 read (--anf 0) goes through it."""
+    The flags of items 10, 12, 21 and 22, ported, reach their path: the
+    CLI builds its receiver on the scan demod (--exact-lut, --hard-metric
+    with the LUT's cost hardened to -1/0, --sampler nearest), the --hs
+    demod, or the demod kernel with the --awgn noise stream or the
+    --hdlc byte stages (--packetized: the 16-bit frame lengths), and one
+    2048-sample u8 read (--anf 0) goes through it."""
     import io
     import numpy as np
     from leansdr_tpu_torch.apps import leandvb
     from leansdr_tpu_torch.pipelines import dvbs_rx
-    if item not in ("item 10", "item 12"):
+    if item not in ("item 10", "item 12", "item 21", "item 22"):
         with pytest.raises(NotImplementedError, match=item):
             leandvb.main(flags + ["--device", "cpu"])
         return
@@ -201,6 +215,17 @@ def test_leandvb_unported_flags_raise(flags, item, monkeypatch):
         "buffer": io.BytesIO()}))
     assert leandvb.main(flags + ["--anf", "0", "--device", "cpu"]) == 0
     rx, = built
+    if item in ("item 21", "item 22"):
+        assert rx.use_pallas and rx._chunks_done == 1
+        if rx.cfg.hdlc:
+            assert rx.noise_draws == 0
+            assert rx.hdlc_sync.header16 == ("--packetized" in flags)
+            assert sys.stdout.buffer.getvalue() == b""
+        else:
+            # 2048 samples of noise: two drand48 draws per attempt.
+            assert rx.cfg.awgn == 1.0
+            assert 2 * 2048 <= rx.noise_draws < 3 * 2048
+        return
     if flags == ["--hs"]:
         assert rx.cfg.hs
         st, ra = rx.hs_state, 1
