@@ -20,9 +20,12 @@ the complex FIR kernel, --hq at 1/2 and 3/4, and on the scan demods
 --exact-lut, --exact-lut --sampler rrc, --hard-metric, --sampler
 nearest and --hs), from DVB-S stimulus the port modulates itself; and
 the canonical pipe `leantsgen | leandvbtx | leanchansim | leandvb` from
-the port's own CLIs, the receiver's --awgn and its --hdlc; and checks
-that every carrier locks and decodes the TS packets (or HDLC frames)
-that were sent.
+the port's own CLIs, the receiver's --awgn and its --hdlc; slice 8's
+constellations and rates (the fleet at 8PSK 2/3, run as 4/6, and BPSK
+1/2; leandvb --viterbi at 8PSK 2/3, BPSK 1/2, 32APSK 4/5, 16APSK 3/4),
+--cnr --fd-spectrum and the fleet's preprocessing (anf, cnr, spectrum);
+and checks that every carrier locks and decodes the TS packets (or
+HDLC frames) that were sent.
 
 Phases (any failure exits non-zero):
   1. card name and power limit, versions, kernel build time; dependent
@@ -46,8 +49,10 @@ Phases (any failure exits non-zero):
      word and every state plane bit for bit (DEMOD_CHECKS: QPSK at C=64
      and C=8192, 8PSK at C=64, 4096 samples; QPSK and 16APSK at C in
      {1, 33, 100} over 1024 samples and C=33 over 128, the ragged
-     32-channel blocks and the copy ring's prologue and epilogue; the
-     plain version costs one launch per op per sample);
+     32-channel blocks and the copy ring's prologue and epilogue; BPSK,
+     32APSK and 64APSKe at C=64 over 1024 samples; the plain version
+     costs one launch per op per sample); scan_demod also at 8PSK (linear
+     sampler, both decision modes, C=64);
   3. ACS kernel == viterbi_acs_ref bit for bit (ties forced, from zero
      and from a live state; T=2048 at the fleet's N=256 ACQUIRE lanes
      with and without cheap_q and its N=64 TRACK lanes with cheap_q;
@@ -61,7 +66,11 @@ Phases (any failure exits non-zero):
      N=200; T=128 at the single carrier's nsyncs lanes, 8 to 16; the
      int16-sum cost extremes at the ACQUIRE and TRACK lanes; one full
      TRACK decode at 3/4 and at 7/8, N=64 at the fleet's T, against its
-     plain version on the host CPU in a child process);
+     plain version on the host CPU in a child process); and slice 8's
+     instances: B=1 at the BPSK fleet's N=128, B=2 at N=16 and the 4/5
+     tables at N=8 (T=128), the 8PSK fleet's 4/6 at N=2048, each also at
+     BPSK's int16-sum cost extremes; the ACS at the BPSK single
+     carrier's N=2;
      cfir == cfir_ref and fir == fir_ref bit for bit (nt 21, 79, 2048;
      lengths off the tile; fir also at its tile's edges, FIR_EDGE_*;
      from a zero head and mid-stream; cfir also
@@ -133,7 +142,19 @@ Phases (any failure exits non-zero):
      --hdlc --packetized (random frames, HDLC-framed, ETR192-scrambled,
      rate 1/2; >= 90% of the frames sent after lock; the descrambler's
      and the HDLC sync's host times), each gated and replayed against
-     the plain versions as the other single-carrier streams;
+     the plain versions as the other single-carrier streams; slice 8
+     (FLEET_PATHS_8, SC_PATHS_8): the fleet at 8PSK 2/3 (as 4/6, 2048
+     ACQUIRE lanes) and BPSK 1/2 (the B=1 instance), the QPSK fleet with
+     anf=1, cnr and want_spectrum at 1 Msps per carrier (its notch, CNR
+     and spectrum host ms per chunk; one CNR vector and one spectrum line
+     per Fs samples); leandvb --viterbi --fastlock --anf 0 at 8PSK 2/3,
+     BPSK 1/2, 32APSK 4/5 and 16APSK 3/4 (1 s at 4 Msps f32), and --cnr
+     --fd-spectrum on 2.5 s at 4.8 Msps u8, whose CNR values and
+     spectrum lines equal a CPU run of the same estimators on the same
+     samples within 0.01 dB; each with the gate above, but for the fleet
+     8PSK and the 32APSK paths, whose acquisition the JAX receivers share
+     (ROADMAP queue 3): their lock and packets printed, their gate the
+     run through the kernels and the kernels' checks;
   5. kernel times at the main path's shapes (the demod also at the
      segmented launches' shapes and at one carrier; the ACS at N=256,
      N=64 and N=4; the banked ACS at every rate's ACQUIRE and TRACK
@@ -191,6 +212,14 @@ DEMOD_CHECKS = (
 ) + tuple((p, r, m, C, n) for p, r, m in (("QPSK", "1/2", 4),
                                           ("APSK16", "3/4", 16))
           for C, n in ((1, 1024), (33, 1024), (100, 1024), (33, 128)))
+# Slice 8: the constellations new to the receivers' paths (check_slice8).
+DEMOD_CHECKS_8 = (("BPSK", "1/2", 2, NCHAN, 1024),
+                  ("APSK32", "4/5", 32, NCHAN, 1024),
+                  ("APSK64E", "2/3", 64, NCHAN, 1024))
+# Slice 8's checks and paths draw from their own seeds (a torch
+# generator and a NumPy one), so that every earlier path reads the same
+# stimulus as before slice 8.
+SEED_8 = SEED + 8
 # The demod's serial bound is counted from the built kernel's SASS
 # (tools/sass_chain.py on `cuobjdump -sass`: the instructions on the
 # QPSK loop's loop-carried path, each at its latency as
@@ -470,7 +499,7 @@ def demod_stimulus(predef, rate, C, nsamp, dev, gen):
     noise from the seeded generator."""
     from leansdr_tpu_torch.dsp.cstln import make_dvbs2_constellation
     from leansdr_tpu_torch.pipelines import dvbs_tx, tsgen
-    if rate == "1/2":
+    if getattr(predef, "name", predef) == "QPSK" and rate == "1/2":
         base = dvbs_tx.modulate(tsgen.generate(40),
                                 dvbs_tx.TxConfig(rate=rate, interp=2))
         base = torch.from_numpy(base * np.float32(75.0)).to(dev)
@@ -673,19 +702,21 @@ def start_long_acs(dev, gen):
                        ("metric", "path", "us", "q"))
 
 
-def sc_lanes(rate, dev):
-    """The single-carrier decoder's replica lanes (nsyncs) at `rate`."""
+def sc_lanes(rate, dev, const="QPSK"):
+    """The single-carrier decoder's replica lanes (nsyncs) at trellis
+    rate `rate` on `const`."""
     from leansdr_tpu_torch.dsp.cstln import Predef, make_dvbs2_constellation
     from leansdr_tpu_torch.fec.viterbi import ViterbiSyncDevice
-    return ViterbiSyncDevice(make_dvbs2_constellation(Predef.QPSK, rate),
+    return ViterbiSyncDevice(make_dvbs2_constellation(Predef[const], rate),
                              rate, device=dev).nsyncs
 
 
-def fleet_plan(rate, dev):
-    """The ACQUIRE ViterbiPlan of the 64-carrier main path at `rate`."""
+def fleet_plan(rate, dev, const="QPSK"):
+    """The ACQUIRE ViterbiPlan of the 64-carrier main path at trellis
+    rate `rate` on `const`."""
     from leansdr_tpu_torch.dsp.cstln import Predef, make_dvbs2_constellation
     from leansdr_tpu_torch.fec import viterbi_device as vd
-    return vd.MultiViterbiSync(make_dvbs2_constellation(Predef.QPSK, rate),
+    return vd.MultiViterbiSync(make_dvbs2_constellation(Predef[const], rate),
                                rate, NCHAN, CHUNK_SAMPLES, 2.0,
                                device=dev).plan
 
@@ -693,36 +724,101 @@ def fleet_plan(rate, dev):
 def banked_costs(kind, rate, T, N, dev, gen):
     """Banked ACS block costs [T, N] int32: "ties", 0, -3, -6 or -9
     (metric ties on most blocks); "int16", the sum of the rate's nshifts
-    symbols' costs (bits_out / 2 QPSK symbols per block), each at the
-    callers' extremes -2^15, 2^15 - 1, 0 or anything between (acs_costs):
-    the headroom of the kernel's normalisation."""
+    symbols' costs (bits_out / 2 QPSK symbols per block, at least one),
+    each at the callers' extremes -2^15, 2^15 - 1, 0 or anything between
+    (acs_costs): the headroom of the kernel's normalisation; "bpsk16",
+    the same over BPSK's bits_out symbols per block, the most any
+    constellation puts in a block."""
     from leansdr_tpu_torch.fec.viterbi import make_trellis
     if kind == "ties":
         return -3 * torch.randint(0, 4, (T, N), device=dev,
                                   dtype=torch.int32, generator=gen)
-    return sum(acs_costs("int16", T, N, dev, gen)
-               for _ in range(make_trellis(rate).bits_out // 2))
+    bits_out = make_trellis(rate).bits_out
+    return sum(acs_costs("int16", T, N, dev, gen) for _ in range(
+        bits_out if kind == "bpsk16" else max(1, bits_out // 2)))
+
+
+def check_slice8(dev, gen):
+    """Slice 8's kernel checks, from their own generator: the demod at
+    DEMOD_CHECKS_8 (BPSK, 32APSK, 64APSKe at C=64); acs at the BPSK
+    single carrier's 2 lanes (T=128, ties, from zero and live);
+    acs_banked at the instances and tables slice 8 brought, at the shapes
+    its paths give them (B=1 at the BPSK fleet's 128 lanes, B=2 at the
+    8PSK single carrier's 16, the 4/5 tables at the 32APSK single
+    carrier's 8, 4/6 at the 8PSK fleet's 2048; T=1024 at N=200), with
+    ties and at BPSK's int16-sum extremes (bits_out symbols per block);
+    scan_demod at 8PSK (check_scan_8psk). Returns (max |diff| over all,
+    plain ms by check)."""
+    from leansdr_tpu_torch.fec import viterbi_device as vd
+    err, plain = 0.0, {}
+    for c in DEMOD_CHECKS_8:
+        e, plain[f"demod {c[0]}"] = check_demod(*c, dev, gen)
+        err = max(err, e)
+    N = sc_lanes("1/2", dev, "BPSK")
+    z = torch.zeros((64, N), dtype=torch.int32, device=dev)
+    m0, p0 = z, z
+    for rnd in range(2):
+        cs = torch.randint(0, 4, (128, N), device=dev, dtype=torch.int32,
+                           generator=gen)
+        cost = acs_costs("ties", 128, N, dev, gen)
+        k = vd.viterbi_acs("1/2", m0, p0, cs, cost)
+        r = vd.viterbi_acs_ref("1/2", m0, p0, cs, cost)
+        for name, a, b in zip(("metric", "path", "us", "q"), k, r):
+            if not torch.equal(a, b):
+                fail(f"ACS N={N} (BPSK single carrier) round {rnd}: {name} "
+                     f"differs in {int((a != b).sum())} entries")
+        print(f"acs N={N} T=128 (BPSK single carrier) round {rnd}: "
+              "bit-equal")
+        m0, p0 = k[0], k[1]
+    n_fleet8 = fleet_plan("4/6", dev, "PSK8").n_lanes
+    n_sc8, n_sc32 = sc_lanes("2/3", dev, "PSK8"), sc_lanes("4/5", dev,
+                                                           "APSK32")
+    e, _, _ = banked_cases([
+        ("1/2", ((fleet_plan("1/2", dev, "BPSK").n_lanes, 1024, "ties"),
+                 (NCHAN, 1024, "ties"), (200, 1024, "ties"),
+                 (2 * NCHAN, 1024, "bpsk16"))),
+        ("2/3", ((n_sc8, 128, "ties"), (n_sc8, 128, "bpsk16"),
+                 (200, 1024, "ties"))),
+        ("4/5", ((n_sc32, 128, "ties"), (n_sc32, 128, "bpsk16"),
+                 (200, 1024, "ties"))),
+        ("4/6", ((n_fleet8, 1024, "ties"), (n_fleet8, 1024, "bpsk16")))],
+        dev, gen)
+    err = max(err, e)
+    plain.update(check_scan_8psk(dev, gen))
+    return err, plain
 
 
 def check_acs_banked(dev, gen):
-    """acs_banked == viterbi_acs_banked_ref bit for bit at every fleet
-    punctured rate: T=1024 at the fleet main path's lane counts (the
+    """acs_banked == viterbi_acs_banked_ref bit for bit at every QPSK
+    fleet punctured rate: T=1024 at the fleet main path's lane counts (the
     rate's ACQUIRE lanes, 64 carriers x nsyncs, and TRACK's 64) and at
     N=200 (not a multiple of 32), coarse costs forcing metric ties; T=128
     (one single-carrier chunk) at the single carrier's nsyncs lanes; and
     the int16-sum cost extremes at the fleet's ACQUIRE and TRACK lanes;
-    round 0 from zero planes, round 1 from the kernel's end state.
-    Returns (max |diff|, plain ms at 3/4 ACQUIRE round 0, its N)."""
+    round 0 from zero planes, round 1 from the kernel's end state (slice
+    8's instances: check_slice8). Returns (max |diff|, plain ms at 3/4
+    ACQUIRE round 0, its N)."""
+    from leansdr_tpu_torch.fec import viterbi_banked as vb
+    n_acq_34 = fleet_plan("3/4", dev).n_lanes
+    cases = [(rate, ((n_acq, 1024, "ties"), (NCHAN, 1024, "ties"),
+                     (200, 1024, "ties"), (sc_lanes(rate, dev), 128, "ties"),
+                     (n_acq, 1024, "int16"), (NCHAN, 1024, "int16")))
+             for rate, n_acq in ((r, fleet_plan(r, dev).n_lanes)
+                                 for r in vb.QPSK_PUNCTURED)]
+    return banked_cases(cases, dev, gen, n_acq_34)
+
+
+def banked_cases(cases, dev, gen, n_acq_34=None):
+    """acs_banked == viterbi_acs_banked_ref bit for bit on `cases`:
+    [(rate, [(N, T, costs kind)])], each shape twice, from zero planes
+    and from the kernel's end state. Returns (max |diff|, plain ms and N
+    of the first 3/4 round at N = n_acq_34)."""
     from leansdr_tpu_torch.fec import viterbi_banked as vb
     from leansdr_tpu_torch.fec.viterbi import make_trellis
     err, plain = 0.0, None
-    for rate in vb.FLEET_RATES:
+    for rate, shapes in cases:
         ncs = make_trellis(rate).ncs
-        n_acq = fleet_plan(rate, dev).n_lanes
-        for N, T, costs in ((n_acq, 1024, "ties"), (NCHAN, 1024, "ties"),
-                            (200, 1024, "ties"),
-                            (sc_lanes(rate, dev), 128, "ties"),
-                            (n_acq, 1024, "int16"), (NCHAN, 1024, "int16")):
+        for N, T, costs in shapes:
             z = torch.zeros((64, N), dtype=torch.int32, device=dev)
             planes = (z, z, z)
             for rnd in range(2):
@@ -746,10 +842,11 @@ def check_acs_banked(dev, gen):
                                    for a, b in zip(k, r)))
                 print(f"acs_banked {rate} N={N} T={T} costs {costs} round "
                       f"{rnd}: bit-equal, plain {plain_ms:.0f} ms")
-                if rate == "3/4" and N == n_acq and rnd == 0 and plain is None:
+                if (rate == "3/4" and N == n_acq_34 and rnd == 0
+                        and plain is None):
                     plain = (plain_ms, N)
                 planes = k[:3]
-    return err, plain[0], plain[1]
+    return (err,) + (plain or (None, None))
 
 
 def start_long_banked(dev, gen, rate):
@@ -934,22 +1031,28 @@ def check_acq_fft(dev, frames):
 
 # ---------------------------------------------------------------- phase 4
 
-def fleet_stimulus(dev, gen, nsamp, rate="1/2"):
+def fleet_stimulus(dev, gen, nsamp, rate="1/2", const="QPSK", esn0_db=12.0,
+                   interp=2):
     """[64, nsamp, 2] float32 on dev: channel c carries the port's
-    modulation at code rate `rate` of TS packets numbered from 1000*c,
-    with its own fractional delay, carrier offset and AWGN (Es/N0
-    ~ 12 dB)."""
+    modulation (constellation `const`, `interp` samples per symbol) at
+    code rate `rate` of TS packets numbered from 1000*c, with its own
+    fractional delay, carrier offset and AWGN (Es/N0 `esn0_db`, as if
+    at 2 samples per symbol)."""
+    from leansdr_tpu_torch.dsp.cstln import Predef, make_dvbs2_constellation
     from leansdr_tpu_torch.fec.convenc import FEC_SPECS
-    from leansdr_tpu_torch.fec.viterbi_banked import fleet_rate
+    from leansdr_tpu_torch.fec.viterbi_banked import viterbi_rate
     from leansdr_tpu_torch.pipelines import dvbs_tx, tsgen
-    bits_in, bits_out = FEC_SPECS[fleet_rate(rate)]
-    # A TS packet takes at least 188*8 * bits_out/bits_in samples (2
-    # samples per symbol, 2 coded bits per symbol), so these cover nsamp.
-    npkt = nsamp * bits_in // (1504 * bits_out) + 16
+    cst = make_dvbs2_constellation(Predef[const], rate)
+    bits_in, bits_out = FEC_SPECS[viterbi_rate(rate, cst.nsymbols)]
+    # A TS packet takes at least 188*8 * bits_out/bits_in coded bits,
+    # bits_per_symbol a symbol of `interp` samples, so these cover nsamp.
+    npkt = (nsamp * cst.bits_per_symbol * bits_in
+            // (1504 * bits_out * interp) + 16)
     rows = []
     for c in range(NCHAN):
         q = dvbs_tx.modulate(tsgen.generate(npkt, start=1000 * c),
-                             dvbs_tx.TxConfig(rate=rate, interp=2))
+                             dvbs_tx.TxConfig(constellation=Predef[const],
+                                              rate=rate, interp=interp))
         if len(q) < nsamp + 1:
             fail(f"stimulus: {len(q)} samples < {nsamp + 1}")
         rows.append(torch.from_numpy(q[:nsamp + 1]))
@@ -963,7 +1066,7 @@ def fleet_stimulus(dev, gen, nsamp, rate="1/2"):
     cr, sr = ph.cos().float(), ph.sin().float()
     xr, xi = x[..., 0], x[..., 1]
     y = torch.stack([xr * cr - xi * sr, xr * sr + xi * cr], -1)
-    sigma = rms * 10 ** (-12 / 20) / np.sqrt(2)
+    sigma = rms * 10 ** (-esn0_db / 20) / np.sqrt(2)
     y = y + sigma * torch.randn(y.shape, device=dev, generator=gen)
     return y.contiguous()
 
@@ -987,41 +1090,49 @@ def check_packets(c, pkts):
 
 
 def fleet_rx(dev, code_rate, viterbi=True, sampler="rrc", exact=False,
-             **seg):
+             const="QPSK", fields=None, **seg):
     """The 64-carrier fleet receiver of the main path at `code_rate`
     (viterbi=False: the hard-decision fleet; exact: the scan demod's
-    exact-LUT route, with "rrc" its polyphase sampler; seg:
+    exact-LUT route, with "rrc" its polyphase sampler; const: the
+    constellation's Predef name; fields: other RxConfig fields; seg:
     MultiDvbsReceiver's segments, seg_warmup, seg_holdoff)."""
+    from leansdr_tpu_torch.dsp.cstln import Predef
     from leansdr_tpu_torch.pipelines import multi_rx
     from leansdr_tpu_torch.pipelines.dvbs_rx import RxConfig
-    cfg = RxConfig(Fs=4e6, Fm=2e6, rate=code_rate, fastlock=True,
-                   float_scale=75, exact_lut=exact, viterbi=viterbi,
-                   sampler=sampler)
+    cfg = RxConfig(**(dict(Fs=4e6, Fm=2e6, rate=code_rate, fastlock=True,
+                           float_scale=75, exact_lut=exact, viterbi=viterbi,
+                           sampler=sampler, constellation=Predef[const])
+                      | (fields or {})))
     return multi_rx.MultiDvbsReceiver(cfg, NCHAN, chunk_samples=CHUNK_SAMPLES,
                                       device=dev, **seg)
 
 
-def fleet_frames(dev, gen, code_rate):
-    """SEG_CHUNKS chunks of fleet_stimulus at `code_rate`, scaled by the
+def fleet_frames(dev, gen, code_rate, const="QPSK", esn0_db=12.0, interp=2,
+                 nchunks=SEG_CHUNKS):
+    """`nchunks` chunks of fleet_stimulus at `code_rate`, scaled by the
     float_scale (the device path's contract); the S=1 runs read the first
     NCHUNKS of them."""
-    ra = fleet_rx(dev, code_rate).readahead
+    ra = fleet_rx(dev, code_rate, const=const).readahead
     t0 = time.perf_counter()
-    frames = fleet_stimulus(dev, gen, SEG_CHUNKS * CHUNK_SAMPLES + ra,
-                            code_rate) * 75.0
+    frames = fleet_stimulus(dev, gen, nchunks * CHUNK_SAMPLES + ra,
+                            code_rate, const, esn0_db, interp) * 75.0
     torch.cuda.synchronize()
-    print(f"[rate {code_rate}] stimulus: {NCHAN} x {frames.shape[1]} "
-          f"samples in {time.perf_counter() - t0:.1f} s")
+    print(f"[{const} rate {code_rate}] stimulus: {NCHAN} x {frames.shape[1]}"
+          f" samples in {time.perf_counter() - t0:.1f} s")
     return frames
 
 
-def fleet_run(rx, frames, nchunks, tag, steady_from, capture=None):
+def fleet_run(rx, frames, nchunks, tag, steady_from, capture=None,
+              gate=True):
     """`nchunks` chunks through rx.process() with every kernel's launch
     count zeroed just before and read just after; per-stage CUDA events
-    (host clocks for the host stages); the lock and TS gate. Steady state
-    is chunks steady_from.. . capture(k) -> True records the inputs of
-    chunk k's demod launches. Returns dict(launches, stages, rate in
-    Msamples/s, chunk_ms, captured)."""
+    (host clocks for the host stages, the preprocessing's too); the lock
+    and TS gate (gate=False: printed, not a gate). Steady state is chunks
+    steady_from.. . capture(k) -> True records the inputs of chunk k's
+    demod launches. A receiver with preprocessing reads its chunks from
+    the host without the readahead overlap (its host path keeps its own
+    backlog). Returns dict(launches, stages, rate in Msamples/s,
+    chunk_ms, captured, locked, worst)."""
     from leansdr_tpu_torch.dsp import mf_prefilter, receiver
     from leansdr_tpu_torch.dsp import receiver_kernel as rk
     from leansdr_tpu_torch.fec import deconv_device as dd
@@ -1090,11 +1201,16 @@ def fleet_run(rx, frames, nchunks, tag, steady_from, capture=None):
                (multi_rx, "_to_host", hosttimed("fetch", multi_rx._to_host,
                                                 sync=True)),
                (rx.backend, "feed", hosttimed("backend", rx.backend.feed))]
+    pre = [k for k in ("notch", "cnr_est", "spectrum")
+           if getattr(rx, k) is not None]
+    patches += [(getattr(rx, k), "process",
+                 hosttimed(k, getattr(rx, k).process, sync=True))
+                for k in pre]
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
     for obj, name, fn in patches:
         setattr(obj, name, fn)
 
-    ra = rx.readahead
+    ra = 0 if pre else rx.readahead
     pkts = [[] for _ in range(NCHAN)]
     wall = []
     for fn in counted.values():
@@ -1125,7 +1241,7 @@ def fleet_run(rx, frames, nchunks, tag, steady_from, capture=None):
     if launches[dem_key] < nchunks or (acs_key and launches[acs_key] < 1):
         fail(f"{tag} did not run through the kernels: {launches}")
     locks = rx.locks
-    if not all(locks):
+    if not all(locks) and gate:
         fail(f"{tag}: channels not locked: "
              f"{[c for c, l in enumerate(locks) if not l]}")
     worst = 1.0
@@ -1136,17 +1252,19 @@ def fleet_run(rx, frames, nchunks, tag, steady_from, capture=None):
         frac_span = n_good / span
         worst = min(worst, frac_ok, frac_span)
         total_good += n_good
-        if n_good < 100 or frac_ok < 0.9 or frac_span < 0.9:
+        if gate and (n_good < 100 or frac_ok < 0.9 or frac_span < 0.9):
             fail(f"{tag} channel {c}: {n_good} sent packets decoded of "
                  f"{n_after} after lock, span {span}")
     print(f"[{tag}] TS: {total_good} sent packets decoded over {NCHAN} "
-          f"channels; worst channel fraction {worst:.4f}")
+          f"channels; worst channel fraction {worst:.4f}; "
+          f"{sum(locks)} of {NCHAN} locked"
+          + ("" if gate else " (not a gate on this path)"))
 
     nsteady = nchunks - steady_from
-    stages = dict.fromkeys(
+    stages = dict.fromkeys(tuple(pre) + (
         ("mf", "demod", "append", "decode", "fetch", "backend") if S == 1
         else ("mf", "pass1", "pass2", "splice", "segmented", "append",
-              "decode", "fetch", "backend"), 0.0)
+              "decode", "fetch", "backend")), 0.0)
     for k, name, s, e in marks:
         if k >= steady_from:
             stages["fetch" if name == "pack" else name] += \
@@ -1169,15 +1287,18 @@ def fleet_run(rx, frames, nchunks, tag, steady_from, capture=None):
           f"Msamples/s ({NCHAN} x 2 Msym/s carriers need "
           f"{NCHAN * 4.0:.0f})")
     return dict(launches=launches, stages=stages, rate=rate,
-                chunk_ms=chunk_s * 1e3, captured=captured)
+                chunk_ms=chunk_s * 1e3, captured=captured,
+                locked=int(sum(locks)), packets_good=int(total_good),
+                worst=float(worst))
 
 
-def main_path(dev, gen, frames, code_rate="1/2"):
+def main_path(dev, gen, frames, code_rate="1/2", const="QPSK"):
     """The fleet at `code_rate`, segments=1: NCHUNKS chunks through
-    process(); at rate 1/2 also the pipelined submit() path."""
-    rx = fleet_rx(dev, code_rate)
-    run = fleet_run(rx, frames, NCHUNKS, f"rate {code_rate}", 1)
-    if code_rate != "1/2":
+    process(); at QPSK rate 1/2 also the pipelined submit() path."""
+    rx = fleet_rx(dev, code_rate, const=const)
+    tag = f"rate {code_rate}" if const == "QPSK" else f"{const} {code_rate}"
+    run = fleet_run(rx, frames, NCHUNKS, tag, 1)
+    if code_rate != "1/2" or const != "QPSK":
         return rx, run, None
 
     # The same stream through the pipelined path.
@@ -1215,6 +1336,66 @@ def main_path(dev, gen, frames, code_rate="1/2"):
     print(f"pipelined submit(): {piped_s * 1e3:.1f} ms per chunk, "
           f"{piped_rate:.1f} Msamples/s; {piped_good} sent packets decoded")
     return rx, run, piped_rate
+
+
+# Slice 8's fleet paths (64 carriers, chunk 2^18, S=1, steady state from
+# the second chunk): (name, code rate, constellation, Es/N0 dB, samples
+# per symbol, RxConfig fields, chunks, gate). 8PSK 2/3 runs as the 4/6
+# trellis (leansdr_tpu/pipelines/multi_rx.py:740), 32 replicas per
+# carrier, 2048 ACQUIRE lanes; only part of its carriers lock, in the JAX
+# fleet as in the port (ROADMAP queue 3), so its gate is the run through
+# the kernels (and the kernels' checks at its shapes), its locks and
+# packets printed; BPSK 1/2 on the banked ACS's B=1 instance;
+# the preprocessing cell is QPSK 1/2 with anf=1, cnr and want_spectrum,
+# at 1 Msps and 250 ksym/s per carrier (a QO-100 DATV rate): the CNR's
+# band model needs Fs >= 4 Fm and gives one value per Fs samples, so the
+# main path's 4 Msps / 2 Msym/s cannot take it (the JAX fleet refuses it
+# too), and 8 chunks of 2^18 give two values and two spectrum lines.
+FLEET_PATHS_8 = (
+    ("fleet 8PSK 2/3", "2/3", "PSK8", 20.0, 2, {}, NCHUNKS, False),
+    ("fleet BPSK 1/2", "1/2", "BPSK", 10.0, 2, {}, NCHUNKS, True),
+    ("fleet preproc", "1/2", "QPSK", 12.0, 4,
+     dict(Fs=1e6, Fm=250e3, anf=1, cnr=True, want_spectrum=True,
+          float_scale=1.0), SEG_CHUNKS, True),
+)
+
+
+def fleet8_path(dev, gen, name, code_rate, const, esn0_db, interp, fields,
+                nchunks, gate):
+    """One of FLEET_PATHS_8 through fleet_run (its own zeroed counters,
+    stage times, the lock and TS gate where `gate`). The preprocessing
+    cell reads its
+    chunks from the host (float_scale 1: the frames carry the scale) and
+    must put out one CNR vector and one spectrum line of each carrier per
+    Fs samples, finite; its notch, CNR and spectrum ms per chunk are
+    fleet_run's host stages."""
+    frames = fleet_frames(dev, gen, code_rate, const, esn0_db, interp,
+                          nchunks)
+    rx = fleet_rx(dev, code_rate, const=const, fields=fields)
+    if const == "PSK8":
+        assert rx.rate == "4/6" and rx.deconv.plan.n_lanes == 32 * NCHAN
+    run = fleet_run(rx, frames, nchunks, name, 1, gate=gate)
+    del frames
+    run.pop("captured")
+    run.update(const=const, code_rate=code_rate, trellis_rate=rx.rate,
+               esn0_db=esn0_db, nsyncs=rx.deconv.plan.nsyncs,
+               fs=rx.cfg.Fs, fm=rx.cfg.Fm, gated=gate)
+    if rx.cnr_est is not None:
+        want = nchunks * CHUNK_SAMPLES // int(rx.cfg.Fs)
+        cnr = np.array(rx.cnr)                        # [values, C]
+        print(f"[{name}] CNR: {cnr.shape[0]} vectors of {NCHAN} (dB, min "
+              f"{cnr.min():.2f}, mean {cnr.mean():.2f}, max "
+              f"{cnr.max():.2f}); {len(rx.spectrum_lines)} spectrum lines "
+              f"of {NCHAN} x 1024; notch slots "
+              f"{sorted(set(rx.notch.slot_i[:, 0].tolist()))[:8]}")
+        if (cnr.shape != (want, NCHAN) or not np.isfinite(cnr).all()
+                or len(rx.spectrum_lines) != want
+                or not all(np.isfinite(l).all() for l in rx.spectrum_lines)):
+            fail(f"{name}: {cnr.shape} CNR values, "
+                 f"{len(rx.spectrum_lines)} spectrum lines (want {want})")
+        run.update(cnr_db_mean=float(cnr.mean()), cnr_vectors=cnr.shape[0],
+                   spectrum_lines=len(rx.spectrum_lines))
+    return run
 
 
 def segmented_path(dev, frames, code_rate, S, capture=False):
@@ -1555,11 +1736,48 @@ SC_PATHS = (
     ("hs", dict(Fs=2.4e6, Fm=2e6, rate="1/2", hs=True, anf=0), "u8",
      2 ** 23 / 2.4e6, (6, 10, True), 20e3, 20.0, 150e3),
 )
+# Slice 8's single-carrier paths, leandvb --viterbi --fastlock --anf 0 at
+# 4 Msps f32 (--float-scale 75), 2 Msym/s, 1 s each, at constellations
+# other than QPSK (the `constellation` field names a Predef): DVB-DSNG's
+# 8PSK 2/3 (the 2/3 trellis on the banked ACS's B=2 instance, 16
+# replicas), BPSK 1/2 (csrc/acs.cu at 2 lanes), 32APSK 4/5 (the 4/5
+# tables; behind the matched filter, --sampler rrc: its three rings do
+# not survive the unmatched pulse's intersymbol interference on the
+# linear sampler) and 16APSK 3/4, each at an Es/N0 (dB) it locks at; then
+# --cnr --fd-spectrum on a u8 stream at 4.8 Msps of a 1.2 Msym/s carrier
+# (the CNR's band model needs Fs >= 4 Fm, so the canonical 2.4 Msps
+# stream cannot take it: the JAX receiver and the reference refuse it
+# too), 2.5 s: two CNR values and two spectrum lines, one per Fs
+# samples. The last field is the lock and TS gate: 32APSK 4/5's
+# acquisition is bistable on the receivers' decision-directed loops (the
+# JAX receiver's arithmetic, which the port's equals; ROADMAP queue 3),
+# so on that stream the gate is the run through the kernels and their
+# checks against the plain versions, its lock and packets printed.
+SC_PATHS_8 = (
+    ("psk8_23", dict(Fs=4e6, Fm=2e6, constellation="PSK8", rate="2/3",
+                     fastlock=True, viterbi=True, anf=0, float_scale=75.0),
+     "f32", 1.0, (3, 3, True), 20e3, 20.0, None, True),
+    ("bpsk_12", dict(Fs=4e6, Fm=2e6, constellation="BPSK", rate="1/2",
+                     fastlock=True, viterbi=True, anf=0, float_scale=75.0),
+     "f32", 1.0, (3, 3, True), 20e3, 12.0, None, True),
+    ("apsk32_45", dict(Fs=4e6, Fm=2e6, constellation="APSK32", rate="4/5",
+                       fastlock=True, viterbi=True, anf=0, sampler="rrc",
+                       float_scale=75.0),
+     "f32", 1.0, (3, 3, True), 20e3, 24.0, None, False),
+    ("apsk16_34", dict(Fs=4e6, Fm=2e6, constellation="APSK16", rate="3/4",
+                       fastlock=True, viterbi=True, anf=0,
+                       float_scale=75.0),
+     "f32", 1.0, (3, 3, True), 20e3, 24.0, None, True),
+    ("cnr", dict(Fs=4.8e6, Fm=1.2e6, rate="1/2", anf=0, cnr=True,
+                 want_spectrum=True), "u8", 2.5, (4, 2, True), 20e3, 20.0,
+     None, True),
+)
 
 
-def sc_stimulus(rate, fs, seconds, updown, f_off, esn0_db, birdie, fmt,
-                rng):
-    """Wire bytes of `seconds` of one DVB-S carrier at rate `rate`: the
+def sc_stimulus(const, rate, fs, seconds, updown, f_off, esn0_db, birdie,
+                fmt, rng):
+    """Wire bytes of `seconds` of one DVB-S carrier of constellation
+    `const` (a Predef name) at rate `rate`: the
     port's modulation of numbered TS packets resampled from 2 samples per
     symbol to fs (see SC_PATHS for `pick`), shifted by f_off Hz, with
     AWGN at Es/N0, an optional CW birdie 20 dB below the carrier's power
@@ -1567,16 +1785,19 @@ def sc_stimulus(rate, fs, seconds, updown, f_off, esn0_db, birdie, fmt,
     (u8 ~ 30 LSB rms, s16 ~ 3000 LSB rms, f32 unit rms for
     --float-scale 75). Returns (bytes, packets sent)."""
     from scipy.signal import resample_poly
+    from leansdr_tpu_torch.dsp.cstln import Predef, make_dvbs2_constellation
     from leansdr_tpu_torch.fec.convenc import FEC_SPECS
-    from leansdr_tpu_torch.fec.viterbi_banked import fleet_rate
+    from leansdr_tpu_torch.fec.viterbi_banked import viterbi_rate
     from leansdr_tpu_torch.pipelines import dvbs_tx, tsgen
     up, down, pick = updown
     n = int(round(seconds * fs))
-    bits_in, bits_out = FEC_SPECS[fleet_rate(rate)]
+    cst = make_dvbs2_constellation(Predef[const], rate)
+    bits_in, bits_out = FEC_SPECS[viterbi_rate(rate, cst.nsymbols)]
     nsym = n * down / (2 * up)
-    npkt = int(nsym * 2 * bits_in / bits_out / 1632) + 16
+    npkt = int(nsym * cst.bits_per_symbol * bits_in / bits_out / 1632) + 16
     iq = dvbs_tx.modulate(tsgen.generate(npkt),
-                          dvbs_tx.TxConfig(rate=rate, interp=2))
+                          dvbs_tx.TxConfig(constellation=Predef[const],
+                                           rate=rate, interp=2))
     z = iq[:, 0] + 1j * iq[:, 1]
     z = (resample_poly(z, up, 1)[3::down] if pick
          else resample_poly(z, up, down))
@@ -1653,7 +1874,7 @@ def sc_plain_checks(name, inputs):
 
 
 def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
-                   f_off, esn0_db, birdie, stimulus=None):
+                   f_off, esn0_db, birdie, stimulus=None, gate=True):
     """One single-carrier path: the wire stream through DvbsReceiver in
     leandvb's 2^17-sample reads (read_iq -> process), with every kernel's
     launch count zeroed just before and read just after, device stages
@@ -1661,7 +1882,8 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
     inputs of chosen launches against the plain versions
     (sc_plain_checks). Paths with the same stimulus parameters read the
     same bytes (`stimuli` keeps them); `stimulus` = (bytes, frames sent)
-    gives an --hdlc path its own, gated on its frames (check_frames)."""
+    gives an --hdlc path its own, gated on its frames (check_frames).
+    gate=False prints the lock and TS result without failing on it."""
     from leansdr_tpu_torch.dsp import fir_kernel as fk
     from leansdr_tpu_torch.dsp import mf_prefilter, receiver, receiver_hs
     from leansdr_tpu_torch.dsp import receiver_kernel as rk
@@ -1671,10 +1893,15 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
     from leansdr_tpu_torch.pipelines.dvbs_rx import DvbsReceiver, RxConfig
     from leansdr_tpu_torch.util.iofmt import read_iq
 
+    from leansdr_tpu_torch.dsp.cstln import Predef
+
     # leandvb's defaults, then the stream's flags.
-    cfg = RxConfig(**(dict(anf=1, exact_lut=False) | fields))
+    const = fields.get("constellation", "QPSK")
+    cfg = RxConfig(**(dict(anf=1, exact_lut=False) | fields
+                      | dict(constellation=Predef[const])))
     t0 = time.perf_counter()
-    key = (cfg.rate, cfg.Fs, seconds, updown, f_off, esn0_db, birdie, fmt)
+    key = (const, cfg.rate, cfg.Fs, seconds, updown, f_off, esn0_db, birdie,
+           fmt)
     if stimulus is not None:
         raw, sent = stimulus
         npkt = len(sent)
@@ -1738,10 +1965,20 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
                 timed("segmented", multi_rx._demod_segmented))]
     patches += [(m, a, timed(k, captured(k, getattr(m, a))))
                 for k, (m, a) in kernels.items()]
-    for attr in ("notch", "resampler", "deconv", "hdlc_sync"):
+    ftaps = []                       # the carrier tap of each CNR call
+
+    def tapped(fn):
+        def wrapper(z, freq_tap=0.0):
+            ftaps.append(freq_tap)
+            return fn(z, freq_tap)
+        return wrapper
+
+    for attr in ("notch", "cnr_est", "spectrum", "resampler", "deconv",
+                 "hdlc_sync"):
         blk = getattr(rx, attr, None)
         if blk is not None:
-            patches.append((blk, "process", hosttimed(attr, blk.process)))
+            fn = tapped(blk.process) if attr == "cnr_est" else blk.process
+            patches.append((blk, "process", hosttimed(attr, fn)))
     if cfg.awgn:
         patches.append((dvbs_rx.chansim, "wgn_c",
                         hosttimed("wgn_c", dvbs_rx.chansim.wgn_c)))
@@ -1794,7 +2031,8 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
           f"{n_after} after lock (span {span}; {npkt} sent)")
     if any(launches[k] < 1 for k in need):
         fail(f"{name}: the path did not run through {need}: {launches}")
-    if not lock or n_good < 100 or n_good < 0.9 * max(n_after, span):
+    if gate and (not lock or n_good < 100
+                 or n_good < 0.9 * max(n_after, span)):
         fail(f"{name}: {n_good} sent {unit} decoded of {n_after} after "
              f"lock, span {span}, lock {lock}")
     short = [k for k in need if len(inputs.get(k, ())) < 2 + (
@@ -1810,7 +2048,12 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
           "device ms: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                     device.items()) +
           "; host ms: " + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
+    estimators = (cnr_replay(name, cfg, rx, raw, fmt, ftaps)
+                  if cfg.cnr or cfg.want_spectrum else None)
     return dict(path=name, fmt=fmt, fs=cfg.Fs, samples=nsamp, wall_s=wall,
+                constellation=const, rate=cfg.rate, esn0_db=esn0_db,
+                lock=bool(lock), gated=gate,
+                estimators=estimators,
                 msamples_per_s=nsamp / wall / 1e6, x_real_time=xrt,
                 device_ms=device, host_ms=host, launches=launches,
                 packets_good=int(n_good), packets_after_lock=int(n_after),
@@ -1819,6 +2062,48 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
                                      else None),
                 plain_checks=[dict(kernel=k, launch=n, shapes=sh,
                                    plain_ms=ms) for k, n, sh, ms in checks])
+
+
+def cnr_replay(name, cfg, rx, raw, fmt, ftaps) -> dict:
+    """--cnr and --fd-spectrum of a single-carrier path (their FFT on the
+    card) against the port's CPU run of the same estimators (CnrFft1,
+    Spectrum1 on device="cpu") on the same reads with the same carrier
+    taps: as many CNR values and spectrum lines, one per Fs samples, each
+    within 0.01 dB. The path must have no notch or derotator (the
+    estimators then read the float-scaled input as it is)."""
+    from leansdr_tpu_torch.dsp.blocks_device import CnrFft1, Spectrum1
+    from leansdr_tpu_torch.util.iofmt import read_iq
+    cnr = CnrFft1(cfg.Fm / cfg.Fs, device="cpu")
+    spec = Spectrum1(device="cpu")
+    cnr.decimation = spec.decimation = max(int(cfg.Fs), 1)
+    vals, lines = [], []
+    step = (1 << 17) * {"u8": 2, "s16": 4, "f32": 8}[fmt]
+    for i, o in enumerate(range(0, len(raw), step)):
+        iq = read_iq(raw[o:o + step], fmt) * np.float32(cfg.float_scale)
+        z = iq[:, 0] + 1j * iq[:, 1]
+        if cfg.cnr:
+            vals += cnr.process(z, ftaps[i])
+        if cfg.want_spectrum:
+            lines += spec.process(z)
+    nsamp = len(raw) // {"u8": 2, "s16": 4, "f32": 8}[fmt]
+    want = nsamp // int(cfg.Fs)
+    got_v, got_l = rx.meas["cnr"], rx.spectrum_lines
+    dv = max((abs(a - b) for a, b in zip(got_v, vals)), default=0.0)
+    dl = max((float(np.abs(a - b).max()) for a, b in zip(got_l, lines)),
+             default=0.0)
+    print(f"[{name}] CNR (dB) {[round(v, 3) for v in got_v]}, "
+          f"{len(got_l)} spectrum lines of {len(got_l[0]) if got_l else 0} "
+          f"bins (one per {int(cfg.Fs)} samples); against the CPU run: max "
+          f"|d| {dv:.2e} dB (CNR), {dl:.2e} dB (spectrum)")
+    if (len(got_v) != len(vals) or len(got_l) != len(lines)
+            or len(got_v) != want * cfg.cnr
+            or len(got_l) != want * cfg.want_spectrum
+            or dv > 0.01 or dl > 0.01):
+        fail(f"{name}: CNR {got_v} / {len(got_l)} spectrum lines on the card"
+             f" != the CPU run's {vals} / {len(lines)} (want {want} each, "
+             "within 0.01 dB)")
+    return dict(cnr_db=got_v, cnr_db_cpu=vals, spectrum_lines=len(got_l),
+                max_diff_db_cnr=dv, max_diff_db_spectrum=dl)
 
 
 # ------------------------------------------- the scan demods (slice 6)
@@ -1938,6 +2223,41 @@ def check_scan_demod(dev, gen):
           f"== table {want}; plain ms per call: " + ", ".join(
               f"{k} {v:.0f}" for k, v in plain.items()))
     return 0.0, plain
+
+
+def check_scan_8psk(dev, gen) -> dict:
+    """scan_demod == run_chunks_ref bit for bit at 8PSK (2/3): the
+    linear sampler in both decision modes (the 8PSK LUT; the generic
+    nsymbols-way computed decision) at C=64 over SCAN_CHUNKS chunks, cold
+    and live. Returns the plain version's ms per mode."""
+    from leansdr_tpu_torch.dsp import receiver
+    from leansdr_tpu_torch.dsp.cstln import Predef, make_dvbs2_constellation
+    plain = {}
+    t8 = receiver.make_tables(make_dvbs2_constellation(Predef.PSK8, "2/3"),
+                              dev)
+    for exact in (True, False):
+        p = receiver.ReceiverParams(omega=2.0, sampler="linear",
+                                    exact_lut=exact, nsymbols=8)
+        n = SCAN_CHUNKS * receiver.CHUNK
+        x = demod_stimulus(Predef.PSK8, "2/3", NCHAN,
+                           2 * n + p.readahead - 1, dev, gen)
+        st = receiver.init_state(p, NCHAN, dev)
+        emitted = 0
+        for part in (0, 1):
+            (st, out), ms = _scan_compare(
+                f"scan_demod 8PSK exact={exact} C={NCHAN}",
+                receiver.run_chunks, receiver.run_chunks_ref,
+                (p, t8, st, x[:, part * n:(part + 1) * n
+                                + p.readahead].contiguous()))
+            emitted += int(out["valid"].sum())
+        plain[f"scan_demod 8PSK exact={exact}"] = ms
+        if emitted < NCHAN * n // 2 or int(out["symbol"].max()) < 4:
+            fail(f"scan_demod 8PSK exact={exact}: {emitted} symbols, "
+                 f"largest {int(out['symbol'].max())}")
+    print("scan_demod == run_chunks_ref at 8PSK (linear, exact and "
+          f"computed, C={NCHAN}): plain ms " + ", ".join(
+              f"{k} {v:.0f}" for k, v in plain.items()))
+    return plain
 
 
 def scan_chain(built, lat, clock) -> dict:
@@ -2549,7 +2869,8 @@ def banked_ops(rate: str, T: int, N: int) -> float:
 
 def banked_chain(so, lat_int, clock) -> dict:
     """The banked ACS kernel's per-block chain and one warp's in-order
-    issue, per B (3: 3/4, 4: 4/6, 5: 5/6, 7: 7/8), from its built
+    issue, per B (1: 1/2, 2: 2/3, 3: 3/4, 4: 4/6 and 4/5, 5: 5/6, 7:
+    7/8), from its built
     library's SASS: tools/sass_chain.py on the block loop (one barrier
     per block; the ring reduction, once per 64 blocks behind a branch,
     left out), the shared-memory exchange counted (exchange=True)."""
@@ -2557,7 +2878,7 @@ def banked_chain(so, lat_int, clock) -> dict:
     import sass_chain
     text = sass_of(so)
     out = {}
-    for B in (3, 4, 5, 7):
+    for B in (1, 2, 3, 4, 5, 7):
         res = sass_chain.analyse(text, f"acs_banked_kernelILi{B}E", lat_int,
                                  "BAR", None, 1.0, 1, exchange=True)
         out[B] = res
@@ -2575,20 +2896,25 @@ def banked_chain(so, lat_int, clock) -> dict:
 
 def banked_times(dev, gen, chain, clock):
     """acs_banked at the main path's shapes (64 carriers, chunk 2^18):
-    ACQUIRE (64 x nsyncs lanes) and TRACK (64 lanes), at every fleet
-    punctured rate (CUDA events, 2 calls), and the hq 3/4 single
-    carrier's launch (its nsyncs lanes, T=128; device time from CUDA-graph
-    replays of 50 calls), with bounds at the INT32 issue rate
+    ACQUIRE (64 x nsyncs lanes) and TRACK (64 lanes), at every QPSK fleet
+    punctured rate and slice 8's fleets (8PSK's 4/6, BPSK's 1/2; CUDA
+    events, 2 calls), and the single carrier's launches (its nsyncs
+    lanes, T=128: hq 3/4, 8PSK 2/3, 32APSK 4/5; device time from
+    CUDA-graph replays of 50 calls), with bounds at the INT32 issue rate
     (banked_ops), cycles per block and, beside them, the SASS chain and
     one warp's in-order issue per block (banked_chain)."""
     from leansdr_tpu_torch.fec import viterbi_banked as vb
     out = []
     shapes = []
-    for rate in ("3/4", "7/8", "5/6", "4/6"):
-        plan = fleet_plan(rate, dev)
-        shapes += [(rate, "acquire", plan.n_lanes, plan.nblocks),
-                   (rate, "track", NCHAN, plan.nblocks)]
-    shapes.append(("3/4", "hq", sc_lanes("3/4", dev), 128))
+    for rate, const in (("3/4", "QPSK"), ("7/8", "QPSK"), ("5/6", "QPSK"),
+                        ("4/6", "QPSK"), ("4/6", "PSK8"), ("1/2", "BPSK")):
+        plan = fleet_plan(rate, dev, const)
+        tag = "" if const == "QPSK" else f" {const}"
+        shapes += [(rate, "acquire" + tag, plan.n_lanes, plan.nblocks),
+                   (rate, "track" + tag, NCHAN, plan.nblocks)]
+    shapes += [("3/4", "hq", sc_lanes("3/4", dev), 128),
+               ("2/3", "sc PSK8", sc_lanes("2/3", dev, "PSK8"), 128),
+               ("4/5", "sc APSK32", sc_lanes("4/5", dev, "APSK32"), 128)]
     for rate, mode, N, T in shapes:
         geo = vb.bank_geometry(rate)
         cs = torch.randint(0, geo.ncs, (T, N), device=dev,
@@ -2611,7 +2937,7 @@ def banked_times(dev, gen, chain, clock):
                         issue_cycles_per_block=c["issue_cycles_per_step"],
                         chain_bound_ms=T * c["cycles_per_step"] / clock
                         * 1e3))
-        print(f"kernel acs_banked {rate} {mode:7s} N={N:4d} T={T}: "
+        print(f"kernel acs_banked {rate} {mode:14s} N={N:4d} T={T}: "
               f"{ms:.4f} ms, bound {b:.4f} ms ({by}), {cyc:.1f} cycles per "
               f"block (SASS chain {c['cycles_per_step']:.1f}, one warp in "
               f"order {c['issue_cycles_per_step']:.1f}; chain bound "
@@ -2871,6 +3197,10 @@ def main() -> int:
     fft = fft_times(dev)
     check_first_argmax(dev, gen)
     check_first_argmin(dev)
+    # Slice 8's kernel checks and fleet paths, from their own generator.
+    gen8 = torch.Generator(device=dev)
+    gen8.manual_seed(SEED_8)
+    s8_err, s8_plain = check_slice8(dev, gen8)
 
     # Phase 4: the fleet at each rate, sequential (segments=1) and
     # segmented (segments=8), on one stimulus per rate; at rate 1/2 also
@@ -2921,6 +3251,9 @@ def main() -> int:
         seg[code_rate].pop("captured")
         hard[code_rate] = hard_path(dev, frames, code_rate)
         del frames
+    # Slice 8: the fleet at 8PSK 2/3 (as 4/6) and BPSK 1/2, and the fleet's
+    # preprocessing (anf, cnr, spectrum).
+    fleet8 = {p[0]: fleet8_path(dev, gen8, *p) for p in FLEET_PATHS_8}
     btimes = banked_times(dev, gen, b_chain, clock)
     b0 = btimes[0]                      # 3/4 ACQUIRE: the headline shape
     for job in [long_acs] + long_banked:  # before the host-timed streams
@@ -2933,6 +3266,10 @@ def main() -> int:
     awgn_off, awgn = awgn_path(dev, rng, stimuli)
     hdlc = hdlc_path(dev, rng)
     del stimuli
+    # Slice 8's single-carrier paths, from their own seed.
+    rng8 = np.random.default_rng(SEED_8)
+    single8 = [single_carrier(dev, rng8, {}, *p[:-1], gate=p[-1])
+               for p in SC_PATHS_8]
     item24 = brickwall(dev)
     ftimes = fir_times(dev, gen)
     # Each path's own count (zeroed just before it, read just after).
@@ -2942,9 +3279,10 @@ def main() -> int:
     by_path.update({f"hard fleet {r}": p["launches"] for r, p in hard.items()})
     by_path.update({f"exact fleet {r}": p["launches"]
                     for r, p in exact.items()})
+    by_path.update({name: r["launches"] for name, r in fleet8.items()})
     by_path["leandvbfleet --acq"] = cli["launches"]
     by_path.update({r["path"]: r["launches"]
-                    for r in single + [awgn_off, awgn, hdlc]})
+                    for r in single + [awgn_off, awgn, hdlc] + single8})
     by_path["pipe (leandvb child)"] = pipe["launches"]
     resample = next(r for r in single if r["path"] == "resample")
     hs_run = next(r for r in single if r["path"] == "hs")
@@ -2953,7 +3291,7 @@ def main() -> int:
         {"name": "demod", "route": "cuda",
          "source": "leansdr_tpu_torch/csrc/demod.cu",
          "replaces": "leansdr_tpu/dsp/receiver_pallas.py:61",
-         "launches": launches["demod"], "max_abs_err": d_err,
+         "launches": launches["demod"], "max_abs_err": max(d_err, s8_err),
          "ms": times["demod"]["ms"], "plain_ms": d_plain,
          "bound_ms": times["demod"]["bound"][0],
          "bound_by": times["demod"]["bound"][1], "library_ms": None,
@@ -2979,7 +3317,7 @@ def main() -> int:
         {"name": "acs", "route": "cuda",
          "source": "leansdr_tpu_torch/csrc/acs.cu",
          "replaces": "leansdr_tpu/fec/viterbi_device.py:91",
-         "launches": launches["acs"], "max_abs_err": a_err,
+         "launches": launches["acs"], "max_abs_err": max(a_err, s8_err),
          "ms": times["acs"]["ms"], "plain_ms": a_plain,
          "bound_ms": times["acs"]["bound"][0],
          "bound_by": times["acs"]["bound"][1], "library_ms": None,
@@ -3006,7 +3344,8 @@ def main() -> int:
          "source": "leansdr_tpu_torch/csrc/acs_banked.cu",
          "replaces": "leansdr_tpu/fec/viterbi_banked.py:361",
          "launches": punctured["3/4"]["launches"]["acs_banked"],
-         "max_abs_err": b_err, "ms": b0["ms"], "plain_ms": b_plain,
+         "max_abs_err": max(b_err, s8_err), "ms": b0["ms"],
+         "plain_ms": b_plain,
          "bound_ms": b0["bound_ms"], "bound_by": b0["bound_by"],
          "library_ms": None,
          "shape": f"rate {b0['rate']} N={b0['N']} T={b0['T']}",
@@ -3144,7 +3483,9 @@ def main() -> int:
                       "exact_fleet": exact_out, "leandvbfleet": cli,
                       "single_carrier": single, "item24_brickwall": item24,
                       "pipe": pipe, "awgn": awgn, "awgn_off": awgn_off,
-                      "hdlc": hdlc,
+                      "hdlc": hdlc, "fleet_slice8": fleet8,
+                      "single_carrier_slice8": single8,
+                      "slice8_checks_plain_ms": s8_plain,
                       "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

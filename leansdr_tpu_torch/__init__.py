@@ -17,11 +17,13 @@ name:
              linear or polyphase rrc sampler and exact-LUT or computed
              decisions), hs_demod.cu (the integer --hs receiver),
              acs.cu (rate-1/2 Viterbi add-compare-select),
-             acs_banked.cu (the punctured rates' ACS), fir.cu (causal FIR
+             acs_banked.cu (the ACS of every other rate and
+             constellation, B = 1 to 7), fir.cu (causal FIR
              with runtime complex or real taps), fft4096.cu
   dsp/       constellations, filter design, matched filter, the demod
              kernel's wrapper, the FIR kernel's wrapper and the streaming
-             --resample filter, the device auto-notch, host blocks
+             --resample filter, the device auto-notch, CNR estimator,
+             spectrum and tracking FIR, host blocks
   fec/       convolutional code tables, the algebraic deconvolver, the
              symbol ring, the Viterbi decoders around the ACS kernels,
              RS/PRBS/interleaver
@@ -30,7 +32,8 @@ name:
   native/    the C++ host byte backend of the fleet (MPEG framing,
              deinterleave, RS decode, derandomize), loaded with ctypes
   core/      generic host blocks (the VBER rate estimator)
-  util/      wire sample formats and the --fd-info/--fd-const writers;
+  util/      wire sample formats and the --fd-info/--fd-const/
+             --fd-spectrum writers;
              ad936x.py (AD936x rate planning and FIR text) and pmp.py
              (PMP buffer descriptors) for leaniio
   pipelines/ the multi-carrier receiver `multi_rx.MultiDvbsReceiver`, the

@@ -12,9 +12,10 @@ Decisions are computed (--no-exact-lut, the default: the demod kernel)
 unless --exact-lut or --hard-metric take the scan demod's 256x256 LUT;
 --sampler nearest also runs on the scan demod, and --hs on the integer
 fast-QPSK demod. --awgn adds the drand48 noise stream before the
-preprocessing; --hdlc writes HDLC frames instead of TS. The flags of
-paths not ported yet raise NotImplementedError naming their ROADMAP
-item.
+preprocessing; --cnr writes CNR lines on the --fd-info stream and
+--fd-spectrum FD SPECTRUM lines on FD; --hdlc writes HDLC frames instead
+of TS. Every constellation and code rate the JAX CLI takes runs; a
+combination it refuses raises the same ValueError.
 """
 
 import sys
@@ -38,13 +39,18 @@ def usage(code=0, f=sys.stderr):
         "  --resample              Lowpass and decimate to ~4 sps\n"
         "  --resample-rej FLOAT    Lowpass rejection (default 10)\n"
         "  --decim INT             Decimate by INT\n"
+        "  --cnr                   Measure CNR\n"
         "\nDVB-S options:\n"
         "  --sr SYMBOLRATE         Symbol rate (Hz, default 2e6)\n"
         "  --tune FREQ             Bias frequency for acquisition (Hz)\n"
         "  --drift                 Follow carrier beyond safe limits\n"
         "  --standard S            DVB-S (default)\n"
-        "  --const C               Constellation (QPSK)\n"
-        "  --cr N/D                Code rate (default 1/2)\n"
+        "  --const C               Constellation (QPSK, BPSK, 8PSK, "
+        "16APSK,\n"
+        "                          32APSK, 64APSKe, 16QAM, 64QAM, 256QAM)\n"
+        "  --cr N/D                Code rate: 1/2 (default), 2/3, 3/4, "
+        "4/6,\n"
+        "                          5/6, 7/8, 4/5\n"
         "  --sampler S             linear (default), nearest, rrc\n"
         "  --segments S            Time-segmented demod over S lanes\n"
         "  --rrc-rej FLOAT         RRC filter rejection (default 30)\n"
@@ -69,6 +75,7 @@ def usage(code=0, f=sys.stderr):
         "\nUI options:\n"
         "  --fd-info FDNUM         Info messages to file descriptor\n"
         "  --fd-const FDNUM        Constellation to file descriptor\n"
+        "  --fd-spectrum FDNUM     Spectrum to file descriptor\n"
         "  --fd-pp FDNUM           Dump preprocessed IQ data to fd\n"
         "  --duration FLOAT        Width of timeline plot (s) [no-op]\n"
         "  --json                  JSON format for aux outputs\n"
@@ -76,10 +83,7 @@ def usage(code=0, f=sys.stderr):
         "  -v, -d                  Verbose / debug\n"
         "\nPort options:\n"
         "  --device DEV            cuda (default) or cpu (plain PyTorch\n"
-        "                          versions of the kernels)\n"
-        "\nNot ported yet (raise NotImplementedError): --cnr,\n"
-        "--fd-spectrum (ROADMAP item 13), constellations other than\n"
-        "QPSK (20).\n")
+        "                          versions of the kernels)\n")
     sys.exit(code)
 
 
@@ -238,6 +242,9 @@ def main(argv=None):
         # JAX kernel path): only its CONST line is written.
         constw = info_mod.ConstWriter(opts["fd_const"], opts["json"])
         constw.const(rx.cstln.symbols)
+    specw = None
+    if opts["fd_spectrum"] >= 0:
+        specw = info_mod.SpectrumWriter(opts["fd_spectrum"], opts["json"])
 
     itemsize = {"u8": 2, "s8": 2, "u16": 4, "s16": 4, "f32": 8}[opts["input"]]
     stdin = sys.stdin.buffer
@@ -245,15 +252,22 @@ def main(argv=None):
     CHUNK_BYTES = (1 << 17) * itemsize
 
     meas_sent = 0
+    cnr_sent = 0
     locktime_sent = 0
+    spectrum_sent = 0
 
     def flush_info():
-        nonlocal meas_sent, locktime_sent
+        nonlocal meas_sent, cnr_sent, locktime_sent, spectrum_sent
         if constw:
             pts = rx.sampled_points
             while len(pts) >= 128:
                 constw.symbols(pts[:128])
                 del pts[:128]
+        if specw:
+            for line in rx.spectrum_lines[spectrum_sent:]:
+                specw.spectrum(line)
+            spectrum_sent = len(rx.spectrum_lines)
+            specw.f.flush()
         if not info:
             return
         n = len(rx.meas["freq"])
@@ -263,6 +277,9 @@ def main(argv=None):
             info.ss(rx.meas["ss"][k])
             info.mer(rx.meas["mer"][k])
         meas_sent = n
+        for v in rx.meas["cnr"][cnr_sent:]:
+            info.cnr(v)
+        cnr_sent = len(rx.meas["cnr"])
         for st in rx.mpeg.lock_events:
             info.lock(st)
         rx.mpeg.lock_events.clear()

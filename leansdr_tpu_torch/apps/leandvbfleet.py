@@ -20,9 +20,9 @@ The receiver runs on the GPU; `--device cpu` runs the kernels' plain
 PyTorch versions. Decisions are computed on the demod kernel
 (--no-exact-lut, the default) unless --exact-lut takes the scan demod's
 256x256 LUT (with --sampler rrc its polyphase fir_sampler); --sampler
-nearest also runs on the scan demod. The flags of paths not ported yet
-raise NotImplementedError naming their ROADMAP item before any input is
-read.
+nearest also runs on the scan demod. Every constellation (--const) and
+code rate the JAX CLI takes runs; a combination it refuses raises the
+same ValueError before any input is read.
 """
 
 import os
@@ -43,8 +43,9 @@ def usage(code=0, f=sys.stderr):
         "       --chunk N  frames per read (default 65536)\n"
         "DVB-S: --sr HZ --cr N/D --sampler linear|nearest|rrc --viterbi "
         "--hq --fastlock\n"
-        "       --exact-lut/--no-exact-lut --const QPSK --tune FREQ "
-        "--drift\n"
+        "       --exact-lut/--no-exact-lut --const C --tune FREQ --drift\n"
+        "       (C: QPSK, BPSK, 8PSK, 16APSK, 32APSK, 64APSKe, 16QAM,\n"
+        "       64QAM, 256QAM; N/D: 1/2, 2/3, 3/4, 4/6, 5/6, 7/8, 4/5)\n"
         "       --acq   per-channel FFT coarse carrier search on the\n"
         "               first chunk; each channel is derotated by its\n"
         "               estimate (not in the reference)\n"
@@ -56,9 +57,7 @@ def usage(code=0, f=sys.stderr):
         " stdout)\n"
         "Info:   --fd-info FD   fleet lock/MER/VBER lines (tagged text)\n"
         "Port:   --device DEV   cuda (default) or cpu (plain PyTorch\n"
-        "                       versions of the kernels)\n"
-        "\nNot ported yet (raise NotImplementedError): constellations\n"
-        "other than QPSK (ROADMAP item 20).\n")
+        "                       versions of the kernels)\n")
     sys.exit(code)
 
 
@@ -134,7 +133,7 @@ def main(argv=None):
     from ..util.iofmt import read_iq
 
     nchan = opts["nchan"]
-    # Unported settings raise here, before any device or input is used.
+    # Invalid settings raise here, before any device or input is used.
     rx = multi_rx.MultiDvbsReceiver(
         cfg, nchan, chunk_samples=opts["chunk"], segments=cfg.segments,
         seg_warmup=cfg.seg_warmup, seg_holdoff=cfg.seg_holdoff,

@@ -17,13 +17,14 @@ Python scalars and bytes, so loading it needs no JAX.
     port's load_state converts either form to its own route's (planes
     for the demod kernel, the dict for the scan demod);
   * Viterbi fleets: trellis planes lose their 128-lane padding:
-    C*nsyncs lanes in ACQUIRE, C in TRACK (nsyncs = 4 at rate 1/2,
-    4*nshifts at the punctured rates). At a punctured rate the JAX fleet
-    holds them in one of two layouts: the TPU banked path's [64, n_lanes]
-    i32 in stored-row order, or the CPU XLA-scan path's [C*nsyncs, 64]
-    u32 in natural state order (leansdr_tpu/fec/viterbi_device.py:
-    784-789), which is transposed, permuted to stored rows and cast to
-    i32;
+    C*nsyncs lanes in ACQUIRE, C in TRACK (nsyncs = nmaps * nshifts of
+    the receiver's constellation and rate: 4 for QPSK 1/2, up to 32).
+    On the banked route (every (constellation, rate) but QPSK-class 1/2,
+    so BPSK 1/2 too) the JAX fleet holds them in one of two layouts: the
+    TPU banked path's [64, n_lanes] i32 in stored-row order, or the CPU
+    XLA-scan path's [C*nsyncs, 64] u32 in natural state order
+    (leansdr_tpu/fec/viterbi_device.py:784-789), which is transposed,
+    permuted to stored rows and cast to i32;
   * hard-decision fleets (viterbi=False, the JAX DeviceDeconvolver):
     the ring `buf`, `fill` and `locked` hypotheses and the host fill
     estimate `_est_fill` carry over as they are;
@@ -42,6 +43,7 @@ from .dsp.cstln import Predef, make_dvbs2_constellation
 from .dsp.receiver_kernel import NSTATE
 from .fec.viterbi import make_sync_maps
 from .fec.viterbi_banked import bank_geometry, fleet_rate
+from .fec.viterbi_device import NSYNCS
 from .pipelines.multi_rx import CHECKPOINT_FORMAT
 
 
@@ -58,25 +60,30 @@ def _dem_state(use_pallas: bool, st, lanes):
     return np.ascontiguousarray(flat[:, :lanes])
 
 
-def _nsyncs(rate: str) -> int:
-    """Sync replicas per channel of the QPSK fleet at `rate`."""
-    cstln = make_dvbs2_constellation(Predef.QPSK, rate)
+def _syncs(rate: str, constellation) -> tuple:
+    """(sync replicas per channel, banked route) of the fleet's Viterbi
+    at trellis rate `rate` on `constellation`, as MultiViterbiSync
+    routes them."""
+    cstln = make_dvbs2_constellation(constellation, rate)
     _, nconj, nrot, nshifts = make_sync_maps(cstln, rate)
-    return nconj * nrot * nshifts
+    return (nconj * nrot * nshifts,
+            not (nconj * nrot == NSYNCS and nshifts == 1))
 
 
-def _trellis_planes(dstate: dict, host: dict, rate: str) -> None:
+def _trellis_planes(dstate: dict, host: dict, rate: str,
+                    constellation) -> None:
     """A JAX Viterbi fleet's trellis planes, in place, to the port's
     [64, lanes] i32 stored-row layout without lane padding."""
     rate = fleet_rate(rate)
-    if ("path" in dstate) != (rate == "1/2"):
+    nsyncs, banked = _syncs(rate, constellation)
+    if ("path" in dstate) == banked:
         raise ValueError(f"checkpoint trellis state {sorted(dstate)} is "
-                         f"not that of rate {rate}: pass its rate=")
+                         f"not that of rate {rate} on {constellation.name}:"
+                         " pass its rate= and constellation=")
     C = dstate["fill"].shape[0]
-    lanes = C if host.get("track") else C * _nsyncs(rate)
-    keys = ("metric", "path") if rate == "1/2" else ("metric", "path_hi",
-                                                      "path_lo")
-    xla = rate != "1/2" and dstate["path_hi"].dtype == np.uint32
+    lanes = C if host.get("track") else C * nsyncs
+    keys = ("metric", "path_hi", "path_lo") if banked else ("metric", "path")
+    xla = banked and dstate["path_hi"].dtype == np.uint32
     for k in keys:
         v = dstate[k]
         if xla:                        # [S, 64] natural -> [64, S] stored
@@ -84,18 +91,22 @@ def _trellis_planes(dstate: dict, host: dict, rate: str) -> None:
         dstate[k] = np.ascontiguousarray(v[:, :lanes], np.int32)
 
 
-def from_jax_checkpoint(blob: bytes, rate: str = "1/2") -> bytes:
+def from_jax_checkpoint(blob: bytes, rate: str = "1/2",
+                        constellation=Predef.QPSK) -> bytes:
     """JAX MultiDvbsReceiver.save_state() pickle -> port checkpoint, of
     a Viterbi fleet or of a hard-decision one (viterbi=False).
 
-    `rate` is the receiver's code rate (RxConfig.rate): the JAX pickle
-    does not record it, and a punctured rate's trellis planes need it
-    (a hard-decision fleet's state does not depend on it)."""
+    `rate` and `constellation` are the receiver's (RxConfig.rate and
+    .constellation): the JAX pickle records neither, and the trellis
+    planes' lane count and layout need them (a hard-decision fleet's
+    state depends on neither). The JAX fleet keeps no preprocessing
+    state (notch, CNR, spectrum) in its pickle, and neither does the
+    port's."""
     d = pickle.loads(blob)
     dstate = {k: np.asarray(v) for k, v in d["deconv_state"].items()}
     host = dict(d["deconv_host"])
     if "metric" in dstate:
-        _trellis_planes(dstate, host, rate)
+        _trellis_planes(dstate, host, rate, Predef(constellation))
     elif set(dstate) != {"buf", "fill", "locked"}:
         raise ValueError(f"checkpoint decoder state {sorted(dstate)} is "
                          "neither a Viterbi nor a hard-decision fleet's")
@@ -154,6 +165,10 @@ def _stand_ins() -> dict:
             blocks_device.BatchedAutoNotch,
         ("leansdr_tpu.dsp.blocks_device", "_Backlog"):
             blocks_device._Backlog,
+        ("leansdr_tpu.dsp.blocks_device", "BatchedCnrFft"):
+            blocks_device.BatchedCnrFft,
+        ("leansdr_tpu.dsp.blocks_device", "BatchedSpectrum"):
+            blocks_device.BatchedSpectrum,
         ("leansdr_tpu.proto.hdlc", "HdlcDec"): hdlc.HdlcDec,
     }
 
@@ -193,12 +208,31 @@ def _notch_state(st) -> dict:
                                 -1)[None].astype(np.float32)}
 
 
+def _estimator_state(st) -> dict:
+    """--cnr's or --fd-spectrum's streaming state (EMA'd power, block
+    phase, sample backlog): from the host blocks.CnrFft / blocks.Spectrum
+    fields (a JAX checkpoint written on the CPU) or from CnrFft1's /
+    Spectrum1's batched block (written on an accelerator)."""
+    if "b" in st:
+        b = st["b"].__dict__
+        return {"avgpower": b["avgpower"], "phase": int(b["phase"]),
+                "backlog": b["backlog"].buf}
+    avg = st["avgpower"]
+    bl = np.asarray(st["backlog"], np.complex64)
+    return {"avgpower": (None if avg is None else
+                         np.asarray(avg, np.float32)[None]),
+            "phase": int(st["phase"]),
+            "backlog": np.stack([bl.real, bl.imag], -1)[None].astype(
+                np.float32)}
+
+
 def _viterbi_state(dc: dict, rate: str) -> dict:
     """ViterbiSyncDevice fields; the trellis state _dev_state
     (cost_st [S, 64] i32, path_hi/path_lo [S, 64] u32, natural state
-    order) to the port's planes: [64, S] i32; at rate 1/2 (metric, path
-    = path_lo), the low path word being all that reaches the decision
-    at depth 32; at the punctured rates permuted to stored rows."""
+    order, S = the decoder's nsyncs at any constellation) to the port's
+    planes: [64, S] i32; at rate 1/2 (metric, path = path_lo), the low
+    path word being all that reaches the decision at depth 32; at the
+    other rates (2/3 and 4/5 too) permuted to stored rows."""
     out = {k: dc[k] for k in ("current", "resync_phase", "sym_backlog",
                               "cost_backlog")}
     dev = dc.get("_dev_state")
@@ -218,7 +252,8 @@ def _viterbi_state(dc: dict, rate: str) -> dict:
 
 def from_jax_dvbs_checkpoint(blob: bytes) -> bytes:
     """JAX DvbsReceiver.save_state() pickle -> a checkpoint the port's
-    `pipelines.dvbs_rx.DvbsReceiver.load_state` reads.
+    `pipelines.dvbs_rx.DvbsReceiver.load_state` reads, at any
+    constellation and code rate.
 
     The JAX pickle names classes (the deconvolver's DeconvSpec, the
     Viterbi decoder's Trellis and host ViterbiBank, JAX arrays in its trellis
@@ -229,20 +264,15 @@ def from_jax_dvbs_checkpoint(blob: bytes) -> bytes:
     the --hs receiver's state, the sample, byte and MPEG backlogs, the
     derandomizer phase, the --awgn noise stream's draw count, the
     decoder's streaming state (the --hs deconvolver's too), the MPEG
-    sync FSM, counters, measurements, the notch / derotator / resampler
-    streaming state, and with --hdlc the ETR192 descrambler state and
-    the HDLC sync's fields (its two HdlcDec deframers as the port's).
-    The measurement phase is not in the JAX pickle and starts at 0, as
-    in a JAX receiver that loads it. Paths of the JAX receiver the port has not taken
-    raise."""
+    sync FSM, counters, measurements (the CNR values too), the notch /
+    derotator / CNR estimator / spectrum / resampler streaming state,
+    and with --hdlc the ETR192 descrambler state and the HDLC sync's
+    fields (its two HdlcDec deframers as the port's). The measurement
+    phase is not in the JAX pickle and starts at 0, as in a JAX receiver
+    that loads it."""
     from .pipelines.dvbs_rx import CHECKPOINT_FORMAT as DVBS_FORMAT
     d = _JaxFreeUnpickler(io.BytesIO(blob)).load()
     aux = d.get("aux", {})
-    for name in ("cnr_est", "spectrum"):
-        if name in aux:
-            raise NotImplementedError(
-                f"a checkpoint with {name} (a receiver path the port has "
-                "not taken yet, ROADMAP queue 1) cannot be carried over")
     dem = _dem_state(d["use_pallas"], d["dev"], 1)
     dc = d["deconv"]
     if "trellis" in dc:
@@ -262,6 +292,9 @@ def from_jax_dvbs_checkpoint(blob: bytes) -> bytes:
         out_aux["notch"] = _notch_state(aux["notch"])
     if "derot" in aux:
         out_aux["derot"] = {"index": int(aux["derot"]["index"])}
+    for name in ("cnr_est", "spectrum"):
+        if name in aux:
+            out_aux[name] = _estimator_state(aux[name])
     if "resampler" in aux:
         r = aux["resampler"]
         out_aux["resampler"] = {"current_freq": float(r["current_freq"]),

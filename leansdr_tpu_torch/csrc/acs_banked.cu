@@ -1,7 +1,9 @@
-// Banked ACS kernel: the punctured DVB-S rates (4/6, 3/4, 5/6, 7/8),
-// K=7, 64-state soft-decision Viterbi add-compare-select with 2^B
-// branches per state and 64-bit register-exchange paths, one lane per
-// channel x sync replica (reference viterbi.h:202-293, dvb.h:1179-1416).
+// Banked ACS kernel: every DVB-S trellis rate the decoders run on it
+// (B = bits_in: 1/2 with more than one symbol per block, as BPSK has,
+// B=1; 2/3, B=2; 3/4, B=3; 4/6 and 4/5, B=4; 5/6, B=5; 7/8, B=7), K=7,
+// 64-state soft-decision Viterbi add-compare-select with 2^B branches
+// per state and 64-bit register-exchange paths, one lane per channel x
+// sync replica (reference viterbi.h:202-293, dvb.h:1179-1416).
 //
 // Replaces the Pallas TPU kernel leansdr_tpu/fec/viterbi_banked.py
 // `_acs_banked_kernel` (entry point `viterbi_acs_banked`). The plain
@@ -12,7 +14,7 @@
 //
 // What bounds it on an H100: each lane is a serial chain of T blocks
 // (block t+1's candidates need block t's metrics). Per block a lane
-// evaluates 64 rows x K predecessors (K = 8, 16, 32; 64 at 7/8) keys,
+// evaluates 64 rows x K predecessors (K = 2, 4, 8, 16, 32; 64 at 7/8) keys,
 // and the bytes are small (8 in and 8 out per block per lane). With
 // many lanes (ACQUIRE, 512-1024) the bound is the instruction issue
 // per candidate; with few (TRACK, 64 lanes on 528 warp schedulers) a
@@ -39,7 +41,10 @@
 //     linearity allows, were slower at 7/8 and no faster elsewhere.)
 //     Keys are unique per (row, lane) (their low bits are
 //     distinct ranks), so the minimum is split over NACC independent
-//     running minima merged by a tree: the order does not matter.
+//     running minima merged by a tree: the order does not matter. At
+//     B=1 a bank is 8 bytes (one 8-byte load into two of the minima, the
+//     others stay INT_MAX); at B=2 one 16-byte load, one candidate per
+//     minimum.
 //   * The provided branch (the one whose coded symbol is the block's)
 //     and the winner come from one decode: x = tl[rank] ^ rdec[r] names
 //     the branch of row r with that rank (its predecessor in bits 0-5,
@@ -74,12 +79,18 @@
 // this kernel wrote, or zeros). A word is M_t(s) - M_u(0) for the last u
 // = 7 (mod 8) before t (M_0 itself before the first), u >= t - 8, so it
 // lies within (ceil(6/B) + 8) max|cost|. Block costs are sums of
-// nshifts int16 softsymbol costs (fec/viterbi_device.py:347-372): |cost|
-// <= 2^16 at 3/4, 3 * 2^15 at 4/6 and 5/6, 2^17 at 7/8. A key's metric
-// (the provided key adds one more cost) then stays within 11 * 2^16 <
-// 2^20 at 3/4 (rb 5: |key| < 2^25), 11 * 3 * 2^15 < 2^21 at 4/6 and 5/6
-// (rb 7: 2^28) and 10 * 2^17 < 2^21 at 7/8 (rb 9: 10 * 2^26 < 2^30):
-// inside int32 at every rate, and the best-state key within 2^27.
+// nshifts int16 softsymbol costs (fec/viterbi_device.py
+// `_punctured_block_inputs`), nshifts = bits_out / bits per symbol.
+// With QPSK's nshifts: |cost| <= 2^16 at 3/4, 3 * 2^15 at 4/6 and 5/6,
+// 2^17 at 7/8; a key's metric (the provided key adds one more cost)
+// then stays within 11 * 2^16 < 2^20 at 3/4 (rb 5: |key| < 2^25),
+// 11 * 3 * 2^15 < 2^21 at 4/6 and 5/6 (rb 7: 2^28) and 10 * 2^17 < 2^21
+// at 7/8 (rb 9: 10 * 2^26 < 2^30). The most is BPSK's, nshifts =
+// bits_out: 15 * 2^16 < 2^20 at 1/2 (rb 3: 2^23), 12 * 3 * 2^15 < 2^21
+// at 2/3 (rb 4: 2^25), 11 * 2^17 < 2^21 at 3/4 (2^26), 11 * 5 * 2^15 <
+// 2^21 at 4/5 (rb 6: 2^27), 11 * 6 * 2^15 < 2^22 at 4/6 and 5/6 (2^29)
+// and 10 * 2^18 < 2^22 at 7/8 (10 * 2^27 < 2^31): inside int32 at
+// every rate and constellation, and the best-state key within 2^28.
 // tests/test_torch_banked_kernel.py models this arithmetic in NumPy and
 // holds it bit for bit against the reference at the int16 extremes.
 //
@@ -188,15 +199,21 @@ acs_banked_kernel(const int32_t* __restrict__ rk_tbl,
       int acc[NACC];
 #pragma unroll
       for (int a = 0; a < NACC; ++a) acc[a] = INT_MAX;
+      if constexpr (K >= 4) {
 #pragma unroll
-      for (int k4 = 0; k4 < K; k4 += 4) {
-        const int4 v = *reinterpret_cast<const int4*>(Pc + pb + k4);
-        const int vv[4] = {v.x, v.y, v.z, v.w};
+        for (int k4 = 0; k4 < K; k4 += 4) {
+          const int4 v = *reinterpret_cast<const int4*>(Pc + pb + k4);
+          const int vv[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          int& a = acc[(k4 + j) % NACC];
-          a = add_min(vv[j], rk[k4 + j], a);
+          for (int j = 0; j < 4; ++j) {
+            int& a = acc[(k4 + j) % NACC];
+            a = add_min(vv[j], rk[k4 + j], a);
+          }
         }
+      } else {                         // B=1: the bank's two words
+        const int2 v = *reinterpret_cast<const int2*>(Pc + pb);
+        acc[0] = add_min(v.x, rk[0], acc[0]);
+        acc[1] = add_min(v.y, rk[1], acc[1]);
       }
 #pragma unroll
       for (int s = NACC / 2; s > 0; s >>= 1) {
@@ -222,7 +239,11 @@ acs_banked_kernel(const int32_t* __restrict__ rk_tbl,
     if (LAST || U != 0 || t > 0) {                 // block t-1's entry
       const int i = (t - 1) & (STAGE - 1);
       s_key[i][r] = bk;
-      s_us[i][nat] = (uint8_t)((nh >> sh) & umask);
+      // The us at traceback depth: bits sh+32.. of the path (at 1/2,
+      // sh = -1, it straddles the two words).
+      const uint32_t w = B == 1 ? __funnelshift_r(nl, nh, sh + 32)
+                                : nh >> sh;
+      s_us[i][nat] = (uint8_t)(w & umask);
     }
     bk = bkn;
     __syncthreads();
@@ -331,6 +352,12 @@ extern "C" int acs_banked_launch(const void* rk, const void* aux,
                                  int ncs, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   switch (B) {
+    case 1:
+      return launch<1>(rk, aux, m_in, hi_in, lo_in, cs, cost, m_out,
+                       hi_out, lo_out, us, q, T, N, nbits, sh, rb, ncs, s);
+    case 2:
+      return launch<2>(rk, aux, m_in, hi_in, lo_in, cs, cost, m_out,
+                       hi_out, lo_out, us, q, T, N, nbits, sh, rb, ncs, s);
     case 3:
       return launch<3>(rk, aux, m_in, hi_in, lo_in, cs, cost, m_out,
                        hi_out, lo_out, us, q, T, N, nbits, sh, rb, ncs, s);

@@ -1,6 +1,7 @@
-"""Device auto-notch for the single-carrier receiver (the counterpart of
-leansdr_tpu/dsp/blocks_device.py:26-249 and 335-343, with
-leansdr_tpu/dsp/fft.py's DFT as `torch.fft`).
+"""Device-batched preprocessing for a channel batch (the counterpart of
+leansdr_tpu/dsp/blocks_device.py, with leansdr_tpu/dsp/fft.py's DFT as
+`torch.fft`): the auto-notch, the CNR estimator, the spectrum and the
+carrier-tracked decimating FIR, and their single-carrier adapters.
 
 auto_notch (reference sdr.h:46-154): every `decimation` samples a
 4096-point FFT finds the nslots strongest bins (zeroing +-1 neighbours
@@ -18,6 +19,14 @@ into the result and no TF32 product is involved. Between two detections
 the slots do not change and the tones' phasors repeat every 4096
 samples, so the whole run of blocks is one sequence: one device pass per
 run instead of one per block.
+
+cnr_fft (sdr.h:1273-1345, `BatchedCnrFft`) and spectrum (sdr.h:1347-1404,
+`BatchedSpectrum`) take the power spectrum of the one block in
+`decimation` samples that triggers (cuFFT on the device) and keep their
+EMA and the band model on the host, as the JAX classes do.
+`BatchedFirFilter` (fir_filter, dsp.h:219-285) is plain torch ops: the
+JAX class has no runtime consumer (the receivers' --resample runs
+dsp/fir_kernel.py).
 
 Inputs are [C, n, 2] float32 (re, im) planes.
 """
@@ -194,6 +203,168 @@ class BatchedAutoNotch:
         return np.concatenate(outs, axis=1)
 
 
+def _triggered(est, x, nfft: int):
+    """Feed x [C, n, 2] to a spectral estimator `est` (its backlog,
+    phase, decimation, kavg, avgpower, device) and yield once for each
+    whole nfft-block that triggers (one per `decimation` samples), after
+    folding that block's power spectrum (on the device) into the EMA
+    est.avgpower [C, nfft]."""
+    est.backlog.add(x)
+    blocks = est.backlog.take(nfft)
+    for b in range(0 if blocks is None else blocks.shape[1]):
+        est.phase += nfft
+        if est.phase >= est.decimation:
+            est.phase -= est.decimation
+            p = _batched_power(blocks[:, b:b + 1], nfft, est.device)[:, 0]
+            if est.avgpower is None:
+                est.avgpower = p.copy()
+            est.avgpower = est.avgpower * (1 - est.kavg) + p * est.kavg
+            yield
+
+
+class BatchedSpectrum:
+    """spectrum (sdr.h:1347-1404) over a channel batch: EMA'd dB spectra
+    in [positive-half | negative-half] order, the triggering block's
+    power spectrum on the device. Entry points run on `device`."""
+
+    NFFT = 1024
+
+    def __init__(self, nchan: int, decimation: int = 1 << 20,
+                 kavg: float = 0.1, device=None):
+        self.device = _dev.resolve_device(device)
+        self.nchan = nchan
+        self.decimation = decimation
+        self.kavg = kavg
+        self.avgpower = None            # [C, NFFT]
+        self.phase = 0
+        self.backlog = _Backlog(nchan)
+
+    def process(self, x) -> list:
+        """x: [C, n, 2]. Returns a list of [C, NFFT] dB lines."""
+        half = self.NFFT // 2
+        return [np.concatenate([10 * np.log10(self.avgpower[:, half:]),
+                                10 * np.log10(self.avgpower[:, :half])],
+                               axis=1).astype(np.float32)
+                for _ in _triggered(self, x, self.NFFT)]
+
+
+class BatchedCnrFft:
+    """cnr_fft (sdr.h:1273-1345) over a channel batch: the band-model CNR
+    around each channel's tracked carrier, from an EMA'd nfft-point power
+    spectrum (the triggering block's FFT on the device)."""
+
+    def __init__(self, nchan: int, bandwidth: float, nfft: int = 4096,
+                 decimation: int = 1 << 20, kavg: float = 0.1,
+                 device=None):
+        if bandwidth > 0.25:
+            raise ValueError("CNR estimator requires Fsampling > 4x Fsignal")
+        self.device = _dev.resolve_device(device)
+        self.nchan = nchan
+        self.bw = bandwidth
+        self.nfft = nfft
+        self.decimation = decimation
+        self.kavg = kavg
+        self.avgpower = None            # [C, nfft]
+        self.phase = 0
+        self.backlog = _Backlog(nchan)
+
+    def _cnr(self, freq_tap: np.ndarray):
+        n = self.nfft
+        icf = np.floor(freq_tap * n + 0.5).astype(np.int64)   # [C]
+        bwslots = int((self.bw / 4) * n)
+        if not bwslots:
+            return None
+
+        def avg(lo, hi):
+            idx = (icf[:, None] + np.arange(lo, hi + 1)[None, :]) & (n - 1)
+            return np.take_along_axis(self.avgpower, idx, axis=1).mean(1)
+
+        c2plusn2 = avg(-bwslots, bwslots)
+        n2 = (avg(-bwslots * 4, -bwslots * 3)
+              + avg(bwslots * 3, bwslots * 4)) / 2
+        c2 = c2plusn2 - n2
+        ok = (c2 > 0) & (n2 > 0)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            v = 10 * np.log10(c2 / n2)
+        return np.where(ok, v, -50.0).astype(np.float32)
+
+    def process(self, x, freq_tap=None) -> list:
+        """x: [C, n, 2]; freq_tap: [C] tracked carrier (cycles/sample).
+        Returns a list of [C] CNR vectors (dB)."""
+        if freq_tap is None:
+            freq_tap = np.zeros(self.nchan, np.float32)
+        out = (self._cnr(np.asarray(freq_tap))
+               for _ in _triggered(self, x, self.nfft))
+        return [v for v in out if v is not None]
+
+
+def _tracking_fir(taps: tuple, decim: int, count: int, freq: torch.Tensor,
+                  buf: torch.Tensor) -> torch.Tensor:
+    """Decimating carrier-tracked FIR over a channel batch (fir_filter,
+    dsp.h:219-285): out[c, j] = sum_k taps_rot[c, k] * buf[c, n+j*d-k]
+    with taps_rot[k] = taps[k] * exp(i*2pi*freq_c*(k - n//2)), in the
+    JAX version's float32 order (tap by tap).
+
+    buf [C, m, 2] float32 with m >= n + count*decim; freq [C] float32
+    cycles/sample. Returns [C, count, 2]."""
+    c = torch.tensor(taps, dtype=torch.float32, device=buf.device)
+    nt = c.shape[0]
+    k = torch.arange(nt, dtype=torch.float32, device=buf.device) - nt // 2
+    ang = (2 * np.pi) * freq[:, None] * k[None]
+    cr = c[None] * torch.cos(ang)                          # [C, nt]
+    ci = c[None] * torch.sin(ang)
+    xr, xi = buf[:, :, 0], buf[:, :, 1]
+    zr = torch.zeros((buf.shape[0], count), dtype=torch.float32,
+                     device=buf.device)
+    zi = zr
+    for kk in range(nt):
+        off = nt - kk
+        sr = xr[:, off:off + count * decim:decim]
+        si = xi[:, off:off + count * decim:decim]
+        wr, wi = cr[:, kk:kk + 1], ci[:, kk:kk + 1]
+        zr = zr + wr * sr - wi * si
+        zi = zi + wr * si + wi * sr
+    return torch.stack([zr, zi], dim=-1)
+
+
+class BatchedFirFilter:
+    """fir_filter (dsp.h:219-285) over a channel batch: per-channel
+    carrier-rotated taps, decimation, streaming history (the JAX class
+    of the same name, in torch ops)."""
+
+    def __init__(self, nchan: int, coeffs, decim: int = 1, device=None):
+        self.device = _dev.resolve_device(device)
+        self.taps = tuple(float(v) for v in np.asarray(coeffs))
+        self.n = len(self.taps)
+        self.nchan = nchan
+        self.decim = decim
+        self.hist = np.zeros((nchan, self.n, 2), np.float32)
+        self._primed = False
+
+    def process(self, x, freq_tap=None) -> np.ndarray:
+        """x: [C, n, 2]; freq_tap: [C] tracked carrier (cycles/sample).
+        Returns decimated [C, m, 2]."""
+        if freq_tap is None:
+            freq_tap = np.zeros(self.nchan, np.float32)
+        buf = np.concatenate([self.hist, np.asarray(x, np.float32)],
+                             axis=1)
+        if not self._primed:
+            buf = buf[:, self.n:]
+            self._primed = True
+        count = (buf.shape[1] - self.n) // self.decim
+        if count <= 0:
+            keep = min(buf.shape[1], self.n + self.decim - 1)
+            self.hist = buf[:, -keep:]
+            return np.empty((self.nchan, 0, 2), np.float32)
+        dev = self.device
+        out = _tracking_fir(
+            self.taps, self.decim, count,
+            torch.from_numpy(np.asarray(freq_tap, np.float32)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(buf)).to(dev))
+        self.hist = buf[:, count * self.decim:]
+        return out.cpu().numpy()
+
+
 def _c2p(z):
     return np.stack([z.real, z.imag], -1).astype(np.float32)[None]
 
@@ -210,3 +381,41 @@ class AutoNotch1:
     def process(self, z: np.ndarray) -> np.ndarray:
         y = self.b.process(_c2p(np.asarray(z, np.complex64)))[0]
         return (y[:, 0] + 1j * y[:, 1]).astype(np.complex64)
+
+
+class _Adapter1:
+    """The single-carrier adapters' `decimation`, their batched block's."""
+
+    @property
+    def decimation(self):
+        return self.b.decimation
+
+    @decimation.setter
+    def decimation(self, v):
+        self.b.decimation = v
+
+
+class CnrFft1(_Adapter1):
+    """A complex-stream interface over BatchedCnrFft(nchan=1): the
+    single-carrier receiver's --cnr (blocks.CnrFft's interface)."""
+
+    def __init__(self, bandwidth: float, device=None):
+        self.b = BatchedCnrFft(1, bandwidth, device=device)
+
+    def process(self, z, freq_tap: float = 0.0):
+        vs = self.b.process(_c2p(np.asarray(z, np.complex64)),
+                            np.asarray([freq_tap], np.float32))
+        return [float(v[0]) for v in vs]
+
+
+class Spectrum1(_Adapter1):
+    """A complex-stream interface over BatchedSpectrum(nchan=1): the
+    single-carrier receiver's --fd-spectrum (blocks.Spectrum's
+    interface)."""
+
+    def __init__(self, device=None):
+        self.b = BatchedSpectrum(1, device=device)
+
+    def process(self, z):
+        return [line[0] for line in
+                self.b.process(_c2p(np.asarray(z, np.complex64)))]

@@ -166,8 +166,11 @@ def _deconv_kernel(rate: str) -> np.ndarray:
 
 def _sym_to_iq_bits(win: torch.Tensor, s: int) -> torch.Tensor:
     """[S, C] u8 symbols -> [C, 2S] float32 IQ bits (I then Q per
-    symbol) under sync map s."""
-    lut = torch.tensor(sync_maps()[s], dtype=torch.uint8, device=win.device)
+    symbol) under sync map s. The maps are QPSK's: a symbol past 3 (a
+    larger constellation's) reads as IQ bits 0, as the JAX version's
+    select chain leaves it (leansdr_tpu/fec/deconv_device.py:134-149)."""
+    lut = torch.zeros(256, dtype=torch.uint8, device=win.device)
+    lut[:4] = torch.from_numpy(sync_maps()[s].astype(np.uint8))
     iq2 = lut[win.t().to(torch.int64)]                      # [C, S]
     bits = torch.stack([(iq2 >> 1) & 1, iq2 & 1], dim=-1)   # [C, S, 2]
     return bits.reshape(win.shape[1], -1).to(torch.float32)

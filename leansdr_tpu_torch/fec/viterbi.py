@@ -132,12 +132,16 @@ class ViterbiSyncDevice:
     launch of the fleet's ACS kernels over the nsyncs replica lanes,
     where the JAX package runs a plain XLA scan (`_viterbi_chunk_device`):
 
-      rate 1/2: `viterbi_acs` (csrc/acs.cu), planes (metric, path) [64, S]
-        in natural state order, path the low 32 bits of JAX's
-        (path_hi, path_lo), which are all that reach the decision at
-        traceback depth 32;
-      4/6, 3/4, 5/6, 7/8: `viterbi_acs_banked` (csrc/acs_banked.cu),
-        planes (metric, path_hi, path_lo) [64, S] in stored-row order.
+      rate 1/2: `viterbi_acs` (csrc/acs.cu) at any nsyncs (BPSK: 2
+        lanes, QPSK: 4), planes (metric, path) [64, S] in natural state
+        order, path the low 32 bits of JAX's (path_hi, path_lo), which
+        are all that reach the decision at traceback depth 32;
+      2/3, 4/6, 3/4, 4/5, 5/6, 7/8: `viterbi_acs_banked`
+        (csrc/acs_banked.cu), planes (metric, path_hi, path_lo) [64, S]
+        in stored-row order.
+
+    Every constellation and rate `make_sync_maps` takes: 1 to 16 sync
+    maps (nconj 1 for BPSK) times nshifts symbol offsets.
 
     Both compute `_viterbi_chunk_device`'s function: per-step metric
     normalisation, the reference's tie rules, us at traceback depth and
@@ -150,11 +154,6 @@ class ViterbiSyncDevice:
     def __init__(self, cstln, rate: str, fastlock: bool = False,
                  device=None):
         from .. import device as _dev
-        from .viterbi_banked import FLEET_RATES
-        if rate != "1/2" and rate not in FLEET_RATES:
-            raise NotImplementedError(
-                f"trellis rate {rate}: the device Viterbi runs 1/2 and "
-                f"{', '.join(FLEET_RATES)} (ROADMAP queue 1 item 20)")
         self.device = _dev.resolve_device(device)
         self.rate = rate
         self.trellis = make_trellis(rate)

@@ -1,9 +1,11 @@
-"""Banked ACS for the punctured DVB-S rates (bits_in > 1): the counterpart
-of leansdr_tpu/fec/viterbi_banked.py.
+"""Banked ACS for every trellis rate with more than one symbol per block
+or bits_in > 1: the counterpart of leansdr_tpu/fec/viterbi_banked.py.
 
 viterbi_sync's punctured-rate decoding (reference dvb.h:1179-1212:
 puncturing expanded into the trellis, 2^bits_in branches per state,
-nshifts symbol-offset replicas) as a constant-geometry ACS:
+nshifts symbol-offset replicas) as a constant-geometry ACS; rate 1/2
+runs here too (B=1) where a constellation spreads its block over more
+than one symbol (BPSK) or has other than 4 sync maps:
 
 * bits_in = B <= 5: the predecessors of new state s' are the CONTIGUOUS
   block [(s' mod G)*K, +K) with K = 2^B, G = 64/K, and the uncoded
@@ -39,15 +41,29 @@ from .. import device as _dev
 from .viterbi import NSTATES, PATH_SPEC, make_trellis
 
 BIG = 1 << 30
-# The fleet's punctured rates ("2/3" runs as "4/6").
-FLEET_RATES = ("4/6", "3/4", "5/6", "7/8")
+# Every trellis rate the decoders hand the banked ACS: 1/2 (B=1, BPSK
+# and the other constellations with other than 4 sync replicas), 2/3
+# (B=2; the single carrier keeps it for BPSK and 8PSK), 4/6, 3/4, 4/5
+# (B=4, its own polynomials), 5/6 and 7/8.
+FLEET_RATES = ("1/2", "2/3", "4/6", "3/4", "4/5", "5/6", "7/8")
+# The QPSK fleet's punctured rates ("2/3" runs as "4/6").
+QPSK_PUNCTURED = ("4/6", "3/4", "5/6", "7/8")
 
 
 def fleet_rate(rate: str) -> str:
-    """The trellis rate the fleet runs for DVB-S code rate `rate`: 2/3 as
-    the 4/6 trellis (leansdr_tpu/pipelines/multi_rx.py:740), the others
-    as they are."""
+    """The trellis rate the fleet runs for DVB-S code rate `rate`, at any
+    constellation: 2/3 as the 4/6 trellis (leansdr_tpu/pipelines/
+    multi_rx.py:740), the others as they are. The hard-decision
+    deconvolver of the single carrier takes the same rule."""
     return "4/6" if rate == "2/3" else rate
+
+
+def viterbi_rate(rate: str, nsymbols: int) -> str:
+    """The trellis rate the single carrier's Viterbi runs for DVB-S code
+    rate `rate`: 2/3 as 4/6 for QPSK and 64APSKe only (leandvb.cc:
+    533-537; leansdr_tpu/pipelines/dvbs_rx.py:344), so BPSK and 8PSK
+    keep the 2/3 trellis."""
+    return "4/6" if rate == "2/3" and nsymbols in (4, 64) else rate
 
 
 @dataclass(frozen=True)
@@ -266,7 +282,7 @@ def viterbi_acs_banked_ref(rate: str, metric: torch.Tensor,
     """
     geo = bank_geometry(rate)
     nbits, depth = PATH_SPEC[rate]
-    sh = (depth - 1) * nbits - 32        # >= 0 for every punctured rate
+    shift = (depth - 1) * nbits          # the traceback depth's bit
     RB, ncs, K = geo.rank_bits, geo.ncs, geo.K
     dev = cs.device
     T, N = cs.shape
@@ -310,7 +326,13 @@ def viterbi_acs_banked_ref(rate: str, metric: torch.Tensor,
         bkey = (wm << 6) | ocol
         bk, best = bkey.min(dim=0)                             # [N]
         bm = bk >> 6
-        us[t] = ((hi.gather(0, best[None]) >> sh) & carry)[0]
+        bh = hi.gather(0, best[None])[0]
+        if shift >= 32:
+            us[t] = (bh >> (shift - 32)) & carry
+        else:                            # 1/2: across the two words
+            bl = lo.gather(0, best[None])[0]
+            us[t] = (((bl >> shift) & ((1 << (32 - shift)) - 1))
+                     | (bh << (32 - shift))) & carry
         second = torch.where(bkey == bk, big, bkey).amin(dim=0) >> 6
         q[t] = second - bm
         m = wm - bm

@@ -2,10 +2,14 @@
 batched over channels x sync replicas, with sync election (the
 counterpart of leansdr_tpu/fec/viterbi_device.py).
 
-The rate-1/2 ACS lives here; the punctured rates (4/6, 3/4, 5/6, 7/8)
-run the banked ACS of fec/viterbi_banked.py through
-`viterbi_decode_banked`, with nshifts symbol-offset replicas per map.
-Both feed the same election (`_elect_and_pack`).
+The rate-1/2 ACS lives here, for the 4 sync maps of QPSK-class
+constellations with one symbol per block; every other (constellation,
+rate) runs the banked ACS of fec/viterbi_banked.py through
+`viterbi_decode_banked`, with nshifts symbol-offset replicas per map, as
+the JAX fleet routes them (leansdr_tpu/fec/viterbi_device.py:759): the
+punctured rates (4/6, 3/4, 4/5, 5/6, 7/8), and rate 1/2 with more than
+one symbol per block (BPSK) or other than 4 maps. Both feed the same
+election (`_elect_and_pack`).
 
 viterbi_sync (reference dvb.h:1173-1416) for the K=7, bits_in=1 trellis:
 
@@ -40,7 +44,7 @@ from .deconv_device import DELTA_MAX, deconv_append
 from .viterbi import PATH_SPEC, make_sync_maps, make_trellis
 from .viterbi_banked import bank_geometry, viterbi_acs_banked
 
-NSYNCS = 4          # nconj x nrot for QPSK-class constellations
+NSYNCS = 4          # the rate-1/2 ACS route's syncs: QPSK's 2 conj x 2 rot
 P_SUB = 1024        # blocks per election sub-block
 BIG = 1 << 30
 
@@ -215,7 +219,8 @@ class ViterbiPlan:
     cap: int                # symbol ring capacity
     store_costs: bool = True
     # nsyncs=1 is TRACK mode: only each channel's elected sync replica
-    # runs (the analogue of the reference's resync_period gating).
+    # runs (the analogue of the reference's resync_period gating);
+    # otherwise nconj * nrot * nshifts.
     nsyncs: int = NSYNCS
     # Replica structure: sync s = shift*(nconj*nrot) + map.
     nconj: int = 2
@@ -329,7 +334,7 @@ def viterbi_decode(plan: ViterbiPlan, state: dict, maps):
         costf = cost_b
     else:
         cs = maps_arr[:, sym].permute(1, 2, 0)                # [T, C, 4]
-        costf = cost_b[:, :, None].expand(T, C, NSYNCS)
+        costf = cost_b[:, :, None].expand(T, C, plan.nsyncs)
     csf = cs.reshape(T, plan.n_lanes).contiguous()
     costf = costf.reshape(T, plan.n_lanes).contiguous()
 
@@ -396,9 +401,10 @@ def _punctured_block_inputs_tracked(plan: ViterbiPlan, maps, win_sym,
 
 
 def viterbi_decode_banked(plan: ViterbiPlan, state: dict, maps):
-    """Punctured-rate fleet decode on the banked ACS
-    (fec/viterbi_banked.py, csrc/acs_banked.cu): rates with nshifts > 1
-    (4/6, 3/4, 5/6, 7/8; 2/3 runs as 4/6).
+    """Fleet decode on the banked ACS (fec/viterbi_banked.py,
+    csrc/acs_banked.cu): every (constellation, rate) but QPSK-class 1/2,
+    the punctured rates (4/6, 3/4, 4/5, 5/6, 7/8; 2/3 runs as 4/6) and
+    rate 1/2 with nshifts > 1 or other than 4 sync maps (BPSK).
 
     State planes metric/path_hi/path_lo are [64, C*nsyncs] in stored-row
     order (lane = c*nsyncs + s). plan.nsyncs == 1 selects TRACK mode:
@@ -458,21 +464,23 @@ class MultiViterbiSync:
     """N-channel viterbi_sync: symbol+cost ring -> ACS kernel over all
     sync replicas -> elected bit stream, packed to bytes on the device.
 
-    QPSK-class constellations (4 maps) at rate 1/2 (`kind` "viterbi":
-    csrc/acs.cu) and at the punctured rates 4/6, 3/4, 5/6 and 7/8
-    (`kind` "viterbi_banked": csrc/acs_banked.cu, nshifts symbol-offset
-    replicas per map). `fastlock` is accepted for interface parity:
-    replicas are always on, so both modes use the same election.
+    Every constellation and rate `make_sync_maps` takes, routed as the
+    JAX fleet routes them (leansdr_tpu/fec/viterbi_device.py:759): 4 maps
+    and one symbol per block (QPSK-class rate 1/2) on `kind` "viterbi"
+    (csrc/acs.cu); anything else, `punctured`, on `kind`
+    "viterbi_banked" (csrc/acs_banked.cu, nconj x nrot maps x nshifts
+    symbol offsets = nsyncs replica lanes per channel, up to 32; BPSK
+    1/2 on the B=1 instance). The banked state planes keep the JAX
+    banked layout (metric, path_hi, path_lo in stored-row order).
+    `fastlock` is accepted for interface parity: replicas are always
+    on, so both modes use the same election.
     """
 
     def __init__(self, cstln, rate: str, nchan: int, nsamp: int,
                  omega: float, fastlock: bool = True, device=None):
         maps, nconj, nrot, nshifts = make_sync_maps(cstln, rate)
-        if nconj * nrot != NSYNCS:
-            raise NotImplementedError(
-                f"rate {rate} on {cstln.name}: the fleet Viterbi on "
-                "constellations other than QPSK is ROADMAP queue 1 item 20")
-        if make_trellis(rate).bits_in > 1:
+        punctured = not (nconj * nrot == NSYNCS and nshifts == 1)
+        if punctured:
             bank_geometry(rate)
             self.kind = "viterbi_banked"
         else:

@@ -9,8 +9,10 @@ Chain per call of `DvbsReceiver.process`:
        noise of pipelines/chansim.py, continued across calls),
        auto-notch (dsp/blocks_device:
        cuFFT detection, device trackers), derotation (dsp/blocks.Rotator),
-       --resample (dsp/fir_kernel.FirFilterDevice on csrc/fir.cu) or
-       --decim
+       --cnr and --fd-spectrum (dsp/blocks_device CnrFft1 / Spectrum1:
+       cuFFT of one block per Fs samples, the EMA and band model on the
+       host; `meas["cnr"]`, `spectrum_lines`), --resample
+       (dsp/fir_kernel.FirFilterDevice on csrc/fir.cu) or --decim
     -> the demod on [1, n + readahead, 2], one of two routes, as the JAX
        receiver builds them:
          the demod kernel (csrc/demod.cu, `use_pallas`): computed
@@ -24,9 +26,12 @@ Chain per call of `DvbsReceiver.process`:
        or with `segments=S` (--segments) the fleet's time-segmented
        demod (pipelines/multi_rx._demod_segmented) on either route: the
        call's samples as S lane-parallel segments, two launches
-    -> hard symbols: algebraic deconvolution (fec/deconv.py, host), or
-       soft symbols: ViterbiSyncDevice (fec/viterbi.py) on the fleet's
-       ACS kernels (csrc/acs.cu at 1/2, csrc/acs_banked.cu otherwise)
+    -> hard symbols: algebraic deconvolution (fec/deconv.py, host; its
+       sync maps are QPSK's, so a constellation with more than 4
+       symbols raises IndexError on its first symbol past 3, as the JAX
+       receiver does), or soft symbols: ViterbiSyncDevice (fec/viterbi.py)
+       on the fleet's ACS kernels (csrc/acs.cu at 1/2, csrc/acs_banked.cu
+       otherwise), at every constellation and rate
     -> MPEG sync (proto/framing.py) -> deinterleave -> RS(204,188)
        -> derandomize (fec/, host NumPy) -> TS packets;
        or with --hdlc the ETR192 descrambler and the HDLC deframer
@@ -59,12 +64,12 @@ from .. import device as _dev
 from ..core.generic import RateEstimator
 from ..dsp import blocks, filtergen, mf_prefilter, receiver, receiver_hs
 from ..dsp import receiver_kernel as rk
-from ..dsp.blocks_device import AutoNotch1
+from ..dsp.blocks_device import AutoNotch1, CnrFft1, Spectrum1
 from ..dsp.cstln import Predef, make_dvbs2_constellation
 from ..dsp.fir_kernel import FirFilterDevice
 from ..fec import deconv, interleave, prbs, rs
-from ..fec.viterbi import ViterbiSyncDevice
-from ..fec.viterbi_banked import fleet_rate
+from ..fec.viterbi import ViterbiSyncDevice, make_sync_maps
+from ..fec.viterbi_banked import fleet_rate, viterbi_rate
 from ..proto.framing import MpegSync
 from ..proto.hdlc import HdlcSync, etr192_descramble
 from . import chansim
@@ -72,7 +77,6 @@ from . import chansim
 TS_SIZE = 188
 RS_SIZE = 204
 CHECKPOINT_FORMAT = "leansdr_tpu_torch.dvbs_rx/1"
-RATES = ("1/2", "2/3", "3/4", "5/6", "7/8")     # the DVB-S code rates
 
 
 @dataclass
@@ -119,17 +123,16 @@ class RxConfig:
     seg_holdoff: int = 8
 
 
-def _unsupported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1 item {item}); the "
-        "single-carrier port runs QPSK on the demod kernel or the scan "
-        "demod (exact-LUT or computed decisions; nearest, linear or rrc "
-        "sampler; sequential or segmented), --hs, hard or Viterbi "
-        "decoding, awgn/anf/derotate/resample/decim preprocessing, TS or "
-        "--hdlc output")
-
-
 def _check_config(cfg: RxConfig):
+    """Raise for an invalid setting, before any device is asked for: the
+    combinations of constellation and rate the JAX receiver refuses raise
+    its errors (make_dvbs2_constellation's and make_sync_maps'
+    ValueError; the hard decoder's KeyError at 4/5)."""
+    cstln = make_dvbs2_constellation(cfg.constellation, cfg.rate)
+    if cfg.viterbi and not cfg.hs:
+        make_sync_maps(cstln, viterbi_rate(cfg.rate, cstln.nsymbols))
+    elif not cfg.hs:
+        deconv.deconv_spec(fleet_rate(cfg.rate))
     if cfg.exact_lut is None:
         raise ValueError("RxConfig.exact_lut must be given explicitly "
                          "(False: computed decisions)")
@@ -138,11 +141,6 @@ def _check_config(cfg: RxConfig):
             f"seg_warmup must be a multiple of {receiver.CHUNK}")
     if cfg.sampler not in ("nearest", "linear", "rrc"):
         raise ValueError(f"sampler={cfg.sampler!r}: nearest, linear or rrc")
-    if cfg.cnr or cfg.want_spectrum:
-        _unsupported("--cnr and --fd-spectrum", "13")
-    if cfg.constellation != Predef.QPSK or cfg.rate not in RATES:
-        _unsupported(f"{Predef(cfg.constellation).name} rate {cfg.rate}",
-                     "20")
 
 
 def rrc_sampler(Fs: float, cfg: RxConfig) -> tuple:
@@ -307,8 +305,8 @@ class DvbsReceiver:
                      "cost_backlog")
 
     def __init__(self, cfg: RxConfig, device=None):
-        self.device = _dev.resolve_device(device)
         _check_config(cfg)
+        self.device = _dev.resolve_device(device)
         self.cfg = cfg
         rate = cfg.rate
         cstln = make_dvbs2_constellation(cfg.constellation, rate)
@@ -323,6 +321,15 @@ class DvbsReceiver:
                       if cfg.anf else None)
         self.derot = (blocks.Rotator(-cfg.Fderot / cfg.Fs)
                       if cfg.Fderot else None)
+        # --cnr / --fd-spectrum at ~1 Hz: one block per Fs samples.
+        self.cnr_est = (CnrFft1(cfg.Fm / cfg.Fs, device=self.device)
+                        if cfg.cnr else None)
+        if self.cnr_est:
+            self.cnr_est.decimation = max(int(cfg.Fs), 1)
+        self.spectrum = (Spectrum1(device=self.device)
+                         if cfg.want_spectrum else None)
+        if self.spectrum:
+            self.spectrum.decimation = max(int(cfg.Fs), 1)
         decim = 1
         self.resampler = None
         Fs_eff = cfg.Fs
@@ -412,10 +419,10 @@ class DvbsReceiver:
                                  resync_period=1 if cfg.fastlock else 32)
         else:
             if cfg.viterbi:
-                # FEC23 -> FEC46 for QPSK (leandvb.cc:533-537)
-                self.deconv = ViterbiSyncDevice(self.cstln, fleet_rate(rate),
-                                                fastlock=cfg.fastlock,
-                                                device=self.device)
+                # FEC23 -> FEC46 for QPSK and 64APSKe (leandvb.cc:533-537)
+                self.deconv = ViterbiSyncDevice(
+                    self.cstln, viterbi_rate(rate, self.cstln.nsymbols),
+                    fastlock=cfg.fastlock, device=self.device)
             else:
                 self.deconv = _DeconvolSync(fleet_rate(rate), cfg.fastlock,
                                             debug=cfg.debug)
@@ -443,6 +450,7 @@ class DvbsReceiver:
         self.verrcount = 0
         self.meas = {"freq": [], "ss": [], "mer": [], "vber": [],
                      "cnr": []}
+        self.spectrum_lines = []     # [1024] dB lines for --fd-spectrum
         self.sampled_points = []     # (re, im) for --fd-const SYMBOLS
 
     @property
@@ -617,8 +625,9 @@ class DvbsReceiver:
         return self._byte_stages(self.deconv.process(syms))
 
     def _preprocess(self, iq: np.ndarray) -> np.ndarray:
-        """Noise / notch / derotation / resample / decimation (mirrors the
-        p_preprocessed chain, leandvb.cc:277-399)."""
+        """Noise / notch / derotation / CNR / spectrum / resample /
+        decimation (mirrors the p_preprocessed chain, leandvb.cc:
+        277-399)."""
         if self.cfg.awgn:
             # Continue the drand48 stream across reads (jump to the state
             # after the draws consumed so far, dsp.h:172-183).
@@ -627,8 +636,8 @@ class DvbsReceiver:
                 seed=chansim.drand48_jump(self.noise_draws))
             self.noise_draws += used
             iq = iq + noise
-        if not (self.notch or self.derot or self.resampler
-                or self.decim > 1):
+        if not (self.notch or self.derot or self.cnr_est or self.spectrum
+                or self.resampler or self.decim > 1):
             return iq
         z = iq[:, 0] + 1j * iq[:, 1]
         if self.notch:
@@ -636,6 +645,11 @@ class DvbsReceiver:
         if self.derot:
             z = self.derot.process(z)
         freq_tap = self.meas["freq"][-1] if self.meas["freq"] else 0.0
+        if self.cnr_est:
+            self.meas["cnr"].extend(
+                self.cnr_est.process(z, freq_tap / self.decim))
+        if self.spectrum:
+            self.spectrum_lines.extend(self.spectrum.process(z))
         if self.resampler is not None:
             z = self.resampler.process(z, freq_tap / self.decim)
         elif self.decim > 1:
@@ -755,6 +769,11 @@ class DvbsReceiver:
                             "backlog": b.backlog.buf}
         if self.derot is not None:
             aux["derot"] = {"index": self.derot.index}
+        for name in ("cnr_est", "spectrum"):
+            blk = getattr(self, name)
+            if blk is not None:
+                aux[name] = {"avgpower": blk.b.avgpower, "phase": blk.b.phase,
+                             "backlog": blk.b.backlog.buf}
         if self.resampler is not None:
             aux["resampler"] = self.resampler.state()
         if self.hs_state is not None:
@@ -817,7 +836,7 @@ class DvbsReceiver:
         self.verrcount = d["verrcount"]
         self.meas = d["meas"]
         aux = d["aux"]
-        for name in ("notch", "derot", "resampler"):
+        for name in ("notch", "derot", "cnr_est", "spectrum", "resampler"):
             if (name in aux) != (getattr(self, name) is not None):
                 raise ValueError(f"checkpoint {name} state does not match "
                                  "this receiver's configuration")
@@ -830,6 +849,13 @@ class DvbsReceiver:
             b.backlog.buf = np.asarray(st["backlog"], np.float32)
         if "derot" in aux:
             self.derot.index = int(aux["derot"]["index"])
+        for name in ("cnr_est", "spectrum"):
+            if name in aux:
+                b, st = getattr(self, name).b, aux[name]
+                b.avgpower = (None if st["avgpower"] is None
+                              else np.asarray(st["avgpower"], np.float32))
+                b.phase = int(st["phase"])
+                b.backlog.buf = np.asarray(st["backlog"], np.float32)
         if "resampler" in aux:
             self.resampler.set_state(aux["resampler"])
         if ("etr_state" in aux) != bool(self.cfg.hdlc):

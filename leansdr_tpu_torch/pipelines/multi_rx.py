@@ -4,7 +4,13 @@ leansdr_tpu/pipelines/multi_rx.py).
 
 Chain per chunk, all on the device until one packed fetch:
 
-  [matched filter (dsp/mf_prefilter.py), with sampler="rrc" and
+  [host-side preprocessing with anf / cnr / want_spectrum
+   (dsp/blocks_device, as the JAX fleet runs it, leansdr_tpu/pipelines/
+   multi_rx.py:766-831): the auto-notch on the [C, n, 2] planes (cuFFT
+   detection, device trackers), then the CNR estimator (the carrier
+   from the demod state's freqw / 65536) and the spectrum, one cuFFT
+   of one block per Fs samples each; into `cnr` and `spectrum_lines`]
+    -> [matched filter (dsp/mf_prefilter.py), with sampler="rrc" and
    computed decisions; the linear sampler reads the input as it is]
     -> the demod, one launch per chunk, or with `segments=S` two
        launches over S lanes per carrier (the time-segmented demod,
@@ -17,14 +23,16 @@ Chain per chunk, all on the device until one packed fetch:
            sampler="nearest" or use_pallas=False (state as JAX's dict)
     -> symbol ring append (fec/deconv_device.py: cumsum + scatter)
     -> with viterbi=True, soft Viterbi over the sync replicas with
-       election:
-         rate 1/2, 4 replicas: csrc/acs.cu inside
+       election, at every constellation and rate:
+         QPSK-class rate 1/2, 4 replicas: csrc/acs.cu inside
            fec/viterbi_device.viterbi_decode;
-         rates 2/3 (run as "4/6"), 3/4, 5/6, 7/8, 4 x nshifts replicas:
-           punctured block inputs -> csrc/acs_banked.cu inside
+         every other (constellation, rate), 2/3 run as "4/6":
+           nmaps x nshifts replicas (up to 32), block inputs ->
+           csrc/acs_banked.cu inside
            fec/viterbi_device.viterbi_decode_banked;
        with viterbi=False, hard decisions: the all-hypothesis GF(2)
-       decode of fec/deconv_device.deconv_decode (4 sync maps x the
+       decode of fec/deconv_device.deconv_decode (QPSK's 4 sync maps,
+       symbols past 3 read as 0 as in the JAX fleet, x the
        symbol alignments, elected per sub-block with fastlock, else the
        channel's locked hypothesis, rotated by the framer's resyncs)
     -> ONE packed u8 buffer per chunk (bytes | discriminants or
@@ -43,16 +51,19 @@ import numpy as np
 import torch
 
 from .. import device as _dev
+from ..dsp import blocks_device as bd
 from ..dsp import mf_prefilter, receiver
 from ..dsp import receiver_kernel as rk
-from ..dsp.cstln import Predef, make_dvbs2_constellation
+from ..dsp.cstln import make_dvbs2_constellation
 from ..fec import interleave, prbs, rs
+from ..fec.deconv import deconv_spec
 from ..fec.deconv_device import DeviceDeconvolver, deconv_append
+from ..fec.viterbi import make_sync_maps
 from ..fec.viterbi_banked import fleet_rate
 from ..fec.viterbi_device import MultiViterbiSync, decoder
 from ..native import NativeByteBackend
 from ..proto.framing import RS_SIZE, MpegSync
-from .dvbs_rx import (RATES, RxConfig, TS_SIZE, rrc_sampler, state_from_numpy,
+from .dvbs_rx import (RxConfig, TS_SIZE, rrc_sampler, state_from_numpy,
                       state_to_numpy)
 
 CHECKPOINT_FORMAT = "leansdr_tpu_torch.multi_rx/1"
@@ -387,31 +398,25 @@ def _fused_chunk(params, sym_consts, mf_taps, kind, plan, plan_dec, maps,
     return dem_state, seg_state, dstate, _pack_fetch(dstate["fill"], flat)
 
 
-def _unsupported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1 item {item}); the "
-        f"port runs QPSK at rates {', '.join(RATES)} on the demod kernel "
-        "or the scan demod (exact-LUT or computed decisions; nearest, "
-        "linear or rrc sampler)")
-
-
 def _check_config(cfg: RxConfig, segments, seg_warmup):
-    """Raise for a setting the port has not taken (NotImplementedError
-    naming its ROADMAP item) or that is invalid (ValueError)."""
+    """Raise for an invalid setting, before any device is asked for:
+    the combinations of constellation and rate the JAX fleet
+    refuses raise its errors (make_dvbs2_constellation's and
+    make_sync_maps' ValueError; the hard decoder's KeyError at 4/5)."""
+    cstln = make_dvbs2_constellation(cfg.constellation, cfg.rate)
+    if cfg.viterbi:
+        make_sync_maps(cstln, fleet_rate(cfg.rate))
+    else:
+        deconv_spec(fleet_rate(cfg.rate))
     if segments < 1:
         raise ValueError("segments must be >= 1")
     if seg_warmup % receiver.CHUNK:
         raise ValueError(f"seg_warmup must be a multiple of {receiver.CHUNK}")
-    if cfg.constellation != Predef.QPSK or cfg.rate not in RATES:
-        _unsupported(f"{Predef(cfg.constellation).name} rate {cfg.rate}",
-                     "20")
     if cfg.exact_lut is None:
         raise ValueError("RxConfig.exact_lut must be given explicitly "
                          "(False: computed decisions)")
     if cfg.sampler not in ("nearest", "linear", "rrc"):
         raise ValueError(f"sampler={cfg.sampler!r}: nearest, linear or rrc")
-    if cfg.anf or cfg.cnr or cfg.want_spectrum:
-        _unsupported("fleet preprocessing (anf, cnr, spectrum)", "13")
 
 
 class _ByteBackend:
@@ -621,6 +626,22 @@ class MultiDvbsReceiver:
         self._fetch_pool = None
         self._backend_pool = None
         self._jobs = None
+        # Fleet preprocessing (leandvb.cc:277-399), as the JAX fleet
+        # builds it: batched device FFTs over all channels, the host FSMs
+        # at block rate; CNR and spectrum at ~1 Hz.
+        dev = self.device
+        self.notch = (bd.BatchedAutoNotch(nchan, cfg.anf, device=dev)
+                      if cfg.anf else None)
+        self.cnr_est = (bd.BatchedCnrFft(nchan, cfg.Fm / cfg.Fs, device=dev)
+                        if cfg.cnr else None)
+        if self.cnr_est:
+            self.cnr_est.decimation = max(int(cfg.Fs), 1)
+        self.spectrum = (bd.BatchedSpectrum(nchan, device=dev)
+                         if cfg.want_spectrum else None)
+        if self.spectrum:
+            self.spectrum.decimation = max(int(cfg.Fs), 1)
+        self.cnr = []                  # [C] vectors (dB), ~1 Hz
+        self.spectrum_lines = []       # [C, 1024] dB lines
 
     @property
     def dem_state(self):
@@ -660,12 +681,15 @@ class MultiDvbsReceiver:
         """Enqueue the device work of one chunk; returns a pending handle
         or None if not enough samples are buffered."""
         ra = self.readahead
+        preproc = (self.notch is not None or self.cnr_est is not None
+                   or self.spectrum is not None)
         if (isinstance(iq, torch.Tensor) and iq.device == self.device
-                and self.device.type == "cuda"
+                and self.device.type == "cuda" and not preproc
                 and self.sample_backlog.shape[1] == 0
                 and (iq.shape[1] - ra) % (receiver.CHUNK
                                           * self.segments) == 0):
-            # Device-resident fast path.
+            # Device-resident fast path (only without preprocessing, which
+            # it must not skip).
             x = iq
             n = iq.shape[1] - ra
         else:
@@ -673,6 +697,18 @@ class MultiDvbsReceiver:
                 iq = iq.cpu().numpy()
             iq = np.asarray(iq, np.float32) * np.float32(
                 self.cfg.float_scale)
+            # The notch before the estimators, so a notched birdie does
+            # not inflate the CNR (leandvb.cc:277-399).
+            if self.notch is not None:
+                iq = self.notch.process(iq)
+            if self.cnr_est or self.spectrum:
+                if self.cnr_est:
+                    freqw = (self._planes[2] if self.use_pallas
+                             else self.state["freqw"])
+                    self.cnr.extend(self.cnr_est.process(
+                        iq, freqw.cpu().numpy() / 65536.0))
+                if self.spectrum:
+                    self.spectrum_lines.extend(self.spectrum.process(iq))
             self.sample_backlog = np.concatenate(
                 [self.sample_backlog, iq], axis=1)
             K = (self.sample_backlog.shape[1] - ra) // receiver.CHUNK

@@ -8,10 +8,10 @@ leandvb_vt100ui.sh, leansdrserv and the bench harness):
   periodic: FREQ (Hz), SS, MER (dB), LOCK 0|1, LOCKTIME (packets),
             CNR (dB), VBER
   fd-const: CONST (constellation points)
+  fd-spectrum: SPECTRUM (1024 dB bins)
   --json switches to JSON array forms.
 
-(A copy of leansdr_tpu/util/info.py without the --fd-spectrum writer,
-which ROADMAP queue 1 item 13 brings.)
+(A copy of leansdr_tpu/util/info.py.)
 """
 
 import os
@@ -77,3 +77,17 @@ class ConstWriter:
         else:
             pts = " ".join(f"{re:.0f},{im:.0f}" for re, im in iq)
             self.f.write(f"SYMBOLS {len(iq)} {pts}\n")
+
+
+class SpectrumWriter:
+    def __init__(self, fd: int, json: bool = False):
+        self.f = os.fdopen(fd, "w") if isinstance(fd, int) else fd
+        self.json = json
+
+    def spectrum(self, line):
+        if self.json:
+            vals = ",".join(f"{v:.3f}" for v in line)
+            self.f.write(f"SPECTRUM [{vals}]\n")
+        else:
+            vals = " ".join(f"{v:.3f}" for v in line)
+            self.f.write(f"SPECTRUM {len(line)} {vals}\n")

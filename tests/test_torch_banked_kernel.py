@@ -84,8 +84,13 @@ def test_banked_ref_matches_jax_kernel(rate):
 # ------------------------------------------------ the CUDA kernel's arithmetic
 
 INT32_MAX = (1 << 31) - 1
-# csrc/acs_banked.cu's headroom note: |key| < 2^KEY_BITS at each rate.
-KEY_BITS = {"3/4": 25, "4/6": 28, "5/6": 28, "7/8": 30}
+# csrc/acs_banked.cu's headroom note: |key| < 2^KEY_BITS at each rate
+# with QPSK's nshifts (the rates QPSK cannot carry: BPSK's bound), and
+# < 2^KEY_BITS_BPSK with BPSK's, the most symbols per block.
+KEY_BITS = {"3/4": 25, "4/6": 28, "5/6": 28, "7/8": 30, "1/2": 23,
+            "2/3": 25, "4/5": 27}
+KEY_BITS_BPSK = {"1/2": 23, "2/3": 25, "3/4": 26, "4/6": 29, "4/5": 27,
+                 "5/6": 29, "7/8": 31}
 
 
 def _kernel_model(rate, metric, hi, lo, cs, cost, nacc=4):
@@ -110,7 +115,7 @@ def _kernel_model(rate, metric, hi, lo, cs, cost, nacc=4):
     geo = tvb.bank_geometry(rate)
     B, K, ncs, rb = geo.B, geo.K, geo.ncs, geo.rank_bits
     nbits, depth = vit.PATH_SPEC[rate]
-    sh = (depth - 1) * nbits - 32
+    shift = (depth - 1) * nbits          # 31 at 1/2: across both words
     umask, rmask, w32 = (1 << nbits) - 1, (1 << rb) - 1, 0xFFFFFFFF
     rk, aux = tvb.kernel_tables(rate)
     rk = rk.astype(np.int64)
@@ -152,7 +157,7 @@ def _kernel_model(rate, metric, hi, lo, cs, cost, nacc=4):
             best = np.minimum(b0, b1)
             second = np.minimum(np.maximum(b0, b1), np.minimum(s0, s1))
             usn = np.zeros((64, N), np.int64)
-            usn[natv] = (nh >> sh) & umask       # by natural state
+            usn[natv] = (((nh << 32) | nl) >> shift) & umask  # natural
             us[t - 1] = usn[best & 63, lane[0]]
             q[t - 1] = (second >> 6) - (best >> 6)
             if t == T:
@@ -187,15 +192,16 @@ def _kernel_model(rate, metric, hi, lo, cs, cost, nacc=4):
     return (mo, Hh[natv], Hl[natv], us, q, widest)
 
 
-def _extreme_inputs(rate, T, N, seed):
+def _extreme_inputs(rate, T, N, seed, nshifts=None):
     """Block costs at the int16-sum extremes a rate's nshifts symbols
     give: each symbol's cost -2^15, 2^15 - 1, 0 or anything between,
-    summed over nshifts = bits_out / 2 (QPSK) symbols."""
+    summed over nshifts symbols (default bits_out / 2, QPSK's, at least
+    one)."""
     rng = np.random.default_rng(seed)
     t = vit.make_trellis(rate)
     cs = rng.integers(0, t.ncs, (T, N)).astype(np.int32)
     cost = np.zeros((T, N), np.int64)
-    for _ in range(t.bits_out // 2):
+    for _ in range(nshifts or max(1, t.bits_out // 2)):
         pick = rng.integers(0, 4, (T, N))
         cost += np.where(pick == 0, -(1 << 15), np.where(
             pick == 1, (1 << 15) - 1, np.where(
@@ -275,6 +281,23 @@ def test_kernel_model_matches_ref(rate, nacc):
         if make is _extreme_inputs:
             assert got[5] > 1 << (14 + tvb.bank_geometry(rate).rank_bits)
         planes = want[:3]
+
+
+@pytest.mark.parametrize("rate", tvb.FLEET_RATES)
+def test_kernel_model_bpsk_extremes(rate):
+    """The model == viterbi_acs_banked_ref at the int16 cost extremes
+    summed over BPSK's nshifts = bits_out symbols per block, the most any
+    constellation puts in a block, from a live state; every key within
+    the bound the kernel's source states for it (2^31 at 7/8)."""
+    T, N = 128, 16
+    cs0, cost0 = _tie_inputs(rate, T, N, seed=31)
+    planes = _ref(rate, cs0, cost0)[:3]
+    cs, cost = _extreme_inputs(rate, T, N, seed=32,
+                               nshifts=vit.make_trellis(rate).bits_out)
+    want = _ref(rate, cs, cost, planes)
+    got = _kernel_model(rate, *(p.numpy() for p in planes), cs, cost)
+    _same(want, got[:5], f"{rate} BPSK extremes")
+    assert got[5] < 1 << KEY_BITS_BPSK[rate]
 
 
 @pytest.mark.parametrize("rate", ["3/4", "5/6", "4/6", "7/8"])

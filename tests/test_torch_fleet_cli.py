@@ -134,25 +134,29 @@ def test_fleet_cli_parse_args_matches_jax(argv):
 
 @pytest.mark.parametrize("flags,item", [
     (["--exact-lut"], "item 10"), (["--sampler", "nearest"], "item 10"),
-    (["--const", "8PSK"], "item 20")])
+    (["--const", "8PSK", "--cr", "2/3", "--viterbi"], "item 20")])
 def test_fleet_cli_unported_flags_raise(flags, item, monkeypatch):
-    """Raised before stdin is read (a stdin that fails on read), and
-    before a device is asked for (the default, CUDA). The flags of item
-    10, ported, reach the scan demod: the CLI builds its fleet on it
-    (--exact-lut with the default linear sampler, --sampler nearest with
-    computed decisions) and one chunk of 2 x 1024 frames goes through."""
+    """The flags of items 10 and 20, once unported, reach their path: the
+    CLI builds its fleet on the scan demod (--exact-lut with the default
+    linear sampler, --sampler nearest with computed decisions) or, for
+    --const 8PSK --cr 2/3, on the demod kernel with the 4/6 trellis's
+    banked ACS (32 sync replicas per carrier), and one chunk of 2 x 1024
+    frames goes through. A combination the JAX CLI refuses (8PSK at 1/2)
+    raises its ValueError before stdin is read (a stdin that fails on
+    read) and before a device is asked for (the default, CUDA)."""
     from leansdr_tpu_torch.apps import leandvbfleet
     from leansdr_tpu_torch.pipelines import multi_rx
 
-    if item != "item 10":
+    if item == "item 20":
         class NoRead:
             class buffer:
                 def read(n=-1):
                     raise AssertionError("input read")
-        monkeypatch.setattr(sys, "stdin", NoRead)
-        with pytest.raises(NotImplementedError, match=item):
-            leandvbfleet.main(["--nchan", "2"] + flags)
-        return
+        with monkeypatch.context() as m:
+            m.setattr(sys, "stdin", NoRead)
+            with pytest.raises(ValueError, match="not suitable"):
+                leandvbfleet.main(["--nchan", "2", "--const", "8PSK",
+                                   "--viterbi"])
     built = []
 
     class Recorded(multi_rx.MultiDvbsReceiver):
@@ -171,11 +175,17 @@ def test_fleet_cli_unported_flags_raise(flags, item, monkeypatch):
     assert leandvbfleet.main(["--nchan", "2", "--chunk", "1024",
                               "--device", "cpu"] + flags) == 0
     rx, = built
+    assert rx._chunk_count == 1
+    if item == "item 20":
+        assert rx.use_pallas and rx.params.nsymbols == 8
+        assert (rx.rate, rx.deconv.kind) == ("4/6", "viterbi_banked")
+        assert rx.deconv.plan.nsyncs == 32
+        return
     assert not rx.use_pallas and rx._planes is None
     assert rx.params.exact_lut == (flags == ["--exact-lut"])
     assert rx.params.sampler == ("nearest" if "nearest" in flags
                                  else "linear")
-    assert rx._chunk_count == 1 and rx.state["mu"].shape == (NCHAN,)
+    assert rx.state["mu"].shape == (NCHAN,)
 
 
 def test_fleet_cli_out_template(tmp_path, monkeypatch):

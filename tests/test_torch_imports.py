@@ -4,6 +4,7 @@ raise without it (no quiet fallback to the CPU).
 """
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -115,20 +116,40 @@ def test_hard_fleet_entry_points_default_to_cuda():
 
 
 def test_unported_settings_raise():
-    """The fleet's settings of unported paths raise NotImplementedError
-    naming their ROADMAP item; those of item 10 (ported) reach the scan
-    demod: sampler="nearest", exact_lut=True (with "rrc", the polyphase
-    fir_sampler at Fs: 499 taps in steps of 32) and use_pallas=False."""
+    """The fleet's settings of once-unported paths reach them: item 20's
+    constellations (8PSK 2/3 decoded as 4/6 on the banked ACS, 32 sync
+    replicas), item 13's preprocessing (anf: the batched notch; cnr: the
+    batched CNR estimator at Fs / Fm bandwidth, one block per Fs
+    samples; want_spectrum: the batched spectrum), and item 10's the
+    scan demod: sampler="nearest", exact_lut=True (with "rrc", the
+    polyphase fir_sampler at Fs: 499 taps in steps of 32) and
+    use_pallas=False. A combination the JAX fleet refuses (8PSK 1/2)
+    raises its ValueError."""
+    from leansdr_tpu_torch.dsp import blocks_device as bd
     from leansdr_tpu_torch.dsp.cstln import Predef
     from leansdr_tpu_torch.pipelines.dvbs_rx import RxConfig
     from leansdr_tpu_torch.pipelines.multi_rx import MultiDvbsReceiver
     base = dict(Fs=4e6, Fm=2e6, rate="1/2", fastlock=True, float_scale=75,
                 exact_lut=False, viterbi=True, sampler="rrc")
-    for change, item in ((dict(constellation=Predef.PSK8), "item 20"),
-                         (dict(anf=1), "item 13"),
-                         (dict(cnr=True), "item 13")):
-        with pytest.raises(NotImplementedError, match=item):
-            MultiDvbsReceiver(RxConfig(**(base | change)), 2, device="cpu")
+    with pytest.raises(ValueError, match="not suitable"):
+        MultiDvbsReceiver(RxConfig(**(base | dict(
+            constellation=Predef.PSK8))), 2, device="cpu")
+    rx = MultiDvbsReceiver(RxConfig(**(base | dict(
+        constellation=Predef.PSK8, rate="2/3"))), 2, device="cpu")
+    assert (rx.rate, rx.deconv.kind) == ("4/6", "viterbi_banked")
+    assert rx.deconv.plan.nsyncs == 32 and rx.params.nsymbols == 8
+    assert rx.deconv.state["metric"].shape == (64, 2 * 32)
+    # The CNR's band model needs Fs >= 4 Fm (as in the JAX fleet).
+    with pytest.raises(ValueError, match="4x Fsignal"):
+        MultiDvbsReceiver(RxConfig(**(base | dict(cnr=True))), 2,
+                          device="cpu")
+    rx = MultiDvbsReceiver(RxConfig(**(base | dict(
+        Fm=1e6, anf=1, cnr=True, want_spectrum=True))), 2, device="cpu")
+    assert isinstance(rx.notch, bd.BatchedAutoNotch) and rx.notch.nslots == 1
+    assert isinstance(rx.cnr_est, bd.BatchedCnrFft)
+    assert (rx.cnr_est.bw, rx.cnr_est.decimation) == (0.25, 4000000)
+    assert isinstance(rx.spectrum, bd.BatchedSpectrum)
+    assert rx.spectrum.decimation == 4000000
     for change, kw, sampler, exact, mf in (
             (dict(sampler="nearest"), {}, "nearest", False, False),
             (dict(exact_lut=True), {}, "rrc", True, False),
@@ -175,29 +196,26 @@ def test_single_carrier_entry_points_default_to_cuda():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--awgn", "1"], "item 22"), (["--cnr"], "item 13"),
+    (["--awgn", "1"], "item 22"), (["--cnr", "-f", "8e6"], "item 13"),
     (["--fd-spectrum", "3"], "item 13"),
     (["--hs"], "item 12"), (["--hdlc", "--packetized"], "item 21"),
     (["--exact-lut"], "item 10"), (["--hard-metric"], "item 10"),
     (["--sampler", "nearest"], "item 10"), (["--hdlc"], "item 21"),
-    (["--const", "8PSK"], "item 20")])
-def test_leandvb_unported_flags_raise(flags, item, monkeypatch):
-    """Each flag of a path the port has not taken raises
-    NotImplementedError naming its ROADMAP item, before reading input.
-    The flags of items 10, 12, 21 and 22, ported, reach their path: the
-    CLI builds its receiver on the scan demod (--exact-lut, --hard-metric
-    with the LUT's cost hardened to -1/0, --sampler nearest), the --hs
-    demod, or the demod kernel with the --awgn noise stream or the
-    --hdlc byte stages (--packetized: the 16-bit frame lengths), and one
-    2048-sample u8 read (--anf 0) goes through it."""
+    (["--const", "8PSK", "--cr", "2/3", "--viterbi"], "item 20")])
+def test_leandvb_unported_flags_raise(flags, item, tmp_path, monkeypatch):
+    """The flags of items 10, 12, 13, 20, 21 and 22, once unported, reach
+    their path: the CLI builds its receiver on the scan demod
+    (--exact-lut, --hard-metric with the LUT's cost hardened to -1/0,
+    --sampler nearest), the --hs demod, or the demod kernel with the
+    --awgn noise stream, the --hdlc byte stages (--packetized: the
+    16-bit frame lengths), the CNR estimator (--cnr, which needs Fs >=
+    4 Fm) or the spectrum (--fd-spectrum, on a file's fd) before the
+    demod, or 8PSK at 2/3 on the 2/3 trellis's banked ACS (16 sync
+    replicas); and one 2048-sample u8 read (--anf 0) goes through it."""
     import io
     import numpy as np
     from leansdr_tpu_torch.apps import leandvb
     from leansdr_tpu_torch.pipelines import dvbs_rx
-    if item not in ("item 10", "item 12", "item 21", "item 22"):
-        with pytest.raises(NotImplementedError, match=item):
-            leandvb.main(flags + ["--device", "cpu"])
-        return
     built = []
 
     class Recorded(dvbs_rx.DvbsReceiver):
@@ -213,8 +231,30 @@ def test_leandvb_unported_flags_raise(flags, item, monkeypatch):
     monkeypatch.setattr(sys, "stdin", Stdin)
     monkeypatch.setattr(sys, "stdout", type("Out", (), {
         "buffer": io.BytesIO()}))
+    if "--fd-spectrum" in flags:
+        fd = os.open(tmp_path / "spectrum.txt", os.O_WRONLY | os.O_CREAT)
+        flags = ["--fd-spectrum", str(fd)]
     assert leandvb.main(flags + ["--anf", "0", "--device", "cpu"]) == 0
     rx, = built
+    if item == "item 13":
+        # 2048 samples: no CNR value or spectrum line yet (one per Fs
+        # samples), all of them in the estimator's backlog or phase.
+        assert rx.use_pallas and rx._chunks_done == 1
+        if rx.cfg.cnr:
+            assert rx.cnr_est.b.backlog.buf.shape == (1, 2048, 2)
+            assert rx.meas["cnr"] == [] and rx.spectrum is None
+        else:
+            assert (rx.spectrum.b.phase, rx.cnr_est) == (2048, None)
+            assert rx.spectrum_lines == []
+        return
+    if item == "item 20":
+        assert rx.use_pallas and rx._chunks_done == 1
+        assert (rx.cstln.nsymbols, rx.deconv.rate) == (8, "2/3")
+        assert (rx.deconv.nsyncs, rx.deconv.nshifts) == (16, 1)
+        # ~1700 symbols: 13 chunks of 128 blocks decoded.
+        assert len(rx.deconv.sym_backlog) < 128
+        assert rx.deconv._dev_state[0].shape == (64, 16)
+        return
     if item in ("item 21", "item 22"):
         assert rx.use_pallas and rx._chunks_done == 1
         if rx.cfg.hdlc:
