@@ -152,9 +152,12 @@ Phases (any failure exits non-zero):
      --fd-spectrum on 2.5 s at 4.8 Msps u8, whose CNR values and
      spectrum lines equal a CPU run of the same estimators on the same
      samples within 0.01 dB; each with the gate above, but for the fleet
-     8PSK and the 32APSK paths, whose acquisition the JAX receivers share
-     (ROADMAP queue 3): their lock and packets printed, their gate the
-     run through the kernels and the kernels' checks;
+     8PSK, whose partial lock the JAX fleet shares (ROADMAP queue 3): its
+     lock and packets printed, its gate the run through the kernels and
+     the kernels' checks. A 32APSK stream that does not lock passes only
+     by the half-turn twin rule (twin_replay, queue 3): its elected sync
+     ties the twin in every chunk, and with the twin pinned it locks and
+     decodes the packets;
   5. kernel times at the main path's shapes (the demod also at the
      segmented launches' shapes and at one carrier; the ACS at N=256,
      N=64 and N=4; the banked ACS at every rate's ACQUIRE and TRACK
@@ -1748,29 +1751,32 @@ SC_PATHS = (
 # (the CNR's band model needs Fs >= 4 Fm, so the canonical 2.4 Msps
 # stream cannot take it: the JAX receiver and the reference refuse it
 # too), 2.5 s: two CNR values and two spectrum lines, one per Fs
-# samples. The last field is the lock and TS gate: 32APSK 4/5's
-# acquisition is bistable on the receivers' decision-directed loops (the
-# JAX receiver's arithmetic, which the port's equals; ROADMAP queue 3),
-# so on that stream the gate is the run through the kernels and their
-# checks against the plain versions, its lock and packets printed.
+# samples. The last field is `twin` (single_carrier): the 4/5 code is
+# transparent to 32APSK's 180-degree rotation (ROADMAP queue 3), so when
+# the carrier loop settles on a half-turn from the sent phase the
+# election keeps the rotation's lower-indexed twin, in the JAX receiver
+# as in the port (tests/test_torch_apsk32_twin.py), and the stream does
+# not lock; the path then passes only if the twin's discriminant tied
+# the elected sync's in every chunk and a replay with the twin pinned
+# locks and decodes the packets.
 SC_PATHS_8 = (
     ("psk8_23", dict(Fs=4e6, Fm=2e6, constellation="PSK8", rate="2/3",
                      fastlock=True, viterbi=True, anf=0, float_scale=75.0),
-     "f32", 1.0, (3, 3, True), 20e3, 20.0, None, True),
+     "f32", 1.0, (3, 3, True), 20e3, 20.0, None, False),
     ("bpsk_12", dict(Fs=4e6, Fm=2e6, constellation="BPSK", rate="1/2",
                      fastlock=True, viterbi=True, anf=0, float_scale=75.0),
-     "f32", 1.0, (3, 3, True), 20e3, 12.0, None, True),
+     "f32", 1.0, (3, 3, True), 20e3, 12.0, None, False),
     ("apsk32_45", dict(Fs=4e6, Fm=2e6, constellation="APSK32", rate="4/5",
                        fastlock=True, viterbi=True, anf=0, sampler="rrc",
                        float_scale=75.0),
-     "f32", 1.0, (3, 3, True), 20e3, 24.0, None, False),
+     "f32", 1.0, (3, 3, True), 20e3, 24.0, None, True),
     ("apsk16_34", dict(Fs=4e6, Fm=2e6, constellation="APSK16", rate="3/4",
                        fastlock=True, viterbi=True, anf=0,
                        float_scale=75.0),
-     "f32", 1.0, (3, 3, True), 20e3, 24.0, None, True),
+     "f32", 1.0, (3, 3, True), 20e3, 24.0, None, False),
     ("cnr", dict(Fs=4.8e6, Fm=1.2e6, rate="1/2", anf=0, cnr=True,
                  want_spectrum=True), "u8", 2.5, (4, 2, True), 20e3, 20.0,
-     None, True),
+     None, False),
 )
 
 
@@ -1874,7 +1880,7 @@ def sc_plain_checks(name, inputs):
 
 
 def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
-                   f_off, esn0_db, birdie, stimulus=None, gate=True):
+                   f_off, esn0_db, birdie, stimulus=None, twin=False):
     """One single-carrier path: the wire stream through DvbsReceiver in
     leandvb's 2^17-sample reads (read_iq -> process), with every kernel's
     launch count zeroed just before and read just after, device stages
@@ -1883,7 +1889,9 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
     (sc_plain_checks). Paths with the same stimulus parameters read the
     same bytes (`stimuli` keeps them); `stimulus` = (bytes, frames sent)
     gives an --hdlc path its own, gated on its frames (check_frames).
-    gate=False prints the lock and TS result without failing on it."""
+    twin=True (32APSK 4/5, SC_PATHS_8): a stream that fails the gate
+    passes if it failed by electing the 180-degree twin of the sync it
+    was sent under, as the reference's election does (twin_replay)."""
     from leansdr_tpu_torch.dsp import fir_kernel as fk
     from leansdr_tpu_torch.dsp import mf_prefilter, receiver, receiver_hs
     from leansdr_tpu_torch.dsp import receiver_kernel as rk
@@ -1986,6 +1994,15 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
         patches.append((dvbs_rx, "etr192_descramble",
                         hosttimed("etr192", dvbs_rx.etr192_descramble)))
     patches.append((rx, "_byte_stages", hosttimed("bytes", rx._byte_stages)))
+    discr = []                       # each chunk's (elected, discriminants)
+    if twin:
+        advance = rx.deconv._advance
+
+        def electing(us, totaldiscr, election):
+            out = advance(us, totaldiscr, election)
+            discr.append((rx.deconv.current, totaldiscr.copy()))
+            return out
+        patches.append((rx.deconv, "_advance", electing))
     saved = [(obj, a, getattr(obj, a)) for obj, a, _ in patches]
     for obj, a, fn in patches:
         setattr(obj, a, fn)
@@ -2031,8 +2048,11 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
           f"{n_after} after lock (span {span}; {npkt} sent)")
     if any(launches[k] < 1 for k in need):
         fail(f"{name}: the path did not run through {need}: {launches}")
-    if gate and (not lock or n_good < 100
-                 or n_good < 0.9 * max(n_after, span)):
+    passed = (lock and n_good >= 100
+              and n_good >= 0.9 * max(n_after, span))
+    twin_run = (twin_replay(dev, name, cfg, raw, fmt, rx, discr)
+                if twin and not passed else None)
+    if not passed and twin_run is None:
         fail(f"{name}: {n_good} sent {unit} decoded of {n_after} after "
              f"lock, span {span}, lock {lock}")
     short = [k for k in need if len(inputs.get(k, ())) < 2 + (
@@ -2052,7 +2072,7 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
                   if cfg.cnr or cfg.want_spectrum else None)
     return dict(path=name, fmt=fmt, fs=cfg.Fs, samples=nsamp, wall_s=wall,
                 constellation=const, rate=cfg.rate, esn0_db=esn0_db,
-                lock=bool(lock), gated=gate,
+                lock=bool(lock), twin_replay=twin_run,
                 estimators=estimators,
                 msamples_per_s=nsamp / wall / 1e6, x_real_time=xrt,
                 device_ms=device, host_ms=host, launches=launches,
@@ -2064,6 +2084,50 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
                                    plain_ms=ms) for k, n, sh, ms in checks])
 
 
+def twin_replay(dev, name, cfg, raw, fmt, rx, discr) -> dict:
+    """A 32APSK 4/5 stream that did not lock (single_carrier, twin=True).
+    The code turns data XOR 0x66 into code XOR 0b00110 per symbol, which
+    is 32APSK's half-turn relabelling, so the sync a half-turn from the
+    elected one decodes to the same metrics, and the election (argmax,
+    strictly greater switches) keeps the lower index. Fails unless the
+    elected sync's discriminant equals its half-turn twin's in every
+    chunk, and the same bytes through a fresh receiver with the twin
+    pinned (no election) lock with >= 90% of the sent packets after
+    lock. Returns the replay's result."""
+    from leansdr_tpu_torch.pipelines.dvbs_rx import DvbsReceiver
+    from leansdr_tpu_torch.util.iofmt import read_iq
+    d = rx.deconv
+    e = d.current
+    r = e % d.nrot
+    t = e - r + (r + d.nrot // 2) % d.nrot
+    ties = sum(int(v[e]) == int(v[t]) for _, v in discr)
+    print(f"[{name}] twin: elected sync {e}, its half-turn twin {t}; "
+          f"discriminants equal in {ties} of {len(discr)} chunks")
+    if not discr or ties < len(discr):
+        fail(f"{name}: no lock, and not the half-turn tie: sync {e} vs "
+             f"{t} equal in {ties} of {len(discr)} chunks")
+    rx2 = DvbsReceiver(cfg, device=dev)
+    rx2.deconv.current = t
+    rx2.deconv.resync_phase, rx2.deconv.resync_period = 1, 1 << 62
+    step = (1 << 17) * {"u8": 2, "s16": 4, "f32": 8}[fmt]
+    t0 = time.perf_counter()
+    ts = [rx2.process(read_iq(raw[o:o + step], fmt))
+          for o in range(0, len(raw), step)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n_after, n_good, span = check_packets(0, list(np.concatenate(ts)))
+    print(f"[{name}] twin {t} pinned: lock {rx2.lock}, locktime "
+          f"{rx2.locktime}; {n_good} sent packets of {n_after} after lock "
+          f"(span {span}) in {wall:.3f} s")
+    if (not rx2.lock or n_good < 100
+            or n_good < 0.9 * max(n_after, span)):
+        fail(f"{name}: with twin {t} pinned, {n_good} sent packets decoded "
+             f"of {n_after} after lock, span {span}, lock {rx2.lock}")
+    return dict(elected=e, twin=t, chunks=len(discr), ties=ties,
+                lock=bool(rx2.lock), packets_good=int(n_good),
+                packets_after_lock=int(n_after), wall_s=wall)
+
+
 def cnr_replay(name, cfg, rx, raw, fmt, ftaps) -> dict:
     """--cnr and --fd-spectrum of a single-carrier path (their FFT on the
     card) against the port's CPU run of the same estimators (CnrFft1,
@@ -2073,9 +2137,9 @@ def cnr_replay(name, cfg, rx, raw, fmt, ftaps) -> dict:
     estimators then read the float-scaled input as it is)."""
     from leansdr_tpu_torch.dsp.blocks_device import CnrFft1, Spectrum1
     from leansdr_tpu_torch.util.iofmt import read_iq
-    cnr = CnrFft1(cfg.Fm / cfg.Fs, device="cpu")
-    spec = Spectrum1(device="cpu")
-    cnr.decimation = spec.decimation = max(int(cfg.Fs), 1)
+    every = max(int(cfg.Fs), 1)
+    cnr = CnrFft1(cfg.Fm / cfg.Fs, decimation=every, device="cpu")
+    spec = Spectrum1(decimation=every, device="cpu")
     vals, lines = [], []
     step = (1 << 17) * {"u8": 2, "s16": 4, "f32": 8}[fmt]
     for i, o in enumerate(range(0, len(raw), step)):
@@ -3268,7 +3332,7 @@ def main() -> int:
     del stimuli
     # Slice 8's single-carrier paths, from their own seed.
     rng8 = np.random.default_rng(SEED_8)
-    single8 = [single_carrier(dev, rng8, {}, *p[:-1], gate=p[-1])
+    single8 = [single_carrier(dev, rng8, {}, *p[:-1], twin=p[-1])
                for p in SC_PATHS_8]
     item24 = brickwall(dev)
     ftimes = fir_times(dev, gen)

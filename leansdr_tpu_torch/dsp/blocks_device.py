@@ -383,24 +383,14 @@ class AutoNotch1:
         return (y[:, 0] + 1j * y[:, 1]).astype(np.complex64)
 
 
-class _Adapter1:
-    """The single-carrier adapters' `decimation`, their batched block's."""
-
-    @property
-    def decimation(self):
-        return self.b.decimation
-
-    @decimation.setter
-    def decimation(self, v):
-        self.b.decimation = v
-
-
-class CnrFft1(_Adapter1):
+class CnrFft1:
     """A complex-stream interface over BatchedCnrFft(nchan=1): the
     single-carrier receiver's --cnr (blocks.CnrFft's interface)."""
 
-    def __init__(self, bandwidth: float, device=None):
-        self.b = BatchedCnrFft(1, bandwidth, device=device)
+    def __init__(self, bandwidth: float, decimation: int = 1 << 20,
+                 device=None):
+        self.b = BatchedCnrFft(1, bandwidth, decimation=decimation,
+                               device=device)
 
     def process(self, z, freq_tap: float = 0.0):
         vs = self.b.process(_c2p(np.asarray(z, np.complex64)),
@@ -408,13 +398,13 @@ class CnrFft1(_Adapter1):
         return [float(v[0]) for v in vs]
 
 
-class Spectrum1(_Adapter1):
+class Spectrum1:
     """A complex-stream interface over BatchedSpectrum(nchan=1): the
     single-carrier receiver's --fd-spectrum (blocks.Spectrum's
     interface)."""
 
-    def __init__(self, device=None):
-        self.b = BatchedSpectrum(1, device=device)
+    def __init__(self, decimation: int = 1 << 20, device=None):
+        self.b = BatchedSpectrum(1, decimation=decimation, device=device)
 
     def process(self, z):
         return [line[0] for line in

@@ -45,7 +45,7 @@ BIG = 1 << 30
 # and the other constellations with other than 4 sync replicas), 2/3
 # (B=2; the single carrier keeps it for BPSK and 8PSK), 4/6, 3/4, 4/5
 # (B=4, its own polynomials), 5/6 and 7/8.
-FLEET_RATES = ("1/2", "2/3", "4/6", "3/4", "4/5", "5/6", "7/8")
+BANKED_RATES = ("1/2", "2/3", "4/6", "3/4", "4/5", "5/6", "7/8")
 # The QPSK fleet's punctured rates ("2/3" runs as "4/6").
 QPSK_PUNCTURED = ("4/6", "3/4", "5/6", "7/8")
 
@@ -147,7 +147,7 @@ def bank_geometry(rate: str) -> BankGeometry:
                         pred_row, cs_hi, us, cs_lo, us_hi, us_lo)
 
 
-for _rate in FLEET_RATES:           # the uniqueness asserts, at import
+for _rate in BANKED_RATES:           # the uniqueness asserts, at import
     bank_geometry(_rate)
 del _rate
 

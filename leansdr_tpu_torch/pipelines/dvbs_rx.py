@@ -322,14 +322,11 @@ class DvbsReceiver:
         self.derot = (blocks.Rotator(-cfg.Fderot / cfg.Fs)
                       if cfg.Fderot else None)
         # --cnr / --fd-spectrum at ~1 Hz: one block per Fs samples.
-        self.cnr_est = (CnrFft1(cfg.Fm / cfg.Fs, device=self.device)
-                        if cfg.cnr else None)
-        if self.cnr_est:
-            self.cnr_est.decimation = max(int(cfg.Fs), 1)
-        self.spectrum = (Spectrum1(device=self.device)
+        every = max(int(cfg.Fs), 1)
+        self.cnr_est = (CnrFft1(cfg.Fm / cfg.Fs, decimation=every,
+                                device=self.device) if cfg.cnr else None)
+        self.spectrum = (Spectrum1(decimation=every, device=self.device)
                          if cfg.want_spectrum else None)
-        if self.spectrum:
-            self.spectrum.decimation = max(int(cfg.Fs), 1)
         decim = 1
         self.resampler = None
         Fs_eff = cfg.Fs

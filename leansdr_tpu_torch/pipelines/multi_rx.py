@@ -632,14 +632,13 @@ class MultiDvbsReceiver:
         dev = self.device
         self.notch = (bd.BatchedAutoNotch(nchan, cfg.anf, device=dev)
                       if cfg.anf else None)
-        self.cnr_est = (bd.BatchedCnrFft(nchan, cfg.Fm / cfg.Fs, device=dev)
+        every = max(int(cfg.Fs), 1)
+        self.cnr_est = (bd.BatchedCnrFft(nchan, cfg.Fm / cfg.Fs,
+                                         decimation=every, device=dev)
                         if cfg.cnr else None)
-        if self.cnr_est:
-            self.cnr_est.decimation = max(int(cfg.Fs), 1)
-        self.spectrum = (bd.BatchedSpectrum(nchan, device=dev)
+        self.spectrum = (bd.BatchedSpectrum(nchan, decimation=every,
+                                            device=dev)
                          if cfg.want_spectrum else None)
-        if self.spectrum:
-            self.spectrum.decimation = max(int(cfg.Fs), 1)
         self.cnr = []                  # [C] vectors (dB), ~1 Hz
         self.spectrum_lines = []       # [C, 1024] dB lines
 

@@ -221,7 +221,7 @@ def _same(want, got, what):
                               f"{b[tuple(bad[0])]}")
 
 
-@pytest.mark.parametrize("rate", tvb.FLEET_RATES)
+@pytest.mark.parametrize("rate", tvb.BANKED_RATES)
 def test_kernel_tables_match_geometry(rate):
     """kernel_tables against bank_geometry: every (row, slot) rank (7/8:
     the smaller of the predecessor's two) and the decode
@@ -260,7 +260,7 @@ def test_kernel_tables_match_geometry(rate):
 
 
 @pytest.mark.parametrize("nacc", [2, 4])
-@pytest.mark.parametrize("rate", tvb.FLEET_RATES)
+@pytest.mark.parametrize("rate", tvb.BANKED_RATES)
 def test_kernel_model_matches_ref(rate, nacc):
     """The kernel's arithmetic (model above) == viterbi_acs_banked_ref
     bit for bit: coarse costs forcing ties from zero planes, then from
@@ -283,7 +283,7 @@ def test_kernel_model_matches_ref(rate, nacc):
         planes = want[:3]
 
 
-@pytest.mark.parametrize("rate", tvb.FLEET_RATES)
+@pytest.mark.parametrize("rate", tvb.BANKED_RATES)
 def test_kernel_model_bpsk_extremes(rate):
     """The model == viterbi_acs_banked_ref at the int16 cost extremes
     summed over BPSK's nshifts = bits_out symbols per block, the most any

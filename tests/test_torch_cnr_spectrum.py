@@ -92,12 +92,11 @@ def test_batched_estimators_match_jax():
         assert t.phase == j.phase
         np.testing.assert_array_equal(j.backlog.buf, t.backlog.buf)
     z = x[1, :, 0] + 1j * x[1, :, 1]
-    j1, t1 = jbd.CnrFft1(0.2), tbd.CnrFft1(0.2, device="cpu")
-    j2, t2 = jbd.Spectrum1(), tbd.Spectrum1(device="cpu")
-    for blk in (j1, t1):
-        blk.decimation = 4096
-    for blk in (j2, t2):
-        blk.decimation = 2048
+    j1, t1 = jbd.CnrFft1(0.2), tbd.CnrFft1(0.2, decimation=4096,
+                                           device="cpu")
+    j2, t2 = jbd.Spectrum1(), tbd.Spectrum1(decimation=2048, device="cpu")
+    j1.decimation = 4096
+    j2.decimation = 2048
     a, b = j1.process(z, 0.01), t1.process(z, 0.01)
     assert len(a) == len(b) == 14 and all(type(v) is float for v in b)
     _close(a, b, DB_TOL, "CnrFft1 dB")
@@ -139,7 +138,7 @@ def test_single_carrier_preprocess_matches_jax():
               want_spectrum=True)
     j = J.DvbsReceiver(J.RxConfig(constellation=JP.QPSK, **kw))
     t = TR.DvbsReceiver(TR.RxConfig(exact_lut=False, **kw), device="cpu")
-    assert t.cnr_est.decimation == t.spectrum.decimation == 65536
+    assert t.cnr_est.b.decimation == t.spectrum.b.decimation == 65536
     x = _carriers(1, 5 * 65536, seed=3)[0]
     for lo, hi in ((0, 40000), (40000, 200000), (200000, 5 * 65536)):
         a, b = j._preprocess(x[lo:hi]), t._preprocess(x[lo:hi])

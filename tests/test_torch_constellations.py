@@ -102,7 +102,7 @@ def test_sync_maps_match_jax(name):
         nconj, nrot, nshifts = tn
         banked = not (nconj * nrot == tvd.NSYNCS and nshifts == 1)
         if banked:
-            assert rate in tvb.FLEET_RATES
+            assert rate in tvb.BANKED_RATES
             tvb.bank_geometry(rate)
 
 
