@@ -24,6 +24,11 @@ the port's own CLIs, the receiver's --awgn and its --hdlc; slice 8's
 constellations and rates (the fleet at 8PSK 2/3, run as 4/6, and BPSK
 1/2; leandvb --viterbi at 8PSK 2/3, BPSK 1/2, 32APSK 4/5, 16APSK 3/4),
 --cnr --fd-spectrum and the fleet's preprocessing (anf, cnr, spectrum);
+slice 9's device modulator (DeviceModulator at 1/2, 3/4, 7/8 and 8PSK
+2/3 on 64 carriers' packets), the candidate scan (the reference's 4 SR x
+5 CR grid on one 2 Msym/s rate-3/4 stream, in process and through
+`leansdrscan --device`, on scan_demod's per-channel-omega mode) and the
+FM multi-channel receiver (`leanmlmrx` over 201 channels at 25.6 Msps);
 and checks that every carrier locks and decodes the TS packets (or
 HDLC frames) that were sent.
 
@@ -52,7 +57,10 @@ Phases (any failure exits non-zero):
      32-channel blocks and the copy ring's prologue and epilogue; BPSK,
      32APSK and 64APSKe at C=64 over 1024 samples; the plain version
      costs one launch per op per sample); scan_demod also at 8PSK (linear
-     sampler, both decision modes, C=64);
+     sampler, both decision modes, C=64); scan_demod's per-channel-omega
+     mode (slice 9) == run_chunks_ref bit for bit, each sampler x
+     decision mode, at C=4 with the scan grid's omegas and C=64 with 64
+     distinct ones, cold and live;
   3. ACS kernel == viterbi_acs_ref bit for bit (ties forced, from zero
      and from a live state; T=2048 at the fleet's N=256 ACQUIRE lanes
      with and without cheap_q and its N=64 TRACK lanes with cheap_q;
@@ -157,7 +165,23 @@ Phases (any failure exits non-zero):
      the kernels' checks. A 32APSK stream that does not lock passes only
      by the half-turn twin rule (twin_replay, queue 3): its elected sync
      ties the twin in every chunk, and with the twin pinned it locks and
-     decodes the packets;
+     decodes the packets; slice 9: the device modulator on the card at
+     QPSK 1/2, 3/4, 7/8 and 8PSK 2/3 over 64 carriers' packets
+     (Msamples/s out; carriers 0 and 63 equal to the same function on
+     the CPU and within 1e-5 of the host modulator); the candidate scan,
+     2 s of u8 at 2.4 Msps (2 Msym/s, rate 3/4, the canonical fold-back
+     front end) on the 4 SR x 5 CR grid in process
+     (CandidateScanReceiver, its counters zeroed, 2^16-sample reads, then
+     focus()) and through `leansdrscan --device` without --rewind in a
+     child process, each electing (2e6, 3/4) and decoding >= 90% of the
+     packets after lock, two scan launches against run_chunks_ref, time
+     to election and x real time; `leanmlmrx` over 201 channels
+     (87.6-107.6 MHz, --squelch 0.8) on 1 s of s16 at 25.6 Msps in a
+     child process, its audio equal to the in-process MlmReceiver's,
+     each toned channel alone peaking at its tone within 50 Hz, a dead
+     channel squelched silent, the card's audio on a prefix equal to a
+     CPU run within 1 LSB at under 1 in 10^3 samples; x real time,
+     channelize's and the host stages' ms;
   5. kernel times at the main path's shapes (the demod also at the
      segmented launches' shapes and at one carrier; the ACS at N=256,
      N=64 and N=4; the banked ACS at every rate's ACQUIRE and TRACK
@@ -167,7 +191,8 @@ Phases (any failure exits non-zero):
      decimated, and fir, beside one conv1d computing the same FIR, TF32
      off, each with its conv1d as device time from CUDA-graph replays in
      turns and as host-paced calls; fft4096 beside one torch.fft.fft, in turns over
-     inputs that exceed the L2, timed in phase 3 right after its check);
+     inputs that exceed the L2, timed in phase 3 right after its check;
+     scan_demod's per-channel mode at the scan path's launch, C=4);
   6. last line: {"ok": true, "device": {...}}.
 
 Exits non-zero without printing a result when no CUDA device is present.
@@ -223,6 +248,18 @@ DEMOD_CHECKS_8 = (("BPSK", "1/2", 2, NCHAN, 1024),
 # generator and a NumPy one), so that every earlier path reads the same
 # stimulus as before slice 8.
 SEED_8 = SEED + 8
+# Slice 9 (the device modulator, the candidate scan, the FM receiver)
+# likewise, from SEED + 9.
+SEED_9 = SEED + 9
+# The candidate scan's grid: the reference's 4 SR x 5 CR at 2.4 Msps
+# (SURVEY.md:251, `leansdrscan leandvb --sr a,b,c,d --cr ...`): 20
+# candidates on 4 scan lanes.
+SCAN_FS = 2.4e6
+SCAN_SRS = (250e3, 333e3, 1e6, 2e6)
+SCAN_CRS = ("1/2", "2/3", "3/4", "5/6", "7/8")
+# The per-channel scan demod against its plain version at these channel
+# counts: the grid's 4 lanes (its omegas) and 64 distinct omegas.
+SCAN_PC_C = (4, 64)
 # The demod's serial bound is counted from the built kernel's SASS
 # (tools/sass_chain.py on `cuobjdump -sass`: the instructions on the
 # QPSK loop's loop-carried path, each at its latency as
@@ -356,6 +393,32 @@ def bound_ms(nbytes: float, nops: float, ops_per_s: float = VECTOR_OPS_PER_S):
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = nops / ops_per_s * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+# Float32 operations per SASS instruction that step_flops counts (FFMA is
+# two). Compares, conversions, integer and memory instructions are not
+# counted, so an operations bound built on it is a lower bound.
+FLOPS_PER_INSTR = {"FADD": 1, "FMUL": 1, "FMNMX": 1, "FFMA": 2}
+
+
+def step_flops(chain: dict) -> float:
+    """Float32 operations per step of a kernel's hot path, from its SASS
+    (the instruction mix tools/sass_chain.py reads over the unrolled loop
+    body; blocks it leaves out, such as the computed decision's symbol
+    loop, are not counted)."""
+    return sum(chain["mix"].get(k, 0) * v
+               for k, v in FLOPS_PER_INSTR.items()) / chain["unroll"]
+
+
+def scan_table_bytes(tables: dict, p) -> int:
+    """Bytes of the tables a scan_demod instance reads: the constellation
+    rows (sym3) always; the trig16 table and the three LUT planes only on
+    the exact-LUT route (the computed route takes its sincos and decision
+    from arithmetic); the rrc prototype taps on the rrc sampler."""
+    keys = ["sym3"] + (["trig", "lut_cost", "lut_symbol", "lut_phase"]
+                       if p.exact_lut else [])
+    return (sum(tables[k].numel() * tables[k].element_size() for k in keys)
+            + (len(p.rrc_coeffs) * 4 if p.sampler == "rrc" else 0))
 
 
 def int32_ops_per_s(clock_hz: float) -> float:
@@ -1649,9 +1712,31 @@ def cli_path(dev, frames):
     return res
 
 
+# The kernels line's name for scan_demod's per-channel-omega mode, counted
+# on its own (run_chunks.launches_per_channel).
+SCAN_PC = "scan_demod per-channel omega"
+
+
+class ModeCounter:
+    """A wrapper's count of its launches in one mode (an attribute beside
+    its `launches`), read and zeroed as `launches` as a wrapper's is."""
+
+    def __init__(self, fn, attr: str):
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, v: int):
+        setattr(self.fn, self.attr, v)
+
+
 def kernel_wrappers() -> dict:
     """Every kernel wrapper of the port by its name in the kernels line
-    (their `launches` counters)."""
+    (their `launches` counters), and scan_demod's per-channel-omega mode
+    (SCAN_PC, a ModeCounter; its launches are also scan_demod's)."""
     from leansdr_tpu_torch.dsp import fft_kernel as ffk
     from leansdr_tpu_torch.dsp import fir_kernel as fk
     from leansdr_tpu_torch.dsp import receiver, receiver_hs
@@ -1662,6 +1747,7 @@ def kernel_wrappers() -> dict:
             "acs_banked": vb.viterbi_acs_banked, "cfir": fk.cfir,
             "fir": fk.fir, "fft4096": ffk.fft4096,
             "scan_demod": receiver.run_chunks,
+            SCAN_PC: ModeCounter(receiver.run_chunks, "launches_per_channel"),
             "hs_demod": receiver_hs.run_chunks_hs}
 
 
@@ -2190,7 +2276,7 @@ def scan_params(sampler, exact, fs=4e6, **fields):
 def _scan_compare(tag, kern, ref, args):
     """kern(*args) and ref(*args): every output and state plane equal
     (torch.equal), and the kernel left its input state as it was. Returns
-    (kernel result, plain ms)."""
+    (kernel result, plain ms, max |kernel - plain| over every plane)."""
     before = _flat(_clone(args[2]))
     k = kern(*args)
     torch.cuda.synchronize()
@@ -2206,7 +2292,9 @@ def _scan_compare(tag, kern, ref, args):
     if bad or len(fk) != len(fr):
         fail(f"{tag}: kernel != plain version in outputs (index, entries) "
              f"{bad}")
-    return k, plain_ms
+    err = max((float((u.double() - w.double()).abs().max())
+               for u, w in zip(fk, fr) if u.numel()), default=0.0)
+    return k, plain_ms, err
 
 
 def check_scan_demod(dev, gen):
@@ -2218,13 +2306,13 @@ def check_scan_demod(dev, gen):
     in SCAN_CHECK_C over SCAN_CHUNKS chunks, from the cold state and again
     from the kernel's end state on the next samples; the rrc launches'
     instance from the wrapper's counter. Also the four sincos entries
-    hs_demod takes from the table. Returns (max |diff| 0.0, the plain
-    version's ms per case)."""
+    hs_demod takes from the table. Returns (the measured max |kernel -
+    plain| over every case and plane, the plain version's ms per case)."""
     from leansdr_tpu_torch.dsp import receiver, receiver_hs
     from leansdr_tpu_torch.dsp.cstln import Predef, make_dvbs2_constellation
     tables = receiver.make_tables(make_dvbs2_constellation(Predef.QPSK, "1/2"),
                                   dev)
-    plain = {}
+    plain, err = {}, 0.0
     cases = [(s, 4e6, {}) for s in ("nearest", "linear")] + list(SCAN_RRC)
     for label, fs, fields in cases:
         for exact in (True, False):
@@ -2243,10 +2331,11 @@ def check_scan_demod(dev, gen):
                 d0 = receiver.run_chunks.launches_device_taps
                 for part in (0, 1):
                     xs = x[:, part * n:(part + 1) * n + p.readahead]
-                    (st, out), ms = _scan_compare(
+                    (st, out), ms, e = _scan_compare(
                         f"scan_demod {label} exact={exact} C={C}",
                         receiver.run_chunks, receiver.run_chunks_ref,
                         (p, tables, st, xs.contiguous()))
+                    err = max(err, e)
                     emitted += int(out["valid"].sum())
                 if receiver.run_chunks.launches_device_taps - d0 != (
                         2 if device_taps else 0):
@@ -2267,11 +2356,12 @@ def check_scan_demod(dev, gen):
                             255).to(torch.int32)
             st = receiver_hs.init_state(hp, C, dev)
             for part in (0, 1):
-                (st, out), ms = _scan_compare(
+                (st, out), ms, e = _scan_compare(
                     f"hs_demod omega={omega} C={C}",
                     receiver_hs.run_chunks_hs, receiver_hs.run_chunks_hs_ref,
                     (hp, ht, st,
                      x[:, part * n:(part + 1) * n + 1].contiguous()))
+                err = max(err, e)
             plain[("hs", omega, C)] = ms
     args = receiver_hs._hs_args(receiver_hs.HsParams(omega=2.0))
     want = [(int(ht["sincos_re"][i]), int(ht["sincos_im"][i]))
@@ -2286,7 +2376,7 @@ def check_scan_demod(dev, gen):
           f"omega 2.0, 1.2); hs sincos entries at {receiver_hs.SINCOS_AT} "
           f"== table {want}; plain ms per call: " + ", ".join(
               f"{k} {v:.0f}" for k, v in plain.items()))
-    return 0.0, plain
+    return err, plain
 
 
 def check_scan_8psk(dev, gen) -> dict:
@@ -2308,7 +2398,7 @@ def check_scan_8psk(dev, gen) -> dict:
         st = receiver.init_state(p, NCHAN, dev)
         emitted = 0
         for part in (0, 1):
-            (st, out), ms = _scan_compare(
+            (st, out), ms, e = _scan_compare(
                 f"scan_demod 8PSK exact={exact} C={NCHAN}",
                 receiver.run_chunks, receiver.run_chunks_ref,
                 (p, t8, st, x[:, part * n:(part + 1) * n
@@ -2322,6 +2412,63 @@ def check_scan_8psk(dev, gen) -> dict:
           f"computed, C={NCHAN}): plain ms " + ", ".join(
               f"{k} {v:.0f}" for k, v in plain.items()))
     return plain
+
+
+def per_channel_omegas(C: int) -> np.ndarray:
+    """The omegas of check_scan_per_channel: the grid's at C=4 (9.6,
+    7.2072, 2.4, 1.2), else C distinct ones from 1.2 to 9.6."""
+    if C == len(SCAN_SRS):
+        return np.array([SCAN_FS / sr for sr in SCAN_SRS], np.float32)
+    return np.linspace(1.2, 9.6, C).astype(np.float32)
+
+
+def check_scan_per_channel(dev, gen) -> tuple:
+    """scan_demod's per-channel-omega mode == run_chunks_ref on every
+    output and state plane bit for bit: each sampler (nearest, linear,
+    rrc at the fleet's geometry) x decision mode (exact LUT, computed)
+    at C in SCAN_PC_C with per_channel_omegas(C), over SCAN_CHUNKS chunks
+    from the cold state and again from the kernel's end state; each
+    channel emits about one symbol in its omega samples. Returns (the
+    measured max |kernel - plain| over every case and plane, the plain
+    version's ms per case)."""
+    import dataclasses
+    from leansdr_tpu_torch.dsp import receiver
+    from leansdr_tpu_torch.dsp.cstln import Predef, make_dvbs2_constellation
+    tables = receiver.make_tables(make_dvbs2_constellation(Predef.QPSK, "1/2"),
+                                  dev)
+    plain, err = {}, 0.0
+    for label in ("nearest", "linear", "rrc"):
+        for exact in (True, False):
+            p = dataclasses.replace(scan_params(label, exact),
+                                    omega_per_channel=True)
+            n = SCAN_CHUNKS * receiver.CHUNK
+            for C in SCAN_PC_C:
+                om = per_channel_omegas(C)
+                x = demod_stimulus("QPSK", "1/2", C, 2 * n + p.readahead - 1,
+                                   dev, gen)
+                st = receiver.init_state(p, C, dev)
+                st.update(receiver.per_channel_omega_state(p, om, dev))
+                emitted = torch.zeros(C, device=dev)
+                for part in (0, 1):
+                    xs = x[:, part * n:(part + 1) * n + p.readahead]
+                    (st, out), ms, e = _scan_compare(
+                        f"scan_demod per-channel {label} exact={exact} "
+                        f"C={C}", receiver.run_chunks,
+                        receiver.run_chunks_ref,
+                        (p, tables, st, xs.contiguous()))
+                    err = max(err, e)
+                    emitted += out["valid"].sum(1)
+                plain[(label, exact, C)] = ms
+                want = torch.from_numpy(2 * n / om).to(dev)
+                if not torch.all((emitted - want).abs() <= 0.2 * want + 2):
+                    fail(f"scan_demod per-channel {label} exact={exact} "
+                         f"C={C}: {emitted.tolist()} symbols, expected "
+                         f"~{want.tolist()}")
+    print("scan_demod per-channel omega == run_chunks_ref bit for bit "
+          f"(2 x {SCAN_CHUNKS} chunks; C in {SCAN_PC_C}; nearest, linear, "
+          "rrc x exact, computed); plain ms per call: " + ", ".join(
+              f"{k} {v:.0f}" for k, v in plain.items()))
+    return err, plain
 
 
 def scan_chain(built, lat, clock) -> dict:
@@ -2381,7 +2528,7 @@ def exact_fleet_path(dev, frames, S=1, viterbi=True):
     for a in run.pop("captured"):
         p, tables, st, x = a
         xs = x[:, :SCAN_PLAIN + p.readahead].contiguous()
-        _, ms = _scan_compare(f"{tag} launch", receiver.run_chunks,
+        _, ms, _ = _scan_compare(f"{tag} launch", receiver.run_chunks,
                               receiver.run_chunks_ref, (p, tables, st, xs))
         checked.append((x.shape[0], ms))
     run["checked"] = checked
@@ -2423,8 +2570,10 @@ def scan_times(dev, frames, chains, clock) -> dict:
     resampled), and hs_demod's (C=1, 2^17, the stimulus as u8 at 40 LSB,
     at omega 2.0 and, resampled, the --hs stream's 1.2), each from the
     state one launch over the same samples left. Bounds: bytes (input,
-    tables and state read once, packed words and per-chunk measurements
-    written once) over 3.35 TB/s; the serial chain of scan_chain times
+    the tables the instance reads (scan_table_bytes) and state read once,
+    packed words and per-chunk measurements written once) over 3.35 TB/s,
+    or the float operations of its SASS hot path (step_flops) over the
+    float32 peak, the larger; the serial chain of scan_chain times
     the symbols this input emits per carrier (hs: per sample) over the
     max SM clock, its gathers priced at L1 and at L2 hits. Beside each,
     the cycles per emitted symbol (hs: per sample) the time gives."""
@@ -2432,7 +2581,6 @@ def scan_times(dev, frames, chains, clock) -> dict:
     from leansdr_tpu_torch.dsp.cstln import Predef, make_dvbs2_constellation
     tables = receiver.make_tables(make_dvbs2_constellation(Predef.QPSK, "1/2"),
                                   dev)
-    tab_bytes = sum(t.numel() * t.element_size() for t in tables.values())
     x24 = stimulus_24(frames, (1 << 17) + 64)
     out = {}
     for key, C, n, sampler, fs, chain_key in SCAN_TIMED:
@@ -2450,14 +2598,12 @@ def scan_times(dev, frames, chains, clock) -> dict:
         ms = cuda_time(lambda: receiver.run_chunks(p, tables, st, x), reps=3)
         emitted = int(o["valid"].sum())
         K = n // receiver.CHUNK
-        nbytes = (x.numel() * 4 + tab_bytes + C * n * 4 + C * K * 24
-                  + 2 * C * (21 * 4 + len(p.rrc_coeffs) * 8))
+        nbytes = (x.numel() * 4 + scan_table_bytes(tables, p) + C * n * 4
+                  + C * K * 24 + 2 * C * (21 * 4 + len(p.rrc_coeffs) * 8))
         ch = chains[chain_key]
         per = emitted / C / clock * 1e3
-        # ~100 float operations per emitted symbol (sampler, decision,
-        # loops), 8 per sample: far below the bytes.
-        out[key] = dict(ms=ms, bound=bound_ms(nbytes, emitted * 100.0
-                                              + C * n * 8.0),
+        out[key] = dict(ms=ms, bound=bound_ms(nbytes,
+                                              emitted * step_flops(ch)),
                         chain_bound_ms=per * ch["cycles_per_step"],
                         chain_bound_ms_l2=per * ch["cycles_per_step_l2"],
                         cycles_per_step=ms / per, emitted=emitted,
@@ -2477,7 +2623,7 @@ def scan_times(dev, frames, chains, clock) -> dict:
                        reps=3)
         per = n / clock * 1e3
         out[key] = dict(ms=ms, bound=bound_ms(x.numel() * 4 + htab + n * 4,
-                                              0.0),
+                                              n * step_flops(chains["hs"])),
                         chain_bound_ms=per * chains["hs"]["cycles_per_step"],
                         cycles_per_step=ms / per,
                         shape=f"C=1 nsamp={n} omega {omega}")
@@ -2532,10 +2678,13 @@ def brickwall(dev):
 
 # ------------------------------ slice 7: the pipe, --awgn and --hdlc
 
-RX_WRAPPER = """
+# A port CLI in a child process: `python -c APP_WRAPPER OUT.json MODULE
+# ARGS...` runs MODULE as __main__ with ARGS and writes its kernel launch
+# counts and main()'s seconds to OUT.json at exit.
+APP_WRAPPER = """
 import atexit, json, runpy, sys, time
 from chip_smoke import kernel_wrappers
-out = sys.argv[1]
+out, module = sys.argv[1], sys.argv[2]
 counted = kernel_wrappers()
 t0 = time.perf_counter()
 def dump():
@@ -2543,8 +2692,8 @@ def dump():
         json.dump(dict(launches={k: w.launches for k, w in counted.items()},
                        main_s=time.perf_counter() - t0), f)
 atexit.register(dump)
-sys.argv = ["leandvb"] + sys.argv[2:]
-runpy.run_module("leansdr_tpu_torch.apps.leandvb", run_name="__main__")
+sys.argv = [module.rsplit(".", 1)[1]] + sys.argv[3:]
+runpy.run_module(module, run_name="__main__")
 """
 
 
@@ -2553,7 +2702,7 @@ def pipe_path(dev):
     stage from the port, each a child process: `leantsgen -c
     PIPE_PACKETS | leandvbtx -f 2 --cr 1/2 | leanchansim --if32 --of32
     --awgn PIPE_AWGN_DB --deterministic | leandvb --f32 --float-scale 75
-    -f 4e6 --sr 2e6 --anf 0 --fastlock` (leandvb through RX_WRAPPER,
+    -f 4e6 --sr 2e6 --anf 0 --fastlock` (leandvb through APP_WRAPPER,
     which writes its kernel launch counts at exit). First each stage
     alone, from a file of the bytes of the one before to a file
     (timed), then the whole pipe (timed), whose TS must equal the
@@ -2611,7 +2760,8 @@ def pipe_path(dev):
 
     with tempfile.TemporaryDirectory() as d:
         tmp = Path(d)
-        rx = [py, "-c", RX_WRAPPER, str(tmp / "alone.json")] + rx_args
+        rx = [py, "-c", APP_WRAPPER, str(tmp / "alone.json"),
+              "leansdr_tpu_torch.apps.leandvb"] + rx_args
         run("leantsgen", gen, os.devnull, tmp / "ts", tmp)
         run("leandvbtx", tx, tmp / "ts", tmp / "iq", tmp)
         run("leanchansim", ch, tmp / "iq", tmp / "noisy", tmp)
@@ -2807,6 +2957,457 @@ def hdlc_path(dev, rng):
 
 
 # ---------------------------------------------------------------- phase 5
+
+# ------------------------------ slice 9: TX, the candidate scan, FM
+
+# The device modulator's cases (constellation, rate), interp 2, each on
+# 64 carriers' packets numbered as fleet_stimulus numbers them (enough
+# for its SEG_CHUNKS chunks); TX_CHECKED carriers are held against the
+# same function on the CPU (equal) and the host modulator (1e-5).
+TX_CASES = (("QPSK", "1/2"), ("QPSK", "3/4"), ("QPSK", "7/8"),
+            ("PSK8", "2/3"))
+TX_CHECKED = (0, NCHAN - 1)
+# The candidate scan: 2 s of u8 at SCAN_FS carrying 2 Msym/s at rate
+# SCAN_RATE behind the canonical stream's fold-back front end (SC_PATHS'
+# (6, 10, True): not the brick wall of item 24), +20 kHz, 20 dB; read
+# SCAN_READ samples at a time (leansdrscan's read); the launches
+# SCAN_CAPTURE (by index) held against run_chunks_ref on their first
+# SCAN_PLAIN samples.
+SCAN_SECONDS = 2.0
+SCAN_RATE = "3/4"
+SCAN_READ = 1 << 16
+SCAN_CAPTURE = (0, 20)
+# The FM receiver: leanmlmrx's defaults (--fs 25.6e6, N=64, --fa 44100:
+# Fq 176.4 kHz, audio decimation 4) over MAXCHANS = 201 channels,
+# 87.6-107.6 MHz in 100 kHz steps around --fc 97.6e6; FM_SECONDS of s16
+# with FM_TONED channels carrying tones (FM_TONES, FM_DEV peak deviation,
+# amplitude 1000 each) and noise (sigma 30); --squelch FM_SQUELCH (a
+# carrier's mean square discriminator output ~0.04 of full scale stays
+# under 1 - 0.8, a dead channel's uniform phase steps, ~1/3, go over it:
+# tests/test_torch_mlm.py). The per-channel and CPU checks read the first
+# FM_PREFIX samples; the CLI reads 2^20 samples at a time.
+FM_FS, FM_FC = 25.6e6, 97.6e6
+FM_CHANNELS = "87.6:0.1:107.6"
+FM_TONED = tuple(range(0, 201, 25))
+FM_TONES = tuple(500.0 + 300.0 * i for i in range(len(FM_TONED)))
+FM_DEAD = 12
+FM_DEV = 25e3
+FM_SQUELCH = 0.8
+FM_SECONDS = 1.0
+FM_PREFIX = 1 << 21
+FM_READ = 1 << 20
+
+
+
+def tx_path(dev) -> dict:
+    """The device modulator (pipelines/dvbs_tx_device.DeviceModulator on
+    the card) at TX_CASES on NCHAN carriers' packets, one modulate call
+    per carrier: Msamples/s out over the 64 calls (host clock around
+    them, synchronized); carriers TX_CHECKED equal to the same function
+    on the CPU and within 1e-5 of the port's host dvbs_tx.modulate after
+    the RRC latency (tests/test_tx_golden.py's alignment). No
+    hand-written kernel: torch ops and one float32 matmul (TF32 off)."""
+    from leansdr_tpu_torch.dsp.cstln import Predef, make_dvbs2_constellation
+    from leansdr_tpu_torch.fec.convenc import FEC_SPECS
+    from leansdr_tpu_torch.pipelines import dvbs_tx, tsgen
+    from leansdr_tpu_torch.pipelines.dvbs_tx_device import DeviceModulator
+    nsamp = SEG_CHUNKS * CHUNK_SAMPLES
+    out = {}
+    for const, rate in TX_CASES:
+        mod = DeviceModulator(Predef[const], rate, interp=2, device=dev)
+        cpu = DeviceModulator(Predef[const], rate, interp=2, device="cpu")
+        bps = make_dvbs2_constellation(Predef[const], rate).bits_per_symbol
+        bits_in, bits_out = FEC_SPECS[mod.rate]
+        npkt = nsamp * bps * bits_in // (1504 * bits_out * 2) + 16
+        pk = [torch.from_numpy(tsgen.generate(npkt, start=1000 * c)).to(dev)
+              for c in range(NCHAN)]
+        mod.modulate_tensor(pk[0])                      # warm-up
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ys = [mod.modulate_tensor(p) for p in pk]
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t
+        nout = sum(y.shape[0] for y in ys)
+        err = 0.0
+        for c in TX_CHECKED:
+            got = ys[c].cpu().numpy()
+            if not np.array_equal(got, cpu.modulate(pk[c].cpu().numpy())):
+                fail(f"tx {const} {rate} carrier {c}: the card's IQ != the "
+                     "CPU's")
+            host = dvbs_tx.modulate(pk[c].cpu().numpy(), dvbs_tx.TxConfig(
+                constellation=Predef[const], rate=rate, interp=2))
+            lat = (mod.ncoeffs + 2) // 2
+            seg = got[lat * 2: lat * 2 + len(host)]
+            if len(seg) != len(host):
+                fail(f"tx {const} {rate}: {len(seg)} samples after the "
+                     f"latency, host {len(host)}")
+            err = max(err, float(np.abs(host - seg).max()))
+        if err >= 1e-5:
+            fail(f"tx {const} {rate}: {err} from the host modulator")
+        key = f"{const} {rate}"
+        out[key] = dict(msamples_per_s=nout / s / 1e6, samples=nout,
+                        seconds=s, packets=NCHAN * npkt, host_max_err=err)
+        print(f"[tx {key}] {NCHAN} carriers x {npkt} packets -> {nout} "
+              f"samples in {s * 1e3:.1f} ms: {nout / s / 1e6:.1f} "
+              f"Msamples/s out; carriers {TX_CHECKED} == CPU, "
+              f"{err:.2e} from the host modulator")
+    return out
+
+
+def scan_path(dev, rng, chains, clock) -> dict:
+    """The candidate scan on the reference's 4 SR x 5 CR grid
+    (SCAN_SRS x SCAN_CRS at SCAN_FS), in process through
+    CandidateScanReceiver (leansdrscan --device's loop: SCAN_READ-sample
+    reads until a candidate puts out TS, then focus() and on to the end),
+    its counters zeroed just before and read just after, then through
+    `python -m leansdr_tpu_torch.apps.leansdrscan --device` in a child
+    process (APP_WRAPPER: its counts at exit) without --rewind. Gates:
+    both elect (2e6, SCAN_RATE), >= 90% of the packets sent after lock
+    out equal (check_packets), scan_demod launched; the SCAN_CAPTURE
+    launches == run_chunks_ref on SCAN_PLAIN samples. Time to election,
+    x real time, the host chains' seconds, and the per-channel kernel's
+    ms per launch (CUDA events, a mid-stream launch again) beside its
+    bytes and serial-chain bounds."""
+    import tempfile
+    from leansdr_tpu_torch.dsp import receiver
+    from leansdr_tpu_torch.pipelines import multi_rx
+    from leansdr_tpu_torch.pipelines.scan_rx import CandidateScanReceiver
+    from leansdr_tpu_torch.util.iofmt import read_iq
+    raw, npkt = sc_stimulus("QPSK", SCAN_RATE, SCAN_FS, SCAN_SECONDS,
+                            (6, 10, True), 20e3, 20.0, None, "u8", rng)
+    n = len(raw) // 2
+    want = SCAN_SRS.index(2e6) * len(SCAN_CRS) + SCAN_CRS.index(SCAN_RATE)
+
+    def grid():
+        return CandidateScanReceiver.grid(SCAN_FS, SCAN_SRS, SCAN_CRS,
+                                          device=dev)
+    warm = grid()
+    warm.process(np.zeros((receiver.CHUNK + warm.params.readahead, 2),
+                          np.float32))
+    del warm
+    scan = grid()
+    orig, feed = receiver.run_chunks, multi_rx._ByteChain.feed
+    calls, captured, host = [0], [], dict(chains=0.0, read=0.0)
+
+    def recorded(p, tables, st, x):
+        if calls[0] in SCAN_CAPTURE:
+            captured.append((p, tables, _clone(st), x.clone()))
+        calls[0] += 1
+        return orig(p, tables, st, x)
+
+    def timed_feed(self, syms):
+        t = time.perf_counter()
+        try:
+            return feed(self, syms)
+        finally:
+            host["chains"] += time.perf_counter() - t
+
+    def read(o):
+        t = time.perf_counter()
+        iq = read_iq(raw[2 * o:2 * (o + SCAN_READ)], "u8")
+        host["read"] += time.perf_counter() - t
+        return iq
+
+    counted = kernel_wrappers()
+    receiver.run_chunks, multi_rx._ByteChain.feed = recorded, timed_feed
+    for fn in counted.values():
+        fn.launches = 0
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o, winner = 0, None
+        while winner is None and o < n:
+            winner = scan.process(read(o))
+            o += SCAN_READ
+        elect_s, elect_samples = time.perf_counter() - t0, min(o, n)
+        if winner != want:
+            fail(f"scan: elected {winner}, not {want} (2e6, {SCAN_RATE})")
+        pkts = [scan.outputs[winner]]
+        scan.focus(winner)
+        scan.outputs[0] = scan.outputs[0][:0]
+        while o < n:
+            scan.process(read(o))
+            o += SCAN_READ
+        pkts.append(scan.outputs[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        launches = {k: fn.launches for k, fn in counted.items()}
+        receiver.run_chunks, multi_rx._ByteChain.feed = orig, feed
+    n_after, n_good, span = check_packets(0, list(np.concatenate(pkts)))
+    if launches[SCAN_PC] < 1 or not (
+            n_good >= 100 and n_good >= 0.9 * max(n_after, span)):
+        fail(f"scan: {n_good} sent packets of {n_after} after lock (span "
+             f"{span}); launches {launches}")
+    checked, err = [], 0.0
+    for p, tables, st, x in captured:
+        xs = x[:, :SCAN_PLAIN + p.readahead].contiguous()
+        _, ms, e = _scan_compare("scan launch", orig, receiver.run_chunks_ref,
+                                 (p, tables, st, xs))
+        checked.append((x.shape[0], ms))
+        err = max(err, e)
+    # The kernel at the path's two shapes: the grid's first launch (C=4,
+    # cold state) and a launch after focus() (C=1, the winner's lane).
+    shapes = []
+    for p, tables, st, x in captured:
+        ms = cuda_time(lambda: orig(p, tables, st, x), reps=3)
+        _, o1 = orig(p, tables, st, x)
+        C, n1 = x.shape[0], x.shape[1] - p.readahead
+        emitted = o1["valid"].sum(1)
+        if p.sampler != "linear" or p.exact_lut:
+            fail(f"scan: a {p.sampler} exact_lut={p.exact_lut} launch, not "
+                 "the linear computed instance its bound is read from")
+        nbytes = (x.numel() * 4 + scan_table_bytes(tables, p) + C * n1 * 4
+                  + C * (n1 // receiver.CHUNK) * 24 + 2 * C * 21 * 4
+                  + C * 20)
+        ch = chains["linear computed"]
+        per = float(emitted.max()) / clock * 1e3     # the busiest channel
+        shapes.append(dict(
+            ms=ms, bound=bound_ms(nbytes,
+                                  float(emitted.sum()) * step_flops(ch)),
+            chain_bound_ms=per * ch["cycles_per_step"],
+            chain_bound_ms_l2=per * ch["cycles_per_step_l2"],
+            emitted=[int(v) for v in emitted],
+            shape=f"C={C} nsamp={n1} linear computed, per-channel omega "
+                  f"{[round(v, 4) for v in st['omega'].tolist()]}"))
+    kern = dict(shapes[0], plain=checked, focused=shapes[-1], err=err)
+    signal_s = n / SCAN_FS
+    res = dict(launches=launches, samples=n, signal_s=signal_s,
+               elect_s=elect_s, elect_samples=elect_samples, wall_s=wall,
+               x_real_time=signal_s / wall, host_s=host,
+               packets_good=int(n_good), packets_after_lock=int(n_after),
+               kernel=kern)
+    print(f"[scan] {len(SCAN_SRS)} SR x {len(SCAN_CRS)} CR on "
+          f"{len(SCAN_SRS)} lanes: elected (2e6, {SCAN_RATE}) after "
+          f"{elect_samples} samples ({elect_samples / SCAN_FS:.3f} s of "
+          f"signal) in {elect_s:.3f} s; whole {signal_s:.2f} s in "
+          f"{wall:.3f} s ({res['x_real_time']:.3f}x real time); host "
+          f"chains {host['chains']:.3f} s, reads {host['read']:.3f} s; "
+          f"launches {launches}; {n_good} sent packets of {n_after} after "
+          f"lock (span {span}); launches {SCAN_CAPTURE} == run_chunks_ref "
+          f"on {SCAN_PLAIN} samples (plain ms {[m for _, m in checked]})")
+    for v in shapes:
+        print(f"kernel scan/per-channel {v['shape']}: {v['ms']:.3f} ms, "
+              f"bound {v['bound'][0]:.4f} ms ({v['bound'][1]}), serial "
+              f"chain {v['chain_bound_ms']:.3f} ms (gathers at L2 "
+              f"{v['chain_bound_ms_l2']:.3f}); emitted {v['emitted']}")
+
+    root = Path(__file__).resolve().parent
+    args = ["--device", "-t", "600", sys.executable, "-m",
+            "leansdr_tpu_torch.apps.leandvb", "--u8", "-f", f"{SCAN_FS:g}",
+            "--sr", ",".join(f"{v:g}" for v in SCAN_SRS),
+            "--cr", ",".join(SCAN_CRS)]
+    with tempfile.TemporaryDirectory() as d:
+        src, js = Path(d) / "scan.u8", Path(d) / "scan.json"
+        src.write_bytes(raw)
+        t = time.perf_counter()
+        with open(src, "rb") as f:
+            proc = subprocess.Popen([sys.executable, "-c", APP_WRAPPER,
+                                     str(js), "leansdr_tpu_torch.apps."
+                                     "leansdrscan"] + args, cwd=root, stdin=f,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE)
+            CHILDREN.append(proc)
+            ts, err = proc.communicate(timeout=600)
+        cli_wall = time.perf_counter() - t
+        err = err.decode(errors="replace")
+        if proc.returncode != 0:
+            fail(f"leansdrscan --device exited {proc.returncode}:\n"
+                 + err[-3000:])
+        rec = json.loads(js.read_text())
+    elected = [ln for ln in err.splitlines()
+               if ln.startswith("Device scan elected")]
+    if not elected or f"--sr 2e+06 --cr {SCAN_RATE}" not in elected[0] \
+            or "continuing in-process" not in elected[0]:
+        fail(f"leansdrscan --device: {elected or err[-2000:]}")
+    c_after, c_good, c_span = check_packets(
+        0, list(np.frombuffer(ts, np.uint8).reshape(-1, 188)))
+    if rec["launches"][SCAN_PC] < 1 or not (
+            c_good >= 100 and c_good >= 0.9 * max(c_after, c_span)):
+        fail(f"leansdrscan --device: {c_good} sent packets of {c_after} "
+             f"after lock (span {c_span}); launches {rec['launches']}")
+    res["cli"] = dict(wall_s=cli_wall, main_s=rec["main_s"],
+                      x_real_time_wall=signal_s / cli_wall,
+                      x_real_time_main=signal_s / rec["main_s"],
+                      launches=rec["launches"], elected=elected[0],
+                      packets_good=int(c_good),
+                      packets_after_lock=int(c_after))
+    print(f"[leansdrscan --device] {elected[0]}; wall {cli_wall:.2f} s "
+          f"({signal_s / cli_wall:.3f}x real time; main "
+          f"{rec['main_s']:.2f} s), launches {rec['launches']}; {c_good} "
+          f"sent packets of {c_after} after lock (span {c_span})")
+    return res
+
+
+def fm_stimulus(dev, gen) -> np.ndarray:
+    """FM_SECONDS of leanmlmrx's s16 input, [n, 2] int16: FM_TONED
+    channels carrying FM_TONES at FM_DEV, noise of sigma 30 (float64
+    phases on the card, seeded)."""
+    n = int(FM_SECONDS * FM_FS)
+    t = torch.arange(n, dtype=torch.float64, device=dev)
+    re = 30.0 * torch.randn(n, dtype=torch.float64, device=dev,
+                            generator=gen)
+    im = 30.0 * torch.randn(n, dtype=torch.float64, device=dev,
+                            generator=gen)
+    for k, tone in zip(FM_TONED, FM_TONES):
+        f = 87.6e6 + 0.1e6 * k - FM_FC
+        ph = (2 * np.pi * f / FM_FS * t
+              + FM_DEV / tone * torch.sin(2 * np.pi * tone / FM_FS * t))
+        re += 1000.0 * torch.cos(ph)
+        im += 1000.0 * torch.sin(ph)
+    s16 = torch.stack([re, im], -1).round().clamp(-32768, 32767)
+    return s16.to(torch.int16).cpu().numpy()
+
+
+def _tone(au, fau) -> float:
+    """The audio's spectral peak (Hz) over 2048 samples from the 500th
+    (tests/test_mlm.py)."""
+    w = au[500:500 + 2048].astype(np.float64) * np.hanning(2048)
+    sp = np.abs(np.fft.rfft(w))
+    return float(np.fft.rfftfreq(2048, 1 / fau)[np.argmax(sp[5:]) + 5])
+
+
+def fm_path(dev, gen) -> dict:
+    """leanmlmrx at its defaults over 201 channels (FM_*), on the card.
+    In process, on the first FM_PREFIX samples: each toned channel alone
+    peaks at its tone within 50 Hz, a dead channel squelched is silent,
+    and the 201-channel mix equals a CPU run within
+    tests/test_torch_mlm.py's bar (1 LSB at under 1 in 10^3 samples);
+    then the whole input through MlmReceiver in FM_READ reads as the CLI
+    reads it (x real time; channelize's device ms from CUDA events, the
+    host stages: the s16 conversion and process() by the host clock).
+    Then `python -m leansdr_tpu_torch.apps.leanmlmrx --fs ... --squelch
+    FM_SQUELCH 87.6:0.1:107.6` in a child process on the same FM_SECONDS
+    of s16 (x real time): its audio must equal the in-process run's byte
+    for byte. The mix's level at each tone (x the spectrum's median) is
+    printed, not gated: the channels next to a carrier take its skirt
+    and pass the squelch."""
+    import tempfile
+    from leansdr_tpu_torch.apps import leanmlmrx
+    from leansdr_tpu_torch.pipelines import mlm_rx
+    s16 = fm_stimulus(dev, gen)
+    chans = []
+    leanmlmrx.parse_channel(chans, FM_CHANNELS, mlm_rx.Channel)
+    if len(chans) != mlm_rx.MAXCHANS:
+        fail(f"fm: {FM_CHANNELS} gives {len(chans)} channels")
+    freqs = [c.F for c in chans]
+
+    def cfg(fs, squelch=0.0):
+        return mlm_rx.MlmConfig(Fs=FM_FS, Fc=FM_FC, squelch=squelch,
+                                channels=[mlm_rx.Channel(F=f) for f in fs])
+
+    def iq_of(a):
+        return (a[:, 0].astype(np.float32)
+                + 1j * a[:, 1].astype(np.float32)).astype(np.complex64)
+    pre = iq_of(s16[:FM_PREFIX])
+    tones = {}
+    for k, tone in zip(FM_TONED, FM_TONES):
+        rx = mlm_rx.MlmReceiver(cfg([freqs[k]]), device=dev)
+        tones[k] = _tone(rx.process(pre), rx.Fau)
+        if abs(tones[k] - tone) >= 50:
+            fail(f"fm channel {k}: audio peaks at {tones[k]} Hz, tone {tone}")
+    dead = mlm_rx.MlmReceiver(cfg([freqs[FM_DEAD]], FM_SQUELCH), device=dev)
+    dead_mean = float(np.abs(dead.process(pre).astype(np.float64)).mean())
+    if dead_mean >= 1:
+        fail(f"fm: the dead channel {FM_DEAD} squelched gives mean |audio| "
+             f"{dead_mean}")
+    runs = [mlm_rx.MlmReceiver(cfg(freqs, FM_SQUELCH), device=d).process(pre)
+            for d in (dev, "cpu")]
+    diff = np.abs(runs[0].astype(int) - runs[1].astype(int))
+    if (len(runs[0]) != len(runs[1]) or diff.max() > 1
+            or (diff > 0).sum() > len(diff) // 1000):
+        fail(f"fm: the card's audio != the CPU's: {(diff > 0).sum()} of "
+             f"{len(diff)} samples differ, max {diff.max()}")
+
+    # The whole input, as the CLI reads it, timed by stage.
+    rx = mlm_rx.MlmReceiver(cfg(freqs, FM_SQUELCH), device=dev)
+    orig, events, host = mlm_rx.channelize, [], dict(convert=0.0, process=0.0)
+
+    def timed(*a):
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        r = orig(*a)
+        e.record()
+        events.append((s, e))
+        return r
+    mlm_rx.channelize = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whole = []
+        for o in range(0, len(s16), FM_READ):
+            t = time.perf_counter()
+            iq = iq_of(s16[o:o + FM_READ])
+            t1 = time.perf_counter()
+            whole.append(rx.process(iq))
+            t2 = time.perf_counter()
+            host["convert"] += t1 - t
+            host["process"] += t2 - t1
+        wall = time.perf_counter() - t0
+    finally:
+        mlm_rx.channelize = orig
+    chz_ms = sum(s.elapsed_time(e) for s, e in events)
+    frames = int(round(len(s16) / rx.stride))
+
+    root = Path(__file__).resolve().parent
+    args = ["--fs", f"{FM_FS:g}", "--fc", f"{FM_FC:g}", "--squelch",
+            str(FM_SQUELCH), FM_CHANNELS]
+    with tempfile.TemporaryDirectory() as d:
+        src, js = Path(d) / "fm.s16", Path(d) / "fm.json"
+        src.write_bytes(s16.tobytes())
+        t = time.perf_counter()
+        with open(src, "rb") as f:
+            proc = subprocess.Popen([sys.executable, "-c", APP_WRAPPER,
+                                     str(js), "leansdr_tpu_torch.apps."
+                                     "leanmlmrx"] + args, cwd=root, stdin=f,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE)
+            CHILDREN.append(proc)
+            audio, err = proc.communicate(timeout=600)
+        cli_wall = time.perf_counter() - t
+        if proc.returncode != 0:
+            fail(f"leanmlmrx exited {proc.returncode}:\n"
+                 + err.decode(errors="replace")[-3000:])
+        rec = json.loads(js.read_text())
+    whole = np.concatenate(whole)
+    if audio != whole.tobytes() or len(whole) < 0.95 * FM_SECONDS * 44100:
+        fail(f"leanmlmrx: {len(audio)} audio bytes, not the in-process "
+             f"run's {len(whole)}")
+    au = whole.astype(np.float64)
+    seg = au[len(au) // 8:]
+    sp = np.abs(np.fft.rfft(seg * np.hanning(len(seg))))
+    f = np.fft.rfftfreq(len(seg), 1 / 44100)
+    floor = float(np.median(sp))
+    mix = {}
+    for tone in FM_TONES:
+        near = np.abs(f - tone) < 50
+        wide = np.abs(f - tone) < 150
+        peak = float(f[wide][np.argmax(sp[wide])])
+        mix[tone] = dict(level=float(sp[near].max()) / floor, peak_hz=peak)
+    res = dict(channels=len(chans), frames=frames, signal_s=FM_SECONDS,
+               wall_s=wall, x_real_time=FM_SECONDS / wall,
+               channelize_ms=chz_ms, host_ms={k: v * 1e3
+                                              for k, v in host.items()},
+               tones_hz=tones, dead_mean_abs=dead_mean,
+               card_vs_cpu_differ=int((diff > 0).sum()),
+               cli=dict(wall_s=cli_wall, main_s=rec["main_s"],
+                        x_real_time_wall=FM_SECONDS / cli_wall,
+                        x_real_time_main=FM_SECONDS / rec["main_s"],
+                        audio_samples=len(au), mix=mix))
+    print(f"[fm] {len(chans)} channels, {frames} frames of N=64 per s: "
+          f"in process {wall:.3f} s for {FM_SECONDS} s "
+          f"({res['x_real_time']:.3f}x real time): channelize {chz_ms:.1f} "
+          f"ms on the card (CUDA events), host: s16 conversion "
+          f"{host['convert'] * 1e3:.1f} ms, process() "
+          f"{host['process'] * 1e3:.1f} ms; leanmlmrx child wall "
+          f"{cli_wall:.2f} s ({FM_SECONDS / cli_wall:.3f}x; main "
+          f"{rec['main_s']:.2f} s, {FM_SECONDS / rec['main_s']:.3f}x); "
+          f"tones {tones}; mix levels "
+          f"{ {t: round(v['level'], 1) for t, v in mix.items()} }; dead "
+          f"channel {dead_mean:.3f}; card vs CPU: {(diff > 0).sum()} of "
+          f"{len(diff)} audio samples differ (max {diff.max()})")
+    return res
+
 
 def max_sm_clock_hz() -> float:
     r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
@@ -3265,6 +3866,11 @@ def main() -> int:
     gen8 = torch.Generator(device=dev)
     gen8.manual_seed(SEED_8)
     s8_err, s8_plain = check_slice8(dev, gen8)
+    # Slice 9's kernel check (scan_demod's per-channel omega), from its own
+    # generator, which its FM stimulus then draws from.
+    gen9 = torch.Generator(device=dev)
+    gen9.manual_seed(SEED_9)
+    pc_err, pc_plain = check_scan_per_channel(dev, gen9)
 
     # Phase 4: the fleet at each rate, sequential (segments=1) and
     # segmented (segments=8), on one stimulus per rate; at rate 1/2 also
@@ -3336,6 +3942,11 @@ def main() -> int:
                for p in SC_PATHS_8]
     item24 = brickwall(dev)
     ftimes = fir_times(dev, gen)
+    # Slice 9: the device modulator, the candidate scan (in process and
+    # leansdrscan --device), the FM receiver (leanmlmrx), from SEED_9.
+    tx = tx_path(dev)
+    scan9 = scan_path(dev, np.random.default_rng(SEED_9), s_chain, clock)
+    fm = fm_path(dev, gen9)
     # Each path's own count (zeroed just before it, read just after).
     by_path = {"fleet 1/2": launches}
     by_path.update({f"fleet {r}": p["launches"] for r, p in punctured.items()})
@@ -3348,6 +3959,8 @@ def main() -> int:
     by_path.update({r["path"]: r["launches"]
                     for r in single + [awgn_off, awgn, hdlc] + single8})
     by_path["pipe (leandvb child)"] = pipe["launches"]
+    by_path["scan (CandidateScanReceiver)"] = scan9["launches"]
+    by_path["leansdrscan --device (child)"] = scan9["cli"]["launches"]
     resample = next(r for r in single if r["path"] == "resample")
     hs_run = next(r for r in single if r["path"] == "hs")
 
@@ -3481,6 +4094,9 @@ def main() -> int:
          "library_ms_one_buffer": fft["library_ms_one_buffer"],
          "plain_shape": fft["shape"]},
         {"name": "scan_demod", "route": "cuda",
+         # launches_by_path: the static-omega launches (the per-channel
+         # mode's are in its own row).
+         "counter": lambda c: c["scan_demod"] - c[SCAN_PC],
          "source": "leansdr_tpu_torch/csrc/scan_demod.cu",
          "replaces": "leansdr_tpu/dsp/receiver.py:177 (run_chunks_impl, a "
                      "lax.scan: no Pallas kernel)",
@@ -3526,9 +4142,30 @@ def main() -> int:
          "cycles_per_sample": stimes["hs 1.2"]["cycles_per_step"],
          "omega_2": {f: stimes["hs"][f] for f in (
              "ms", "chain_bound_ms", "cycles_per_step", "shape")}},
+        {"name": SCAN_PC, "route": "cuda",
+         "source": "leansdr_tpu_torch/csrc/scan_demod.cu",
+         "replaces": "leansdr_tpu/dsp/receiver.py:177 (run_chunks_impl "
+                     "with omega_per_channel, :204-213, :400-402; a "
+                     "lax.scan: no Pallas kernel)",
+         "launches": scan9["launches"][SCAN_PC],
+         "launches_path": "scan (CandidateScanReceiver, 4 SR x 5 CR)",
+         "max_abs_err": max(pc_err, scan9["kernel"]["err"]),
+         "ms": scan9["kernel"]["ms"],
+         "plain_ms": pc_plain[("linear", False, 4)],
+         "plain_shape": f"C=4 nsamp={SCAN_CHUNKS * 128} linear computed",
+         "plain_ms_by_case": {str(k): v for k, v in pc_plain.items()},
+         "plain_ms_scan_launches": scan9["kernel"]["plain"],
+         "bound_ms": scan9["kernel"]["bound"][0],
+         "bound_by": scan9["kernel"]["bound"][1], "library_ms": None,
+         "shape": scan9["kernel"]["shape"],
+         "chain_bound_ms": scan9["kernel"]["chain_bound_ms"],
+         "chain_bound_ms_l2": scan9["kernel"]["chain_bound_ms_l2"],
+         "emitted": scan9["kernel"]["emitted"],
+         "focused": scan9["kernel"]["focused"]},
     ]
     for k in kernels:
-        k["launches_by_path"] = {p: c[k["name"]] for p, c in by_path.items()}
+        count = k.pop("counter", lambda c, name=k["name"]: c[name])
+        k["launches_by_path"] = {p: count(c) for p, c in by_path.items()}
     hard_out = {r: dict(launches=p["launches"], stages_ms=p["stages"],
                         chain_msamples_per_s=p["rate"],
                         chunk_ms=p["chunk_ms"], demod_checked=p["checked"],
@@ -3550,6 +4187,7 @@ def main() -> int:
                       "hdlc": hdlc, "fleet_slice8": fleet8,
                       "single_carrier_slice8": single8,
                       "slice8_checks_plain_ms": s8_plain,
+                      "tx": tx, "scan": scan9, "fm": fm,
                       "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -37,6 +37,15 @@
 // is made; the chunk's measurements (last AGC'd sample, freq, ss, mer,
 // nmeas) leave once per chunk.
 //
+// Per-channel omega (the candidate scan, JAX's omega_per_channel: one
+// symbol rate per channel): the loop constants that follow omega (omega,
+// freq_beta, min_freqw, max_freqw and the clamp's midpoint) come from a
+// [5, C] float plane instead of the scalars in ScanArgs. The block loads
+// its channel's five values once, into the registers the scalars would
+// be read into, so nothing is added to the serial chain; a null plane
+// (every other caller) takes the scalars, and those instances compute
+// what they computed before, bit for bit.
+//
 // The rrc sampler: the channel's shifted coefficients live in shared
 // memory (read in from the state plane at launch and written back at the
 // end), re-shifted once per ncoeffs*16 samples (sdr.h:667-682). The CLI's
@@ -220,7 +229,8 @@ scan_kernel(const ScanArgs A, const float2* __restrict__ trig,
             const unsigned char* __restrict__ lut_sym,
             const short* __restrict__ lut_phase,
             const float* __restrict__ sym3, const float* __restrict__ coeffs,
-            const float2* __restrict__ x, const float* __restrict__ fst_in,
+            const float* __restrict__ chan, const float2* __restrict__ x,
+            const float* __restrict__ fst_in,
             float* __restrict__ fst_out, const int* __restrict__ ist_in,
             int* __restrict__ ist_out, float2* __restrict__ shifted,
             int32_t* __restrict__ out, float* __restrict__ meta,
@@ -258,6 +268,18 @@ scan_kernel(const ScanArgs A, const float2* __restrict__ trig,
   const float* sym_re = tab;
   const float* sym_im = tab + A.nsym;
   const float* sym_phase = tab + 2 * A.nsym;
+  // The loop constants that follow omega: the scalars, or this channel's
+  // column of the per-channel plane.
+  float omega = A.omega, freq_beta = A.freq_beta;
+  float min_freqw = A.min_freqw, max_freqw = A.max_freqw;
+  float mid_freqw = A.mid_freqw;
+  if (chan != nullptr) {
+    omega = chan[c];
+    freq_beta = chan[C + c];
+    min_freqw = chan[2 * C + c];
+    max_freqw = chan[3 * C + c];
+    mid_freqw = chan[4 * C + c];
+  }
 
   for (int ck = 0; ck < nchunks; ++ck) {
     const int base = ck * CHUNK;
@@ -387,13 +409,13 @@ scan_kernel(const ScanArgs A, const float2* __restrict__ trig,
 
         // PLL (sdr.h:813-815)
         const float phase_u = phase + perr_f * A.freq_alpha;
-        const float freqw_u = freqw + perr_f * A.freq_beta;
+        const float freqw_u = freqw + perr_f * freq_beta;
         // modified M&M (sdr.h:817-840)
         const float muerr = ((s_re - p1r) * c0r + (s_im - p1i) * c0i) -
                             ((cpt_re - c1r) * p0r + (cpt_im - c1i) * p0i);
         const float mucorr =
             fminf(fmaxf(muerr * A.gain_mu, -A.max_mucorr), A.max_mucorr);
-        mu = mu + mucorr + A.omega;
+        mu = mu + mucorr + omega;
         phase = phase_u;
         freqw = freqw_u;
         p2r = p1r; p2i = p1i; p1r = p0r; p1i = p0i; p0r = s_re; p0i = s_im;
@@ -430,8 +452,8 @@ scan_kernel(const ScanArgs A, const float2* __restrict__ trig,
       est_sp = sig_power * A.kest + est_sp * A.one_minus_kest;
       est_ep = ev_power * A.kest + est_ep * A.one_minus_kest;
     }
-    if (!A.allow_drift && (freqw < A.min_freqw || freqw > A.max_freqw))
-      freqw = A.mid_freqw;
+    if (!A.allow_drift && (freqw < min_freqw || freqw > max_freqw))
+      freqw = mid_freqw;
     meas_count += CHUNK;
     const int nm = meas_count / A.meas_decimation;
     meas_count = meas_count % A.meas_decimation;
@@ -463,10 +485,10 @@ template <int SAMPLER, bool EXACT, int NT = 0, int SUB = 0,
 cudaError_t launch(const ScanArgs* a, size_t smem, cudaStream_t stream,
                    const void* trig, const void* lut_cost,
                    const void* lut_sym, const void* lut_phase,
-                   const void* sym3, const void* coeffs, const void* x,
-                   const void* fst_in, void* fst_out, const void* ist_in,
-                   void* ist_out, void* shifted, void* out, void* meta,
-                   void* nmeas, int C, int nsamp) {
+                   const void* sym3, const void* coeffs, const void* chan,
+                   const void* x, const void* fst_in, void* fst_out,
+                   const void* ist_in, void* ist_out, void* shifted,
+                   void* out, void* meta, void* nmeas, int C, int nsamp) {
   auto kernel = scan_kernel<SAMPLER, EXACT, NT, SUB, TAPS_SHARED>;
   int dev = 0, sms = 1, sm_smem = 1;
   cudaError_t err = cudaGetDevice(&dev);
@@ -493,7 +515,8 @@ cudaError_t launch(const ScanArgs* a, size_t smem, cudaStream_t stream,
   kernel<<<C, 1, smem, stream>>>(
       *a, (const float2*)trig, (const short*)lut_cost,
       (const unsigned char*)lut_sym, (const short*)lut_phase,
-      (const float*)sym3, (const float*)coeffs, (const float2*)x,
+      (const float*)sym3, (const float*)coeffs, (const float*)chan,
+      (const float2*)x,
       (const float*)fst_in, (float*)fst_out, (const int*)ist_in,
       (int*)ist_out, (float2*)shifted, (int32_t*)out, (float*)meta,
       (int*)nmeas, C, nsamp);
@@ -501,8 +524,8 @@ cudaError_t launch(const ScanArgs* a, size_t smem, cudaStream_t stream,
 }
 
 #define SCAN_ARGS                                                       \
-  a, smem, s, trig, lut_cost, lut_sym, lut_phase, sym3, coeffs, x, fst_in, \
-      fst_out, ist_in, ist_out, shifted, out, meta, nmeas, C, nsamp
+  a, smem, s, trig, lut_cost, lut_sym, lut_phase, sym3, coeffs, chan, x, \
+      fst_in, fst_out, ist_in, ist_out, shifted, out, meta, nmeas, C, nsamp
 
 // The rrc instances of one decision mode: the taps in shared memory for
 // the CLI's geometries (16 taps in steps of 32 at 4 Msps, 10 in steps of
@@ -511,10 +534,11 @@ template <bool EXACT>
 cudaError_t launch_rrc(const ScanArgs* a, size_t smem, cudaStream_t s,
                        const void* trig, const void* lut_cost,
                        const void* lut_sym, const void* lut_phase,
-                       const void* sym3, const void* coeffs, const void* x,
-                       const void* fst_in, void* fst_out, const void* ist_in,
-                       void* ist_out, void* shifted, void* out, void* meta,
-                       void* nmeas, int C, int nsamp) {
+                       const void* sym3, const void* coeffs,
+                       const void* chan, const void* x, const void* fst_in,
+                       void* fst_out, const void* ist_in, void* ist_out,
+                       void* shifted, void* out, void* meta, void* nmeas,
+                       int C, int nsamp) {
   if (!a->taps_shared) return launch<RRC, EXACT, 0, 0, false>(SCAN_ARGS);
   if (a->ntaps == 16 && a->sub == 32)
     return launch<RRC, EXACT, 16, 32, true>(SCAN_ARGS);
@@ -527,10 +551,13 @@ cudaError_t launch_rrc(const ScanArgs* a, size_t smem, cudaStream_t s,
 
 // shifted: the rrc state plane [ncoeffs, C] float2, read at launch and
 // written at the end (updated in place by the device-memory instance).
+// chan: null, or the per-channel plane [5, C] float (omega, freq_beta,
+// min_freqw, max_freqw, mid_freqw), read at launch.
 extern "C" int scan_demod_launch(const ScanArgs* a, const void* trig,
                                  const void* lut_cost, const void* lut_sym,
                                  const void* lut_phase, const void* sym3,
-                                 const void* coeffs, const void* x,
+                                 const void* coeffs, const void* chan,
+                                 const void* x,
                                  const void* fst_in, void* fst_out,
                                  const void* ist_in, void* ist_out,
                                  void* shifted, void* out, void* meta,

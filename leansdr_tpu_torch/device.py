@@ -17,6 +17,7 @@ ctypes. A failed build or launch raises; nothing falls back to the plain
 version.
 """
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -63,6 +64,18 @@ def resolve_device(device=None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+@contextlib.contextmanager
+def fp32_matmul():
+    """Float32 matrix products in full float32 (TF32 off) inside the
+    block, the previous setting restored after it."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def nvcc_path() -> str:

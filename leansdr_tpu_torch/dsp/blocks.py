@@ -1,12 +1,16 @@
 """Host NumPy blocks of the single-carrier preprocessing chain (copies
-of leansdr_tpu/dsp/blocks.py `decimate` and `Rotator`).
+of leansdr_tpu/dsp/blocks.py `decimate` and `Rotator`), and the
+first-order recurrence of the FM receiver.
 
   decimate  decimator (reference generic.h:247-267)
   Rotator   rotator (reference sdr.h:1228-1261): fixed frequency shift
             through the 65536-entry trig16 table
+  _first_order_scan  y_n = (1-k) y_{n-1} + k x_n as an associative scan
+            (torch ops, on the tensors' device)
 """
 
 import numpy as np
+import torch
 
 from .math_utils import trig16_table
 
@@ -32,3 +36,49 @@ class Rotator:
         self.index = (self.index + n) & 0xFFFF
         return ((x.real * c - x.imag * s)
                 + 1j * (x.real * s + x.imag * c)).astype(np.complex64)
+
+
+def _associative_scan(combine, elems: list) -> list:
+    """Inclusive scan of `elems` (tensors with a common axis 0) under the
+    associative `combine`, by the odd/even recursion of
+    jax.lax.associative_scan: combine adjacent pairs, scan those
+    recursively (the odd outputs), combine each with the next even
+    input (the even outputs), interleave. Each output is combined in the
+    same order as JAX's, so both round alike."""
+    n = elems[0].shape[0]
+    if n < 2:
+        return elems
+    reduced = combine([e[0:-1:2] for e in elems], [e[1::2] for e in elems])
+    odd = _associative_scan(combine, reduced)
+    if n % 2 == 0:
+        even = combine([e[:-1] for e in odd], [e[2::2] for e in elems])
+    else:
+        even = combine(odd, [e[2::2] for e in elems])
+    even = [torch.cat([e[:1], r]) for e, r in zip(elems, even)]
+    out = []
+    for e, o in zip(even, odd):
+        # Interleave: e0, o0, e1, o1, ... (e has one more when n is odd).
+        # JAX interleaves by adding the two zero-padded halves, so every
+        # output is x + 0 (a -0.0 comes out +0.0); so here.
+        m = o.shape[0]
+        body = torch.stack([e[:m], o], 1).reshape(2 * m, *o.shape[1:])
+        out.append(torch.cat([body, e[m:]]) + 0.0)
+    return out
+
+
+def _first_order_scan(bb: torch.Tensor, y0, k: float) -> torch.Tensor:
+    """y_n = (1-k)*y_{n-1} + k*bb_n over axis 0 (the counterpart of
+    leansdr_tpu/dsp/blocks.py:93-104, which runs jax.lax.associative_scan):
+    the pairs (a, b) = (1-k, k*bb) combined as (al*ar, bl*ar + br), then
+    a*y0 + b, every operation in float32 in JAX's order. y0 broadcasts
+    against bb[0]."""
+    a = torch.full_like(bb, float(np.float32(1 - k)))
+    b = bb * float(np.float32(k))
+
+    def combine(lt, rt):
+        al, bl = lt
+        ar, br = rt
+        return [al * ar, bl * ar + br]
+
+    a_out, b_out = _associative_scan(combine, [a, b])
+    return a_out * y0 + b_out

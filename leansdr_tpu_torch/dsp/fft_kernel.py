@@ -80,9 +80,7 @@ def fft4096_ref(xr: torch.Tensor, xi: torch.Tensor):
     dev = xr.device
     w = torch.from_numpy(_packed_dft(N1)).to(dev)
     twr, twi = (torch.from_numpy(t).to(dev) for t in _twiddle_parts())
-    tf32 = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
+    with _dev.fp32_matmul():
         x3 = torch.cat([xr.reshape(B, N1, N1), xi.reshape(B, N1, N1)],
                        dim=1)                          # [B, 2a, b]
         d = x3.transpose(1, 2) @ w                     # [B, b, 2k1]
@@ -90,8 +88,6 @@ def fft4096_ref(xr: torch.Tensor, xi: torch.Tensor):
         b3 = torch.cat([dr * twr - di * twi, dr * twi + di * twr],
                        dim=1)                          # [B, 2b, k1]
         y = w.T @ b3                                   # [B, 2q, k1]
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = tf32
     return (y[:, :N1].reshape(B, N).contiguous(),
             y[:, N1:].reshape(B, N).contiguous())
 

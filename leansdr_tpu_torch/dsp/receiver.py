@@ -68,23 +68,47 @@ class ReceiverParams:
         return (freqw0 - half, freqw0 + half)
 
 
+# The state entries of omega_per_channel mode (the candidate scan: one
+# symbol rate per channel), in the order of the kernel's [5, C] plane,
+# whose fifth row is the clamp's midpoint.
+PER_CHANNEL = ("omega", "freq_beta", "min_freqw", "max_freqw")
+
+
+def per_channel_omega_state(params: ReceiverParams, omegas, device) -> dict:
+    """State entries for omega_per_channel mode: one candidate symbol
+    rate per channel (freq_beta and the freq limits follow omega), in
+    float32 NumPy arithmetic on float32 omegas, as JAX's
+    per_channel_omega_state rounds them (not once from double, as
+    scan_constants does for the static mode)."""
+    omegas = np.asarray(omegas, np.float32)
+    n = {2: 2, 4: 4, 8: 8, 16: 12, 32: 16}.get(params.nsymbols, 4)
+    freqw0 = params.freq0 * 65536
+    half = 65536 / omegas / n / 2
+    planes = (omegas,
+              (0.0012 / omegas * params.pll_adjustment).astype(np.float32),
+              (freqw0 - half).astype(np.float32),
+              (freqw0 + half).astype(np.float32))
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in zip(PER_CHANNEL, planes)}
+
+
 def init_state(params: ReceiverParams, nchan: int, device) -> dict:
     """Initial per-channel loop state (mirrors sdr.h:724-736) as tensors
     on `device`; with the rrc sampler also the fir_sampler's coefficient
     phase and shifted coefficients (rrc_phase 0: the first chunk shifts
-    them, sdr.h:640, 667-675)."""
-    if params.omega_per_channel:
-        raise NotImplementedError(
-            "per-channel omega (the candidate scan) is ROADMAP queue 1 "
-            "item 14")
+    them, sdr.h:640, 667-675); with omega_per_channel the PER_CHANNEL
+    entries, every channel at params.omega."""
     C = nchan
     f32 = dict(dtype=torch.float32, device=device)
     extra = {}
+    if params.omega_per_channel:
+        extra = per_channel_omega_state(
+            params, np.full(C, params.omega, np.float32), device)
     if params.sampler == "rrc":
-        extra = {"rrc_phase": torch.zeros(C, dtype=torch.int32,
-                                          device=device),
-                 "rrc_shifted": torch.zeros((C, len(params.rrc_coeffs), 2),
-                                            **f32)}
+        extra |= {"rrc_phase": torch.zeros(C, dtype=torch.int32,
+                                           device=device),
+                  "rrc_shifted": torch.zeros((C, len(params.rrc_coeffs), 2),
+                                             **f32)}
     return extra | {
         "mu": torch.zeros(C, **f32),
         "phase": torch.zeros(C, **f32),
@@ -230,6 +254,15 @@ def run_chunks_ref(params: ReceiverParams, tables: dict, state: dict,
                              device=dev)
         tap_offs = torch.arange(ntaps, device=dev) * sub
     st = {k: v.clone() for k, v in state.items()}
+    omega, freq_beta = K_["omega"], K_["freq_beta"]
+    min_freqw, max_freqw = K_["min_freqw"], K_["max_freqw"]
+    mid_freqw = K_["mid_freqw"]
+    if params.omega_per_channel:
+        # The JAX scan's per-channel mode: the four state entries, and
+        # the clamp's midpoint (min + max) / 2 in float32 from them.
+        omega, freq_beta, min_freqw, max_freqw = (
+            st[k] for k in PER_CHANNEL)
+        mid_freqw = (min_freqw + max_freqw) / 2
     mu, phase, freqw = st["mu"], st["phase"], st["freqw"]
     agc_gain = st["agc_gain"]
     hp = [st["hist_p"][:, k, j] for k in range(3) for j in range(2)]
@@ -332,7 +365,7 @@ def run_chunks_ref(params: ReceiverParams, tables: dict, state: dict,
 
             # PLL (sdr.h:813-815)
             phase_u = phase + perr_f * K_["freq_alpha"]
-            freqw_u = freqw + perr_f * K_["freq_beta"]
+            freqw_u = freqw + perr_f * freq_beta
             # modified M&M (sdr.h:817-840)
             p0r, p0i, p1r, p1i, p2r, p2i = hp
             c0r, c0i, c1r, c1i, c2r, c2i = hc
@@ -340,7 +373,7 @@ def run_chunks_ref(params: ReceiverParams, tables: dict, state: dict,
                      - ((cpt_re - c1r) * p0r + (cpt_im - c1i) * p0i))
             mucorr = torch.clamp(muerr * K_["gain_mu"], -K_["max_mucorr"],
                                  K_["max_mucorr"])
-            mu_u = mu + mucorr + K_["omega"]
+            mu_u = mu + mucorr + omega
 
             def upd(new, old):
                 return torch.where(emit, new, old)
@@ -382,9 +415,8 @@ def run_chunks_ref(params: ReceiverParams, tables: dict, state: dict,
         est_ep = torch.where(any_sym, ev_power * kest + st["est_ep"] * kest1,
                              st["est_ep"])
         if not params.allow_drift:
-            bad = (freqw < K_["min_freqw"]) | (freqw > K_["max_freqw"])
-            freqw = torch.where(bad, torch.full_like(freqw, K_["mid_freqw"]),
-                                freqw)
+            bad = (freqw < min_freqw) | (freqw > max_freqw)
+            freqw = torch.where(bad, mid_freqw, freqw)
         mc = st["meas_count"] + CHUNK
         nmeas[:, k] = mc // params.meas_decimation
         st["meas_count"] = mc % params.meas_decimation
@@ -536,7 +568,7 @@ def _kernel():
         lib = _dev.load("scan_demod")
         lib.scan_demod_launch.restype = ctypes.c_int
         lib.scan_demod_launch.argtypes = (
-            [ctypes.POINTER(_ScanArgs)] + [ctypes.c_void_p] * 15
+            [ctypes.POINTER(_ScanArgs)] + [ctypes.c_void_p] * 16
             + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         _lib = lib
     return _lib
@@ -550,7 +582,9 @@ def run_chunks(params: ReceiverParams, tables: dict, state: dict,
     CPU tensors run `run_chunks_ref`; CUDA tensors launch
     csrc/scan_demod.cu (one launch for the C channels x K chunks; with
     the rrc sampler its shared-memory instance where the taps fit, else
-    its device-memory instance)."""
+    its device-memory instance; with omega_per_channel the [5, C] plane
+    of the PER_CHANNEL entries and their midpoint, which each block
+    loads once into registers)."""
     if x.device.type == "cpu":
         return run_chunks_ref(params, tables, state, x)
     C, nsamp, K = _geometry(params, x)
@@ -580,6 +614,13 @@ def run_chunks(params: ReceiverParams, tables: dict, state: dict,
             memory_format=torch.contiguous_format)
     else:
         shifted = torch.empty(0, dtype=torch.float32, device=dev)
+    chan = torch.empty(0, dtype=torch.float32, device=dev)
+    if params.omega_per_channel:
+        mn, mx = state["min_freqw"], state["max_freqw"]
+        chan = torch.stack([state[k] for k in PER_CHANNEL]
+                           + [(mn + mx) / 2]).contiguous()
+        _dev.check_tensor("per-channel omega", chan, torch.float32, (5, C),
+                          dev)
     fp_out, ip_out = torch.empty_like(fp), torch.empty_like(ip)
     words = torch.empty((nsamp, C), dtype=torch.int32, device=dev)
     meta = torch.empty((5, K, C), dtype=torch.float32, device=dev)
@@ -588,7 +629,8 @@ def run_chunks(params: ReceiverParams, tables: dict, state: dict,
         ctypes.byref(args), tables["trig"].data_ptr(),
         tables["lut_cost"].data_ptr(), tables["lut_symbol"].data_ptr(),
         tables["lut_phase"].data_ptr(), tables["sym3"].data_ptr(),
-        coeffs.data_ptr(), xt.data_ptr(), fp.data_ptr(), fp_out.data_ptr(),
+        coeffs.data_ptr(), chan.data_ptr() if chan.numel() else None,
+        xt.data_ptr(), fp.data_ptr(), fp_out.data_ptr(),
         ip.data_ptr(), ip_out.data_ptr(), shifted.data_ptr(),
         words.data_ptr(), meta.data_ptr(), nmeas.data_ptr(), C, nsamp,
         _dev.stream_handle(x))
@@ -596,15 +638,21 @@ def run_chunks(params: ReceiverParams, tables: dict, state: dict,
     _SCAN.launches += 1
     if rrc and not args.taps_shared:
         _SCAN.launches_device_taps += 1
+    if params.omega_per_channel:
+        _SCAN.launches_per_channel += 1
     st = unpack_state(fp_out, ip_out,
                       shifted.transpose(0, 1) if rrc else None)
+    if params.omega_per_channel:
+        st |= {k: state[k] for k in PER_CHANNEL}
     return st, _outputs(words.T, meta, nmeas)
 
 
 # Launch count of the kernel (a plain integer; increments only where the
 # kernel launches), bound through an alias so a caller that rebinds the
 # module attribute still counts; `launches_device_taps` counts those of
-# them that ran the rrc device-memory instance (taps_in_shared False).
+# them that ran the rrc device-memory instance (taps_in_shared False),
+# `launches_per_channel` those in the per-channel-omega mode.
 run_chunks.launches = 0
 run_chunks.launches_device_taps = 0
+run_chunks.launches_per_channel = 0
 _SCAN = run_chunks

@@ -7,7 +7,8 @@ alpha=2, generator G(X) = prod(X - alpha^i) for i in 0..15, syndromes by
 Horner evaluation (or, for large batches, as one GF(2)-linear float32
 matmul), Berlekamp-Massey + Forney with exhaustive root search, up to 8
 byte errors corrected per packet. (The fleet's RS decode runs in
-native/byte_backend.cc.)
+native/byte_backend.cc.) `gf2_encode_matrix` is the encoder as a GF(2)
+matrix, for the device modulator's matmul.
 """
 
 from functools import lru_cache
@@ -261,3 +262,16 @@ def gf2_syndrome_matrix() -> np.ndarray:
             s = gf_mul(v, c[byte])          # [16]
             rows.append(np.unpackbits(s))
     return np.array(rows, dtype=np.int8)
+
+
+@lru_cache(maxsize=None)
+def gf2_encode_matrix() -> np.ndarray:
+    """[188*8, 16*8] GF(2) matrix: parity bits = msg bits @ M (mod 2), the
+    device modulator's RS encode (the matrix of leansdr_tpu/fec/rs.py:
+    258-268). Row byte*8 + bit is the parity of the message with that one
+    bit set; the 1504 messages go through `encode` as one batch."""
+    msgs = np.zeros((MSG_SIZE * 8, MSG_SIZE), dtype=np.uint8)
+    k = np.arange(MSG_SIZE * 8)
+    msgs[k, k // 8] = (1 << (7 - k % 8)).astype(np.uint8)
+    parity = encode(msgs)[:, MSG_SIZE:]
+    return np.unpackbits(parity, axis=1).astype(np.int8)

@@ -296,7 +296,45 @@ class _DeconvolSyncHS:
         return np.concatenate(out) if out else np.empty(0, np.uint8)
 
 
-class DvbsReceiver:
+class TsStages:
+    """The TS half of one carrier's host byte chain: MPEG sync ->
+    deinterleave -> RS -> derandomize (dvb.h), on the owner's `mpeg`,
+    `byte_backlog`, `mpegbyte_backlog` and `derand_pos`. DvbsReceiver and
+    the candidate scan's per-candidate chains (multi_rx._ByteChain) share
+    it."""
+
+    def _ts_init(self, mpeg: MpegSync):
+        self.mpeg = mpeg
+        self.byte_backlog = np.empty(0, np.uint8)       # deconv -> mpeg_sync
+        self.mpegbyte_backlog = np.empty(0, np.uint8)   # mpeg -> deinterleave
+        self.derand_pos = 0
+
+    def _ts_stages(self, bytes_out: np.ndarray) -> tuple:
+        """New bytes -> (the TS packets [n, 188] they end, RS's failed
+        mask and corrected bits per RS packet decoded; both None when no
+        RS packet was complete)."""
+        if len(bytes_out):
+            self.byte_backlog = np.concatenate([self.byte_backlog, bytes_out])
+        pkts, consumed = self.mpeg.process(self.byte_backlog)
+        self.byte_backlog = self.byte_backlog[consumed:]
+        if len(pkts):
+            self.mpegbyte_backlog = np.concatenate(
+                [self.mpegbyte_backlog, pkts.reshape(-1)])
+        rspkts, self.mpegbyte_backlog = interleave.deinterleave(
+            self.mpegbyte_backlog)
+        if not len(rspkts):
+            return np.empty((0, TS_SIZE), np.uint8), None, None
+        msgs, failed, bits = rs.decode(rspkts)
+        # Corrupted packets keep flowing with a marked sync byte so the
+        # derandomizer keeps phase (dvb.h:1043-1046).
+        msgs = msgs.copy()
+        msgs[failed, 0] ^= prbs.MPEG_SYNC_CORRUPTED
+        out, good, self.derand_pos = prbs.derandomize_np(msgs,
+                                                         self.derand_pos)
+        return out[good], failed, bits
+
+
+class DvbsReceiver(TsStages):
     """Single-carrier streaming receiver on the device kernels. Entry
     points run on `device` (default CUDA; CUDA without a GPU raises)."""
 
@@ -412,8 +450,8 @@ class DvbsReceiver:
             self.hs_state = receiver_hs.init_state(self.hs_params, 1,
                                                    self.device)
             self.deconv = _DeconvolSyncHS(cfg.fastlock)
-            self.mpeg = MpegSync(fastlock=True,
-                                 resync_period=1 if cfg.fastlock else 32)
+            mpeg = MpegSync(fastlock=True,
+                            resync_period=1 if cfg.fastlock else 32)
         else:
             if cfg.viterbi:
                 # FEC23 -> FEC46 for QPSK and 64APSKe (leandvb.cc:533-537)
@@ -424,7 +462,8 @@ class DvbsReceiver:
                 self.deconv = _DeconvolSync(fleet_rate(rate), cfg.fastlock,
                                             debug=cfg.debug)
                 on_next = self.deconv.next_sync
-            self.mpeg = MpegSync(fastlock=cfg.fastlock, on_next_sync=on_next)
+            mpeg = MpegSync(fastlock=cfg.fastlock, on_next_sync=on_next)
+        self._ts_init(mpeg)
         if cfg.hdlc:
             # ETR192 descrambler state (shift register, counter) and the
             # HDLC deframer; on the --hs path too, whose bytes reach the
@@ -437,9 +476,6 @@ class DvbsReceiver:
             self.hdlc_frames = np.empty(0, np.uint8)
 
         self.sample_backlog = np.empty((0, 2), np.float32)
-        self.byte_backlog = np.empty(0, np.uint8)       # deconv -> mpeg_sync
-        self.mpegbyte_backlog = np.empty(0, np.uint8)   # mpeg -> deinterleave
-        self.derand_pos = 0
         self.first_derand = True
         # VBER window ~ twice/second, at least 50000 bits (leandvb.cc:585)
         self.vber_est = RateEstimator(max(int(cfg.Fm / 2), 50000))
@@ -665,35 +701,20 @@ class DvbsReceiver:
                 self.hdlc_frames = np.concatenate(
                     [self.hdlc_frames, self.hdlc_sync.process(descr)])
             return np.empty((0, TS_SIZE), np.uint8)
-        if len(bytes_out):
-            self.byte_backlog = np.concatenate([self.byte_backlog, bytes_out])
-        pkts, consumed = self.mpeg.process(self.byte_backlog)
-        self.byte_backlog = self.byte_backlog[consumed:]
-        if len(pkts):
-            self.mpegbyte_backlog = np.concatenate(
-                [self.mpegbyte_backlog, pkts.reshape(-1)])
-        rspkts, self.mpegbyte_backlog = interleave.deinterleave(
-            self.mpegbyte_backlog)
-        if not len(rspkts):
-            return np.empty((0, TS_SIZE), np.uint8)
-        msgs, failed, bits = rs.decode(rspkts)
-        if self.cfg.debug:
-            # Per-packet RS classification glyphs (dvb.h:1029-1038):
-            # '_' clean, '.' corrected, '!' still corrupted.
-            sys.stderr.write("".join(
-                "!" if f else ("." if b else "_")
-                for f, b in zip(failed, bits)))
-            sys.stderr.flush()
-        self.vbitcount += rspkts.shape[0] * RS_SIZE * 8
-        self.verrcount += int(bits.sum())
-        self.vber_est.update(int(bits.sum()), rspkts.shape[0] * RS_SIZE * 8)
-        # Corrupted packets keep flowing with a marked sync byte so the
-        # derandomizer keeps phase (dvb.h:1043-1046).
-        msgs = msgs.copy()
-        msgs[failed, 0] ^= prbs.MPEG_SYNC_CORRUPTED
-        out, good, self.derand_pos = prbs.derandomize_np(msgs,
-                                                         self.derand_pos)
-        return out[good]
+        pkts, failed, bits = self._ts_stages(bytes_out)
+        if failed is not None:
+            if self.cfg.debug:
+                # Per-packet RS classification glyphs (dvb.h:1029-1038):
+                # '_' clean, '.' corrected, '!' still corrupted.
+                sys.stderr.write("".join(
+                    "!" if f else ("." if b else "_")
+                    for f, b in zip(failed, bits)))
+                sys.stderr.flush()
+            nbits = len(failed) * RS_SIZE * 8
+            self.vbitcount += nbits
+            self.verrcount += int(bits.sum())
+            self.vber_est.update(int(bits.sum()), nbits)
+        return pkts
 
     @property
     def lock(self) -> bool:

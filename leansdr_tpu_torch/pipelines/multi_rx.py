@@ -63,8 +63,8 @@ from ..fec.viterbi_banked import fleet_rate
 from ..fec.viterbi_device import MultiViterbiSync, decoder
 from ..native import NativeByteBackend
 from ..proto.framing import RS_SIZE, MpegSync
-from .dvbs_rx import (RxConfig, TS_SIZE, rrc_sampler, state_from_numpy,
-                      state_to_numpy)
+from .dvbs_rx import (RxConfig, TS_SIZE, TsStages, _DeconvolSync,
+                      rrc_sampler, state_from_numpy, state_to_numpy)
 
 CHECKPOINT_FORMAT = "leansdr_tpu_torch.multi_rx/1"
 
@@ -417,6 +417,23 @@ def _check_config(cfg: RxConfig, segments, seg_warmup):
                          "(False: computed decisions)")
     if cfg.sampler not in ("nearest", "linear", "rrc"):
         raise ValueError(f"sampler={cfg.sampler!r}: nearest, linear or rrc")
+
+
+class _ByteChain(TsStages):
+    """One candidate's host byte chain: deconv -> MPEG sync -> deinterleave
+    -> RS -> derandomize (a copy of leansdr_tpu/pipelines/multi_rx.py
+    `_ByteChain`), the TS stages DvbsReceiver's (TsStages). The
+    candidate-scan receiver (pipelines/scan_rx.py) keeps one per
+    candidate."""
+
+    def __init__(self, rate: str, fastlock: bool):
+        self.deconv = _DeconvolSync(rate, fastlock)
+        self._ts_init(MpegSync(fastlock=fastlock,
+                               on_next_sync=self.deconv.next_sync))
+
+    def feed(self, syms: np.ndarray) -> np.ndarray:
+        """Hard symbols -> the TS packets [n, 188] they end."""
+        return self._ts_stages(self.deconv.process(syms))[0]
 
 
 class _ByteBackend:

@@ -39,7 +39,13 @@ def test_import_loads_no_jax():
             "leansdr_tpu_torch.apps.leansdrcat",
             "leansdr_tpu_torch.apps.leansdrserv",
             "leansdr_tpu_torch.apps.leandvb_tui",
-            "leansdr_tpu_torch.apps.leaniio"} <= set(_modules())
+            "leansdr_tpu_torch.apps.leaniio",
+            "leansdr_tpu_torch.pipelines.dvbs_tx_device",
+            "leansdr_tpu_torch.pipelines.scan_rx",
+            "leansdr_tpu_torch.pipelines.mlm_rx",
+            "leansdr_tpu_torch.apps.leansdrscan",
+            "leansdr_tpu_torch.apps.leanmlmrx",
+            "leansdr_tpu_torch.dsp.fft"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {list(_modules())!r}:\n"
@@ -179,6 +185,39 @@ def test_leandvb_help_runs_without_jax():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-2000:]
     assert r.stdout.startswith("Usage: leandvb") and "--device" in r.stdout
+
+
+def test_slice9_entry_points_default_to_cuda(monkeypatch):
+    """The device modulator, the candidate scan, the FM receiver and their
+    CLIs default to CUDA and raise without it: `leanmlmrx` without
+    `--device`, and `leansdrscan --device` on a template without a
+    `--device NAME` (its own --device is the scan's boolean flag)."""
+    import io
+    import torch
+    from leansdr_tpu_torch.apps import leanmlmrx, leansdrscan
+    from leansdr_tpu_torch.pipelines.dvbs_tx_device import (DeviceModulator,
+                                                            device_stimulus)
+    from leansdr_tpu_torch.pipelines.mlm_rx import (Channel, MlmConfig,
+                                                    MlmReceiver)
+    from leansdr_tpu_torch.pipelines.scan_rx import CandidateScanReceiver
+    from leansdr_tpu_torch.pipelines.tsgen import generate
+    if torch.cuda.is_available():
+        return
+
+    class Stdin:
+        buffer = io.BytesIO(bytes(4096))
+    monkeypatch.setattr(sys, "stdin", Stdin)
+    monkeypatch.setattr(sys, "stdout", type("Out", (), {
+        "buffer": io.BytesIO()}))
+    for make in (lambda: DeviceModulator(),
+                 lambda: device_stimulus(generate(12)),
+                 lambda: CandidateScanReceiver.grid(4e6, [2e6], ["1/2"]),
+                 lambda: MlmReceiver(MlmConfig(channels=[Channel(98e6)])),
+                 lambda: leanmlmrx.main(["98.4"]),
+                 lambda: leansdrscan.main(["--device", "leandvb", "--sr",
+                                           "1e6,2e6"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
 
 
 def test_single_carrier_entry_points_default_to_cuda():
