@@ -29,8 +29,12 @@ slice 9's device modulator (DeviceModulator at 1/2, 3/4, 7/8 and 8PSK
 5 CR grid on one 2 Msym/s rate-3/4 stream, in process and through
 `leansdrscan --device`, on scan_demod's per-channel-omega mode) and the
 FM multi-channel receiver (`leanmlmrx` over 201 channels at 25.6 Msps);
-and checks that every carrier locks and decodes the TS packets (or
-HDLC frames) that were sent.
+slice 10's torch.distributed modules (parallel/mesh.py, halo.py,
+timeshard.py at one NCCL rank and at two gloo ranks sharing the card,
+and `python -m leansdr_tpu_torch.parallel.multihost --world 2 --backend
+gloo`) and the pinned-buffer ingest (util/ingest.DeviceFeeder); and
+checks that every carrier locks and decodes the TS packets (or HDLC
+frames) that were sent.
 
 Phases (any failure exits non-zero):
   1. card name and power limit, versions, kernel build time; dependent
@@ -181,7 +185,19 @@ Phases (any failure exits non-zero):
      each toned channel alone peaking at its tone within 50 Hz, a dead
      channel squelched silent, the card's audio on a prefix equal to a
      CPU run within 1 LSB at under 1 in 10^3 samples; x real time,
-     channelize's and the host stages' ms;
+     channelize's and the host stages' ms; slice 10 (multi_path, from
+     SEED_10): at one NCCL rank the sharded demod step (scan_demod over
+     64 carriers x 2^18, rrc exact) and the sharded FIR (fir over 2^24
+     complex samples) equal to their unsharded runs (and fir_ref); two
+     gloo ranks on the card (`--multi-rank` children): the halo equal to
+     the unsharded FIR and the ring over 2 carriers equal to the
+     unsharded run_chunks in every output and its end state; the
+     multihost launcher's 64-carrier rate-1/2 fleet, 32 carriers per
+     rank, its TS equal to the single-process fleet's fed through
+     DeviceFeeder, which locks every carrier and decodes >= 90% of the
+     packets after lock; DeviceFeeder over 16 chunks of 64 x 2^18
+     checked on the card, the consumer's wait per chunk, and the
+     host-to-device rate from pinned and from pageable memory;
   5. kernel times at the main path's shapes (the demod also at the
      segmented launches' shapes and at one carrier; the ACS at N=256,
      N=64 and N=4; the banked ACS at every rate's ACQUIRE and TRACK
@@ -251,6 +267,9 @@ SEED_8 = SEED + 8
 # Slice 9 (the device modulator, the candidate scan, the FM receiver)
 # likewise, from SEED + 9.
 SEED_9 = SEED + 9
+# Slice 10 (multi-GPU and host ingest: multi_path) likewise, from
+# SEED + 10.
+SEED_10 = SEED + 10
 # The candidate scan's grid: the reference's 4 SR x 5 CR at 2.4 Msps
 # (SURVEY.md:251, `leansdrscan leandvb --sr a,b,c,d --cr ...`): 20
 # candidates on 4 scan lanes.
@@ -1317,7 +1336,7 @@ def fleet_run(rx, frames, nchunks, tag, steady_from, capture=None,
         frac_ok = n_good / max(n_after, 1)
         frac_span = n_good / span
         worst = min(worst, frac_ok, frac_span)
-        total_good += n_good
+        total_good += int(n_good)
         if gate and (n_good < 100 or frac_ok < 0.9 or frac_span < 0.9):
             fail(f"{tag} channel {c}: {n_good} sent packets decoded of "
                  f"{n_after} after lock, span {span}")
@@ -1668,7 +1687,7 @@ def cli_path(dev, frames):
     for c in range(NCHAN):
         n_after, n_good, span = check_packets(c, pkts[c])
         worst = min(worst, n_good / max(n_after, 1), n_good / span)
-        total_good += n_good
+        total_good += int(n_good)
         if (n_good < CLI_MIN_PACKETS or n_good < 0.9 * n_after
                 or n_good < 0.9 * span):
             fail(f"leandvbfleet channel {c}: {n_good} sent packets decoded "
@@ -2996,6 +3015,18 @@ FM_SQUELCH = 0.8
 FM_SECONDS = 1.0
 FM_PREFIX = 1 << 21
 FM_READ = 1 << 20
+# Slice 10 (multi_path): the sharded FIR over MULTI_HALO complex samples
+# (rrc taps 32/0.25/0.35, tools/dcn_demo.py's); the ring over the first 2
+# carriers in blocks of MULTI_RING_BLOCK samples; the multihost fleet and
+# its single-process twin over MULTI_WINDOWS chunks of CHUNK_SAMPLES;
+# DeviceFeeder over MULTI_FEED chunks of NCHAN x CHUNK_SAMPLES; the host
+# to device rate over MULTI_H2D_REPS copies of one such chunk.
+MULTI_HALO = 1 << 24
+MULTI_RING_BLOCK = 1 << 16
+MULTI_WINDOWS = 4
+MULTI_FEED = 16
+MULTI_H2D_REPS = 10
+MULTI_TIMEOUT_S = 300
 
 
 
@@ -3406,6 +3437,346 @@ def fm_path(dev, gen) -> dict:
           f"{ {t: round(v['level'], 1) for t, v in mix.items()} }; dead "
           f"channel {dead_mean:.3f}; card vs CPU: {(diff > 0).sum()} of "
           f"{len(diff)} audio samples differ (max {diff.max()})")
+    return res
+
+
+def multi_rank_job(r: int, work: str):
+    """A gloo rank of multi_path (`--multi-rank R WORK`), sharing the card
+    with the other rank: the halo at D=2 over its half of the stream and
+    the ring at D=2 over the first 2 carriers, with the kernels' launch
+    counts zeroed just before and read just after; results to
+    WORK/multi_out<R>.pt."""
+    import torch.distributed as dist
+    from leansdr_tpu_torch.dsp import receiver
+    from leansdr_tpu_torch.parallel import group, halo, mesh, timeshard
+    work = Path(work)
+    a = torch.load(work / "multi_in.pt")
+    dev = group.init(r, 2, f"file://{work / 'store'}", "gloo")
+    counted = kernel_wrappers()
+    try:
+        params = receiver.ReceiverParams(**a["params"])
+        tables = {k: v.to(dev) for k, v in a["tables"].items()}
+        state = {k: v[r:r + 1].to(dev) for k, v in a["state"].items()}
+        x = a["x"]
+        b = x.shape[1] // 2
+        xb = x[:, r * b:(r + 1) * b].to(dev)
+        ins = a["ins"][r].to(dev)
+        fir = halo.sharded_fir(a["taps"].numpy())
+        ring = timeshard.ring_stream_demod(params)
+        torch.cuda.synchronize()
+        for fn in counted.values():
+            fn.launches = 0
+        y = fir(xb)
+        st, outs = ring(tables, state, ins)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counted.items()}
+        st = mesh.gather_channels(st)
+        outs = mesh.gather_channels(outs, dim=1)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    torch.save(dict(halo=y.cpu(), state={k: v.cpu() for k, v in st.items()},
+                    outs={k: v.cpu() for k, v in outs.items()},
+                    launches=launches, backend=backend),
+               work / f"multi_out{r}.pt")
+
+
+def _equal_trees(tag, want: dict, got: dict):
+    for k in want:
+        if not torch.equal(want[k], got[k]):
+            fail(f"{tag}: {k} differs in "
+                 f"{int((want[k] != got[k]).sum())} entries")
+
+
+def multi_path(dev, gen, card) -> dict:
+    """Slice 10: the parallel modules and the host ingest on the card.
+
+    1. NCCL at world size 1 (this process): mesh.sharded_demod_step over
+       NCHAN carriers x CHUNK_SAMPLES of the exact-LUT fleet's scan demod
+       (the rrc sampler), equal to the unsharded run_chunks in every
+       output and state plane, its mean MER the outputs' mean; and
+       halo.sharded_fir over MULTI_HALO complex samples, equal to the
+       unsharded fir and to fir_ref.
+    2. Two gloo ranks sharing the card (`--multi-rank` children): the
+       halo at D=2, equal to the unsharded fir; the ring at D=2 over the
+       first 2 carriers (MULTI_RING_BLOCK-sample blocks), equal to the
+       unsharded run_chunks in every output and its end state. Beside
+       them `python -m leansdr_tpu_torch.parallel.multihost --world 2
+       --backend gloo`: the NCHAN-carrier fleet, NCHAN/2 per rank, over
+       MULTI_WINDOWS chunks, each carrier's TS written out.
+    3. The single-process fleet over the same carriers and chunks, fed
+       through DeviceFeeder: every carrier locks and decodes >= 90% of
+       the packets sent after lock, and the ranks' TS equals it.
+    4. DeviceFeeder over MULTI_FEED chunks of NCHAN x CHUNK_SAMPLES, each
+       chunk's contents checked on the card while the fleet runs it; the
+       consumer's wait for each chunk; the host-to-device rate from
+       pinned and from pageable memory."""
+    import dataclasses
+    import shutil
+    import torch.distributed as dist
+    from leansdr_tpu_torch import device as kdev
+    from leansdr_tpu_torch.dsp import filtergen, fir_kernel, receiver
+    from leansdr_tpu_torch.parallel import group, halo, mesh, multihost
+    from leansdr_tpu_torch.parallel import timeshard
+    from leansdr_tpu_torch.pipelines.multi_rx import MultiDvbsReceiver
+    from leansdr_tpu_torch.util.ingest import DeviceFeeder
+    t_path = time.perf_counter()
+    work = kdev.BUILD / "multi"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    counted = kernel_wrappers()
+    res = {}
+
+    # 1. NCCL, one rank.
+    rx = fleet_rx(dev, "1/2", exact=True)
+    params, tables = rx.params, rx.tables
+    del rx
+    ra = params.readahead
+    x = fleet_stimulus(dev, gen, CHUNK_SAMPLES + ra) * 75.0
+    xh = torch.randn((2, MULTI_HALO), device=dev, generator=gen)
+    taps = filtergen.root_raised_cosine(32, 0.25, 0.35).astype(np.float32)
+    taps_d = torch.from_numpy(taps).to(dev)
+    st0 = receiver.init_state(params, NCHAN, dev)
+    step = mesh.sharded_demod_step(params)
+    sfir = halo.sharded_fir(taps)
+    group.init(0, 1, f"tcp://127.0.0.1:{multihost.free_port()}", "nccl")
+    try:
+        torch.cuda.synchronize()
+        for fn in counted.values():
+            fn.launches = 0
+        st_s, out_s, mer = step(tables, mesh.shard_channels(st0),
+                                mesh.shard_channels(x))
+        y_s = sfir(xh)
+        torch.cuda.synchronize()
+        nccl = {k: fn.launches for k, fn in counted.items()}
+        backend = dist.get_backend()
+        halo_ms = cuda_time(lambda: sfir(xh), 20)
+    finally:
+        dist.destroy_process_group()
+    if nccl["scan_demod"] != 1 or nccl["fir"] != 1:
+        fail(f"multi NCCL D=1 did not run through the kernels: {nccl}")
+    st_u, out_u = receiver.run_chunks(params, tables, st0, x)
+    _equal_trees("multi mesh (NCCL D=1)", st_u, st_s)
+    _equal_trees("multi mesh (NCCL D=1)", out_u, out_s)
+    mer_u = float(out_u["mer"].mean())
+    if float(mer) != mer_u:
+        fail(f"multi mesh: mean MER {float(mer)} != {mer_u}")
+    y_u = fir_kernel.fir(xh, taps_d)
+    y_ref = fir_kernel.fir_ref(xh, taps_d)
+    if not (torch.equal(y_s, y_u) and torch.equal(y_u, y_ref)):
+        fail("multi halo (NCCL D=1): the sharded FIR != fir / fir_ref")
+    # The halo's fir launch at its shape ([2, 2^24 + 32], the halo before
+    # the block), beside one conv1d computing the same FIR (TF32 off) and
+    # the plain version: device time per call from CUDA-graph replays in
+    # turns, as fir_times does at the bench shape. Bound: each sample read
+    # and written once; a multiply and an add per tap and output.
+    import torch.nn.functional as F
+    torch.backends.cudnn.allow_tf32 = False
+    nt = len(taps)
+    ext = torch.cat([xh.new_zeros((2, nt - 1)), xh], 1)
+    xp = F.pad(ext, (nt - 1, 0))[:, None]
+    wf = taps_d.flip(0).view(1, 1, -1)
+    g = graph_ms({"conv1d": lambda: F.conv1d(xp, wf),
+                  "fir": lambda: fir_kernel.fir(ext, taps_d)}, reps=20)
+    fir_ms, lib_ms = (float(np.median(g[k])) for k in ("fir", "conv1d"))
+    plain_ms = cuda_time(lambda: fir_kernel.fir_ref(ext, taps_d), 3)
+    fir_bound = bound_ms(2 * ext.numel() * 4 + nt * 4,
+                         2.0 * nt * ext.numel())
+    del xp, ext
+    print(f"[multi] {backend} D=1: sharded_demod_step over {NCHAN} x "
+          f"{CHUNK_SAMPLES} (scan_demod, rrc exact) == run_chunks on every "
+          f"output and state plane, mean MER {float(mer):.3f} dB; "
+          f"sharded_fir over {MULTI_HALO} samples == fir == fir_ref; "
+          f"launches {nccl}; the halo step {halo_ms:.4f} ms (CUDA "
+          f"events), its fir launch {fir_ms:.4f} ms ([2, {MULTI_HALO} + "
+          f"{nt - 1}], {nt} taps; graph replays "
+          + " ".join(f"{t:.4f}" for t in g["fir"]) + f"), bound "
+          f"{fir_bound[0]:.4f} ms by {fir_bound[1]}; conv1d {lib_ms:.4f} "
+          f"ms; fir_ref {plain_ms:.3f} ms; {card}")
+
+    # 2. Two gloo ranks on the card, and the multihost fleet beside them.
+    B = MULTI_RING_BLOCK
+    torch.save(dict(
+        x=xh.cpu(), taps=torch.from_numpy(taps),
+        params=dataclasses.asdict(params),
+        tables={k: v.cpu() for k, v in tables.items()},
+        state={k: v[:2].cpu() for k, v in st0.items()},
+        ins=torch.from_numpy(timeshard.diagonal_layout(
+            x[:2].cpu().numpy(), B, ra))), work / "multi_in.pt")
+    t0 = time.perf_counter()
+    ranks = [subprocess.Popen([sys.executable, __file__, "--multi-rank",
+                               str(r), str(work)]) for r in (0, 1)]
+    CHILDREN.extend(ranks)
+    fleet = subprocess.Popen(
+        [sys.executable, "-m", "leansdr_tpu_torch.parallel.multihost",
+         "--world", "2", "--backend", "gloo", "--nchan", str(NCHAN),
+         "--chunk", str(CHUNK_SAMPLES), "--windows", str(MULTI_WINDOWS),
+         "--out", str(work / "ts"), "--timeout", str(MULTI_TIMEOUT_S)],
+        stdout=subprocess.PIPE, text=True)
+    CHILDREN.append(fleet)
+    # The single-process fleet's stimulus on the host meanwhile: the same
+    # carriers the ranks modulate.
+    rxs = MultiDvbsReceiver(multihost.fleet_config(), NCHAN,
+                            chunk_samples=CHUNK_SAMPLES, device=dev)
+    nsamp = MULTI_WINDOWS * CHUNK_SAMPLES + rxs.readahead
+    iq = np.stack([multihost.carrier_iq(c, nsamp) for c in range(NCHAN)])
+    for p in ranks:
+        if p.wait(timeout=MULTI_TIMEOUT_S) != 0:
+            fail(f"multi: a gloo rank exited {p.returncode}")
+    ranks_s = time.perf_counter() - t0
+    got = [torch.load(work / f"multi_out{r}.pt") for r in (0, 1)]
+    if not torch.equal(torch.cat([g["halo"] for g in got], 1),
+                       y_u.cpu()):
+        fail("multi halo (gloo D=2): != the unsharded fir")
+    S = CHUNK_SAMPLES // B
+    o = got[0]["outs"]
+    for k, v in o.items():                 # [S, 2, ...] superstep-major
+        u = torch.from_numpy(timeshard.undiagonal(v.numpy(), 2))
+        u = u.reshape((2, -1) + tuple(v.shape[3:]))
+        want = out_u[k][:2].cpu()
+        if k in ("symbol", "valid", "cost"):
+            want = want[:, :S * B]
+        if not torch.equal(u, want):
+            fail(f"multi ring (gloo D=2): {k} != the unsharded run_chunks")
+    _equal_trees("multi ring (gloo D=2) end state",
+                 {k: v[:2].cpu() for k, v in st_u.items()}, got[0]["state"])
+    gloo = {k: sum(g["launches"][k] for g in got) for k in counted}
+    if gloo["fir"] != 2 or gloo["scan_demod"] != 2 * S:
+        fail(f"multi gloo ranks did not run through the kernels: {gloo}")
+    print(f"[multi] {got[0]['backend']} D=2, both ranks on {card}: halo == "
+          f"the unsharded fir; ring over 2 carriers in {S} supersteps of {B}"
+          f" samples == run_chunks (symbols, valid, every output, end "
+          f"state); launches {gloo}; {ranks_s:.1f} s with process start")
+    so, _ = fleet.communicate(timeout=MULTI_TIMEOUT_S)
+    fleet_s = time.perf_counter() - t0
+    if fleet.returncode != 0:
+        fail(f"multihost exited {fleet.returncode}: {so[-2000:]}")
+    mh = [json.loads(l) for l in so.splitlines() if l.startswith("{")]
+    mh_launches = {k: sum(r["launches"].get(k, 0) for r in mh)
+                   for k in counted}
+    if mh_launches["demod"] < 2 * MULTI_WINDOWS or mh_launches["acs"] < 2:
+        fail(f"multihost did not run through the kernels: {mh_launches}")
+
+    # 3. The single-process fleet through DeviceFeeder.
+    torch.cuda.synchronize()
+    for fn in counted.values():
+        fn.launches = 0
+    ts = [[] for _ in range(NCHAN)]
+    waits, marks = [], []
+    it = iter(DeviceFeeder(multihost.windows(iq, CHUNK_SAMPLES,
+                                             rxs.readahead, dev), device=dev))
+    t0 = time.perf_counter()
+    while True:
+        tw = time.perf_counter()
+        win = next(it, None)
+        waits.append(time.perf_counter() - tw)
+        if win is None:
+            break
+        for c, pk in enumerate(rxs.process(win)):
+            ts[c].append(pk)
+        marks.append(time.perf_counter())
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    single = {k: fn.launches for k, fn in counted.items()}
+    single_rate = NCHAN * MULTI_WINDOWS * CHUNK_SAMPLES / single_s / 1e6
+    # After the first chunk (the rank's one-time set-up), as the ranks
+    # report it.
+    single_steady = (NCHAN * (MULTI_WINDOWS - 1) * CHUNK_SAMPLES
+                     / (marks[-1] - marks[0]) / 1e6)
+    if not all(rxs.locks):
+        fail(f"multi single-process fleet: not locked: "
+             f"{[c for c, l in enumerate(rxs.locks) if not l]}")
+    total_good, worst = 0, 1.0
+    for c in range(NCHAN):
+        pk = np.concatenate(ts[c])
+        n_after, n_good, span = check_packets(c, pk)
+        worst = min(worst, n_good / max(n_after, 1), n_good / span)
+        total_good += int(n_good)
+        if n_good < 100 or n_good < 0.9 * n_after or n_good < 0.9 * span:
+            fail(f"multi fleet channel {c}: {n_good} sent packets of "
+                 f"{n_after} after lock, span {span}")
+        if (work / "ts" / f"ch_{c}.ts").read_bytes() != pk.tobytes():
+            fail(f"multihost carrier {c}: TS != the single-process fleet's")
+    if any(r["fleet_ts_decoded"] != sum(len(np.concatenate(t)) for t in ts)
+           for r in mh):
+        fail("multihost: the reduced packet count != the single process's")
+    print(f"[multi] multihost --world 2 --backend gloo: {NCHAN} carriers x "
+          f"{MULTI_WINDOWS} chunks, {NCHAN // 2} per rank, TS == the "
+          f"single-process fleet's on every carrier; {total_good} sent "
+          f"packets after lock, worst fraction {worst:.4f}; ranks report "
+          f"{mh[0]['fleet_ts_decoded']} decoded, "
+          f"{mh[0]['fleet_ts_verified']} verified, "
+          f"{mh[0]['fleet_aggregate_msamples_per_s']:.1f} Msamples/s "
+          f"(elapsed {[round(r['rank_elapsed_s'], 3) for r in mh]} s; "
+          f"after the first chunk "
+          f"{mh[0]['fleet_steady_msamples_per_s']:.1f} Msamples/s), "
+          f"the single-process fleet {single_rate:.1f} Msamples/s "
+          f"({single_s:.3f} s, first chunk included; after it "
+          f"{single_steady:.1f}), "
+          f"stage 1 {mh[0]['fleet_symbols_sum']} symbols, MER "
+          f"{mh[0]['fleet_mer_mean_db']:.2f} dB, FIR "
+          f"{mh[0]['fir_msamples_per_s']:.1f} Msamples/s; launches "
+          f"{mh_launches}; {fleet_s:.1f} s with process start")
+
+    # 4. DeviceFeeder: contents and waits over MULTI_FEED chunks, the
+    # host-to-device rate.
+    shape = (NCHAN, CHUNK_SAMPLES + rxs.readahead, 2)
+    base = (np.arange(np.prod(shape), dtype=np.int64) % 4093).astype(
+        np.float32).reshape(shape)
+    base_d = torch.from_numpy(base).to(dev)
+    rxf = MultiDvbsReceiver(multihost.fleet_config(), NCHAN,
+                            chunk_samples=CHUNK_SAMPLES, device=dev)
+    feed_waits, bad = [], []
+    it = iter(DeviceFeeder((base + np.float32(k) for k in range(MULTI_FEED)),
+                           device=dev))
+    for k in range(MULTI_FEED + 1):
+        tw = time.perf_counter()
+        t = next(it, None)
+        feed_waits.append(time.perf_counter() - tw)
+        if t is None:
+            break
+        if not torch.equal(t, base_d + k):
+            bad.append(k)
+        rxf.process(t)
+    if bad or k != MULTI_FEED:
+        fail(f"DeviceFeeder: chunks {bad} wrong, {k} of {MULTI_FEED} came")
+    nbytes = base.nbytes
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    pageable = torch.empty(nbytes, dtype=torch.uint8)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    h2d = {"pinned": [], "pageable": []}
+    for kind in ("pinned", "pageable", "pageable", "pinned"):
+        src = pinned if kind == "pinned" else pageable
+        h2d[kind].append(cuda_time(
+            lambda: dst.copy_(src, non_blocking=True), MULTI_H2D_REPS))
+    gbs = {k: nbytes / (sum(v) / len(v) / 1e3) / 1e9 for k, v in h2d.items()}
+    wait_ms = [w * 1e3 for w in feed_waits[1:-1]]
+    print(f"[multi] DeviceFeeder: {MULTI_FEED} chunks of {shape} float32 "
+          f"({nbytes / 1e6:.1f} MB) each equal on the card; consumer's wait "
+          f"per chunk while the fleet's process() runs: median "
+          f"{np.median(wait_ms):.3f} ms, max {max(wait_ms):.3f} ms (first "
+          f"{feed_waits[0] * 1e3:.1f} ms); the single-process fleet's "
+          f"waits {[round(w * 1e3, 3) for w in waits]} ms; H2D "
+          f"{gbs['pinned']:.2f} GB/s pinned, {gbs['pageable']:.2f} GB/s "
+          f"pageable; {card}")
+    path_s = time.perf_counter() - t_path
+    print(f"[multi] path took {path_s:.1f} s")
+    res.update(
+        card=card, nccl_launches=nccl, gloo_launches=gloo,
+        multihost_launches=mh_launches, single_launches=single,
+        halo_ms=halo_ms, fir_ms=fir_ms, fir_bound=fir_bound,
+        fir_graph_ms=g["fir"], fir_library_ms=lib_ms,
+        fir_library_graph_ms=g["conv1d"], fir_plain_ms=plain_ms,
+        fir_shape=f"R=2 n={MULTI_HALO + nt - 1} nt={nt} (the halo's launch)",
+        single_msamples_per_s=single_rate,
+        single_steady_msamples_per_s=single_steady,
+        mean_mer_db=float(mer), ranks=mh, gloo_s=ranks_s, multihost_s=fleet_s,
+        single_process_s=single_s, single_waits_ms=[w * 1e3 for w in waits],
+        feed_wait_ms_median=float(np.median(wait_ms)),
+        feed_wait_ms_max=float(max(wait_ms)),
+        feed_first_wait_ms=feed_waits[0] * 1e3, h2d_gb_per_s=gbs,
+        h2d_ms=h2d, chunk_bytes=nbytes, packets_good=total_good,
+        worst=worst, seconds=path_s)
     return res
 
 
@@ -3947,6 +4318,11 @@ def main() -> int:
     tx = tx_path(dev)
     scan9 = scan_path(dev, np.random.default_rng(SEED_9), s_chain, clock)
     fm = fm_path(dev, gen9)
+    # Slice 10: the parallel modules (NCCL at one rank, two gloo ranks on
+    # the card, the multihost fleet) and DeviceFeeder, from SEED_10.
+    gen10 = torch.Generator(device=dev)
+    gen10.manual_seed(SEED_10)
+    multi = multi_path(dev, gen10, card)
     # Each path's own count (zeroed just before it, read just after).
     by_path = {"fleet 1/2": launches}
     by_path.update({f"fleet {r}": p["launches"] for r, p in punctured.items()})
@@ -3961,6 +4337,13 @@ def main() -> int:
     by_path["pipe (leandvb child)"] = pipe["launches"]
     by_path["scan (CandidateScanReceiver)"] = scan9["launches"]
     by_path["leansdrscan --device (child)"] = scan9["cli"]["launches"]
+    by_path["multi: NCCL D=1 (mesh, halo)"] = multi["nccl_launches"]
+    by_path["multi: 2 gloo ranks (halo, ring)"] = multi["gloo_launches"]
+    by_path["multi: multihost 2 gloo ranks"] = multi["multihost_launches"]
+    by_path["multi: single-process fleet (DeviceFeeder)"] = \
+        multi["single_launches"]
+    halo_fir = (multi["nccl_launches"]["fir"]
+                + multi["gloo_launches"]["fir"])
     resample = next(r for r in single if r["path"] == "resample")
     hs_run = next(r for r in single if r["path"] == "hs")
 
@@ -4063,20 +4446,31 @@ def main() -> int:
         {"name": "fir", "route": "cuda",
          "source": "leansdr_tpu_torch/csrc/fir.cu",
          "replaces": "leansdr_tpu/dsp/fir_pallas.py:25",
-         "launches": resample["launches"]["fir"], "max_abs_err": f_err,
-         "ms": ftimes["fir"]["ms"], "plain_ms": f_plain_r,
-         "bound_ms": ftimes["fir"]["bound"][0],
-         "bound_by": ftimes["fir"]["bound"][1],
-         "library_ms": ftimes["fir"]["library_ms"],
-         "shape": ftimes["fir"]["shape"],
+         "launches": halo_fir,
+         "launches_path": "multi: halo.sharded_fir, NCCL D=1 and 2 gloo "
+                          "ranks (its first runtime path)",
+         "max_abs_err": f_err,
+         "ms": multi["fir_ms"], "plain_ms": multi["fir_plain_ms"],
+         "bound_ms": multi["fir_bound"][0],
+         "bound_by": multi["fir_bound"][1],
+         "library_ms": multi["fir_library_ms"],
+         "shape": multi["fir_shape"],
          "timing": "device time per call from CUDA-graph replays of 20 "
                    "calls, in turns with conv1d, median of 3 rounds",
-         "graph_ms": ftimes["fir"]["graph_ms"],
-         "library_graph_ms": ftimes["fir"]["library_graph_ms"],
-         "host_paced_ms": ftimes["fir"]["host_paced_ms"],
-         "library_host_paced_ms": ftimes["fir"]["library_host_paced_ms"],
-         "fp32_issue_floor_ms": ftimes["fir"]["fp32_issue_floor_ms"],
-         "plain_shape": "R=128 n=131157 nt=79"},
+         "graph_ms": multi["fir_graph_ms"],
+         "library_graph_ms": multi["fir_library_graph_ms"],
+         "plain_shape": multi["fir_shape"],
+         "bench_shape": {
+             "shape": ftimes["fir"]["shape"], "ms": ftimes["fir"]["ms"],
+             "bound_ms": ftimes["fir"]["bound"][0],
+             "library_ms": ftimes["fir"]["library_ms"],
+             "graph_ms": ftimes["fir"]["graph_ms"],
+             "library_graph_ms": ftimes["fir"]["library_graph_ms"],
+             "host_paced_ms": ftimes["fir"]["host_paced_ms"],
+             "library_host_paced_ms":
+                 ftimes["fir"]["library_host_paced_ms"],
+             "fp32_issue_floor_ms": ftimes["fir"]["fp32_issue_floor_ms"],
+             "plain_ms": f_plain_r, "plain_shape": "R=128 n=131157 nt=79"}},
         {"name": "fft4096", "route": "cuda",
          "source": "leansdr_tpu_torch/csrc/fft4096.cu",
          "replaces": "leansdr_tpu/dsp/fft_pallas.py:58",
@@ -4187,7 +4581,7 @@ def main() -> int:
                       "hdlc": hdlc, "fleet_slice8": fleet8,
                       "single_carrier_slice8": single8,
                       "slice8_checks_plain_ms": s8_plain,
-                      "tx": tx, "scan": scan9, "fm": fm,
+                      "tx": tx, "scan": scan9, "fm": fm, "multi": multi,
                       "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(card)
@@ -4200,5 +4594,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--plain"]:         # start_plain's child
         plain_job(*sys.argv[2:4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--multi-rank"]:    # multi_path's gloo ranks
+        multi_rank_job(int(sys.argv[2]), sys.argv[3])
         sys.exit(0)
     sys.exit(main())

@@ -1,5 +1,30 @@
-"""Generic host blocks (a copy of the parts of leansdr_tpu/core/generic.py
-the single-carrier receiver uses)."""
+"""Generic host blocks (reference generic.h; a NumPy copy of
+leansdr_tpu/core/generic.py): ItemCounter, decimate, serialize and the
+VBER RateEstimator."""
+
+import numpy as np
+
+
+class ItemCounter:
+    """itemcounter (generic.h:227-243): emits the number of items that
+    passed through (drives the TS-rate display)."""
+
+    def __init__(self):
+        self.count = 0
+
+    def process(self, items) -> int:
+        self.count += len(items)
+        return self.count
+
+
+def decimate(x: np.ndarray, d: int) -> np.ndarray:
+    """decimator<T> (generic.h:247-267): keep 1 item in d."""
+    return x[::d]
+
+
+def serialize(x: np.ndarray, dtype) -> np.ndarray:
+    """serializer (generic.h:310-331): reinterpret between item sizes."""
+    return np.frombuffer(np.ascontiguousarray(x).tobytes(), dtype=dtype)
 
 
 class RateEstimator:

@@ -1,10 +1,14 @@
-"""Host NumPy blocks of the single-carrier preprocessing chain (copies
-of leansdr_tpu/dsp/blocks.py `decimate` and `Rotator`), and the
+"""Host NumPy blocks (copies of leansdr_tpu/dsp/blocks.py but for its
+AutoNotch, CnrFft, Spectrum and FirFilter, which the port runs on the
+card: dsp/blocks_device.py, dsp/fir_kernel.FirFilterDevice), and the
 first-order recurrence of the FM receiver.
 
   decimate  decimator (reference generic.h:247-267)
   Rotator   rotator (reference sdr.h:1228-1261): fixed frequency shift
             through the 65536-entry trig16 table
+  adder, scaler, naive_lowpass (dsp.h:118-217); SSEstimator,
+            SSAmpEstimator (sdr.h:161-233): the reference's remaining
+            small blocks
   _first_order_scan  y_n = (1-k) y_{n-1} + k x_n as an associative scan
             (torch ops, on the tensors' device)
 """
@@ -36,6 +40,75 @@ class Rotator:
         self.index = (self.index + n) & 0xFFFF
         return ((x.real * c - x.imag * s)
                 + 1j * (x.real * s + x.imag * c)).astype(np.complex64)
+
+
+def adder(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """adder<T> (dsp.h:118-138)."""
+    return a + b
+
+
+def scaler(k, x: np.ndarray) -> np.ndarray:
+    """scaler<Tscale,Tin,Tout> (dsp.h:140-160)."""
+    return np.float32(k) * x
+
+
+def naive_lowpass(x: np.ndarray, w: int) -> np.ndarray:
+    """naive_lowpass (dsp.h:192-217): boxcar average of width w; output
+    k is the mean of x[k .. k+w-1] (w-sample lookahead)."""
+    c = np.cumsum(np.concatenate([[0], x]))
+    n = len(x) - w
+    if n <= 0:
+        return x[:0]
+    k = np.float32(1.0 / w)
+    return ((c[w:w + n] - c[:n]) * k).astype(x.dtype)
+
+
+class SSEstimator:
+    """ss_estimator (sdr.h:161-189): RMS over 1024-sample windows."""
+
+    def __init__(self, window_size=1024, decimation=1024):
+        self.window = window_size
+        self.decimation = decimation
+        self.phase = 0
+        self.backlog = np.empty(0, np.complex64)
+
+    def process(self, x: np.ndarray):
+        self.backlog = np.concatenate([self.backlog, x])
+        out = []
+        while len(self.backlog) >= self.window:
+            w = self.backlog[:self.window]
+            self.phase += self.window
+            if self.phase >= self.decimation:
+                self.phase -= self.decimation
+                out.append(np.sqrt(np.mean(w.real ** 2 + w.imag ** 2)))
+            self.backlog = self.backlog[self.window:]
+        return np.array(out, np.float32)
+
+
+class SSAmpEstimator:
+    """ss_amp_estimator (sdr.h:191-233): RMS plus min/max amplitude per
+    window."""
+
+    def __init__(self, window_size=1024, decimation=1024):
+        self.window = window_size
+        self.decimation = decimation
+        self.phase = 0
+        self.backlog = np.empty(0, np.complex64)
+
+    def process(self, x: np.ndarray):
+        self.backlog = np.concatenate([self.backlog, x])
+        out = []
+        while len(self.backlog) >= self.window:
+            w = self.backlog[:self.window]
+            self.phase += self.window
+            if self.phase >= self.decimation:
+                self.phase -= self.decimation
+                mag2 = w.real ** 2 + w.imag ** 2
+                mag = np.sqrt(mag2)
+                out.append((float(np.sqrt(mag2.mean())),
+                            float(mag.min()), float(mag.max())))
+            self.backlog = self.backlog[self.window:]
+        return out
 
 
 def _associative_scan(combine, elems: list) -> list:

@@ -1,6 +1,6 @@
 """Batched DFT as float32 matrix products (the counterpart of
-leansdr_tpu/dsp/fft.py `fft_planes`; the cfft_engine equivalent,
-reference dsp.h:56-116).
+leansdr_tpu/dsp/fft.py: `fft_planes`, and `fft` on complex64 tensors;
+the cfft_engine equivalent, reference dsp.h:56-116).
 
 The JAX package computes SDR-sized transforms (64..4096 points) batched
 over many frames as matrix products outside any Pallas kernel: a direct
@@ -86,3 +86,10 @@ def fft_planes(xr: torch.Tensor, xi: torch.Tensor, n: int):
                          f"expected [..., {n}] each")
     with fp32_matmul():
         return _fft_core(xr, xi, n)
+
+
+def fft(x: torch.Tensor) -> torch.Tensor:
+    """complex64 [..., n] forward DFT through fft_planes."""
+    n = x.shape[-1]
+    yr, yi = fft_planes(x.real.contiguous(), x.imag.contiguous(), n)
+    return torch.complex(yr, yi)

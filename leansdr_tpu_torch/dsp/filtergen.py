@@ -1,5 +1,5 @@
 """Filter design, mirroring the closed forms of filtergen.h (a NumPy copy
-of the parts of leansdr_tpu/dsp/filtergen.py the port uses).
+of leansdr_tpu/dsp/filtergen.py).
 
 Setup-time only; coefficients are computed in float32 where the
 reference uses float, so they equal the JAX package's taps bit for bit.
@@ -62,3 +62,11 @@ def root_raised_cosine(order: int, fs: float, rolloff: float) -> np.ndarray:
     c = np.where(den == 0, singular, general)
     c[t == 0] = np.sqrt(fs) * (1 - B + 4 * B / pi)
     return normalize_dcgain(c.astype(np.float32))
+
+
+def dump_filter(name: str, coeffs: np.ndarray, f=None) -> str:
+    """Print taps in octave format (filtergen.h:97-102)."""
+    import sys
+    s = f"{name} = [" + ",".join(f" {c:f}" for c in coeffs) + " ];"
+    print(s, file=f or sys.stderr)
+    return s

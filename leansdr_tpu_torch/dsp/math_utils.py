@@ -1,5 +1,6 @@
-"""Math primitives of the demod loop (torch), and setup-time NumPy
-helpers.
+"""Math primitives of the demod loop (torch), the device helpers of
+leansdr_tpu/dsp/math_utils.py (cmul, parity_u32, popcount_u32, log2i),
+and setup-time NumPy helpers.
 
 16-bit angle convention of the reference (math.h:95-111, sdr.h:277-278):
 65536 = 2*pi.
@@ -13,6 +14,44 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+
+def cmul(a_re, a_im, b_re, b_im):
+    """Complex multiply on separate planes (math.h:40-43)."""
+    return a_re * b_re - a_im * b_im, a_re * b_im + a_im * b_re
+
+
+def _u32(x: torch.Tensor) -> torch.Tensor:
+    """x's 32-bit patterns as non-negative int64 (torch has few uint32
+    operations, and int32's arithmetic right shift drags the sign bit
+    in)."""
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def parity_u32(x: torch.Tensor) -> torch.Tensor:
+    """XOR-fold parity of each uint32/int32 lane (math.h:73-85), uint8."""
+    x = _u32(x)
+    for s in (16, 8, 4, 2, 1):
+        x = x ^ (x >> s)
+    return (x & 1).to(torch.uint8)
+
+
+def popcount_u32(x: torch.Tensor) -> torch.Tensor:
+    """Per-lane popcount (hamming_weight, math.h:56-71), int32."""
+    x = _u32(x)
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return (((x * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+
+
+def log2i(x: int) -> int:
+    """Integer log2 (math.h:87-91); -1 for 0."""
+    n = -1
+    while x:
+        n += 1
+        x >>= 1
+    return n
 
 
 def parity_u64_np(x) -> np.ndarray:

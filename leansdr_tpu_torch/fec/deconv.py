@@ -1,6 +1,7 @@
 """Algebraic deconvolution of DVB-S punctured convolutional codes: the
 host NumPy decoder of the single-carrier receiver's hard-decision path
-(a copy of leansdr_tpu/fec/deconv.py without its fleet batcher).
+and the fleet batcher `BatchedDeconvolSync` (a NumPy copy of
+leansdr_tpu/fec/deconv.py).
 
 Mirrors deconvol_sync (reference dvb.h:122-476): at startup the
 deconvolution polynomials are derived by solving the inverse convolution
@@ -19,6 +20,7 @@ from functools import lru_cache
 
 import numpy as np
 
+from ..dsp.math_utils import log2i
 from .convenc import DVBS_G1, DVBS_G2
 
 TRACEBACK = 64  # dvb.h:203
@@ -53,14 +55,6 @@ def _parity(x: int) -> int:
     return bin(x).count("1") & 1
 
 
-def _log2(x: int) -> int:
-    n = -1
-    while x:
-        n += 1
-        x >>= 1
-    return n
-
-
 class DeconvSpec:
     """Derived deconvolution polynomials for one code rate."""
 
@@ -69,13 +63,13 @@ class DeconvSpec:
         pX, pY = PUNCTURE[rate]
         self.conv = (gX, gY)
         self.punct = (pX, pY)
-        self.punctperiod = max(_log2(pX) + 1, _log2(pY) + 1)
+        self.punctperiod = max(log2i(pX) + 1, log2i(pY) + 1)
         self.punctweight = bin(pX).count("1") + bin(pY).count("1")
         self._inverse_convolution()
 
     def convolve(self, s: int) -> int:
         """Forward punctured convolution of a bit signal (dvb.h:165-179)."""
-        sbits = _log2(s) + 1
+        sbits = log2i(s) + 1
         iq = 0
         state = 0
         for b in range(sbits - 1, -1, -1):
@@ -132,9 +126,9 @@ class DeconvSpec:
                 if _parity(iq & self.deconv2[b]) != expect:
                     raise AssertionError(
                         "Failed to inverse convolutional coding (alt)")
-            if _log2(self.deconv[b]) + 1 > TRACEBACK:
+            if log2i(self.deconv[b]) + 1 > TRACEBACK:
                 raise AssertionError("traceback insufficient")
-            if _log2(self.deconv2[b]) + 1 > TRACEBACK:
+            if log2i(self.deconv2[b]) + 1 > TRACEBACK:
                 raise AssertionError("traceback insufficient (alt)")
 
 
@@ -271,3 +265,93 @@ def deconvolve_errors(symbols: np.ndarray, rate: str, sync_id: int,
         errs += int(np.sum(a1 != a2))
     return errs
 
+
+def bytes_to_symbol_count(nbytes: int, rate: str) -> int:
+    """Symbols consumed per `nbytes` output bytes once the window is full."""
+    spec = deconv_spec(rate)
+    return nbytes * 8 // spec.punctperiod * spec.punctweight // 2
+
+
+class BatchedDeconvolSync:
+    """Deconvolution for many channels in lockstep (SURVEY.md 2.10 P2/P6:
+    bit-parallelism and hypothesis-parallelism as batch axes).
+
+    All channels share one code rate; each round decodes a fixed block of
+    symbols per channel with ALL 4 sync hypotheses as a leading batch
+    axis — tap XORs are ~7 vectorized ops for the whole fleet instead of
+    per-channel loops. Election per block mirrors the fastlock rules
+    (fewest estimated errors; symbol slip when BER > 1/3).
+    """
+
+    def __init__(self, rate: str, nchan: int, fastlock: bool = True,
+                 symmaps=None):
+        self.spec = deconv_spec(rate)
+        pp = self.spec.punctperiod
+        # Periods per round: byte-aligned (pp bits/period) and ~4096
+        # symbols of election cadence like the reference's BUF_SYMBOLS.
+        align = int(np.lcm(8, pp)) // pp
+        self.PERIODS = max(1, (4096 * 2 // self.spec.punctweight)
+                           // align) * align
+        self.rate = rate
+        self.nchan = nchan
+        self.fastlock = fastlock
+        self.maps = sync_maps() if symmaps is None else symmaps
+        self.locked = np.zeros(nchan, np.int64)
+        self.backlogs = [np.empty(0, np.uint8) for _ in range(nchan)]
+        self.taps = [_tap_positions(d) for d in self.spec.deconv]
+        self.taps2 = [_tap_positions(d) for d in self.spec.deconv2]
+
+    @property
+    def consumed_symbols(self):
+        return self.PERIODS * self.spec.punctweight // 2
+
+    def process(self, syms_list):
+        """syms_list: per-channel new symbols. Returns per-channel bytes."""
+        for c, s in enumerate(syms_list):
+            self.backlogs[c] = np.concatenate([self.backlogs[c], s])
+        out = [[] for _ in range(self.nchan)]
+        need = self.consumed_symbols + TRACEBACK // 2
+        while min(len(b) for b in self.backlogs) >= need:
+            block = np.stack([b[:need] for b in self.backlogs])  # [C, need]
+            by, skip = self._decode_block(block)
+            for c in range(self.nchan):
+                out[c].append(by[c])
+                drop = self.consumed_symbols + (1 if skip[c] else 0)
+                self.backlogs[c] = self.backlogs[c][drop:]
+        return [np.concatenate(o) if o else np.empty(0, np.uint8)
+                for o in out]
+
+    def _decode_block(self, symbols):
+        C, n = symbols.shape
+        pp = self.spec.punctperiod
+        pw = self.spec.punctweight
+        iq2 = self.maps[:, symbols]               # [4, C, n]
+        bits = np.empty((4, C, 2 * n), np.uint8)
+        bits[:, :, 0::2] = (iq2 >> 1) & 1
+        bits[:, :, 1::2] = iq2 & 1
+        P = self.PERIODS
+        # Window-end bit index for period p is TRACEBACK + p*punctweight;
+        # tap j of poly b reads bit (end-1-j) — an arithmetic sequence
+        # with stride punctweight, i.e. a strided VIEW (no gather copies).
+        # Emission order within a period: b = punctperiod-1 .. 0
+        # (dvb.h:379-382).
+        dec = np.zeros((4, C, P, pp), np.uint8)
+        err = np.zeros((4, C, P, pp), np.uint8)
+        for b in range(pp):
+            for j in self.taps[b]:
+                lo = TRACEBACK - 1 - int(j)
+                dec[:, :, :, pp - 1 - b] ^= bits[:, :, lo: lo + pw * P: pw]
+            for j in self.taps2[b]:
+                lo = TRACEBACK - 1 - int(j)
+                err[:, :, :, pp - 1 - b] ^= bits[:, :, lo: lo + pw * P: pw]
+        err ^= dec                                 # disagreement bits
+        errs = err.sum(axis=(2, 3))                # [4, C]
+        if self.fastlock:
+            best = np.argmin(errs, axis=0)
+            self.locked = best
+        ch = np.arange(C)
+        sel = dec[self.locked, ch].reshape(C, P * pp)
+        nbytes = P * pp // 8
+        skip = (errs[self.locked, ch] > nbytes * 8 // 3) if self.fastlock \
+            else np.zeros(C, bool)
+        return np.packbits(sel, axis=1), skip

@@ -1,7 +1,7 @@
-"""DVB-S energy-dispersal PRBS (de)randomizer (the NumPy parts of
-leansdr_tpu/fec/prbs.py: the TX randomizer of the stimulus generator and
-the single-carrier receiver's derandomizer; the fleet's derandomizer
-runs in native/byte_backend.cc).
+"""DVB-S energy-dispersal PRBS (de)randomizer (a copy of
+leansdr_tpu/fec/prbs.py: the TX randomizer of the stimulus generator,
+the single-carrier receiver's derandomizer, and `derandomize_scan` on
+tensors; the fleet's derandomizer runs in native/byte_backend.cc).
 
 Mirrors randomizer/derandomizer (reference dvb.h:1063-1163): the
 EN 300 421 section 4.4.1 PRBS 1+x^14+x^15 seeded 000251, precomputed as
@@ -11,6 +11,7 @@ a 188*8-byte pattern with the sync-byte inversion/inhibition rules.
 from functools import lru_cache
 
 import numpy as np
+import torch
 
 MPEG_SYNC = 0x47
 MPEG_SYNC_INV = MPEG_SYNC ^ 0xFF           # 0xB8
@@ -45,6 +46,35 @@ def randomize(packets: np.ndarray, start_phase: int = 0):
     phases = (start_phase + np.arange(n)) % 8
     out = packets ^ pat[phases]
     return out, int((start_phase + n) % 8)
+
+
+def derandomize_scan(packets: torch.Tensor, pos0):
+    """RX derandomizer (dvb.h:1130-1157) over [n, 188] uint8 packets on
+    their device, the counterpart of JAX's lax.scan version.
+
+    The pattern position (0..7, in packets) is carried across the
+    stream and resynchronizes to 0 at a sync byte of MPEG_SYNC_INV or
+    its corrupted marker; vectorized: packet i uses (i - last resync at
+    or before i) % 8, or (pos0 + i) % 8 before the first resync. Returns
+    (out [n, 188], good mask [n], next pos as a 0-d int32 tensor). The
+    caller drops packets whose descrambled sync != 0x47 and sets the TEI
+    bit, as the reference does."""
+    dev = packets.device
+    n = packets.shape[0]
+    pat = torch.from_numpy(prbs_pattern().reshape(8, 188)).to(dev)
+    i = torch.arange(n, device=dev)
+    sync = packets[:, 0]
+    resync = (sync == MPEG_SYNC_INV) | (
+        sync == (MPEG_SYNC_INV ^ MPEG_SYNC_CORRUPTED))
+    last = torch.where(resync, i, torch.full_like(i, -1))
+    if n:
+        last = torch.cummax(last, dim=0).values
+    pos0 = torch.as_tensor(pos0, device=dev).to(torch.int64)
+    pos = torch.where(last >= 0, i - last, pos0 + i) % 8
+    out = packets ^ pat[pos]
+    good = out[:, 0] == MPEG_SYNC
+    next_pos = ((pos[-1] + 1) % 8) if n else pos0 % 8
+    return out, good, next_pos.to(torch.int32)
 
 
 def derandomize_np(packets: np.ndarray, pos: int = 0):

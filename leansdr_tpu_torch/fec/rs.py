@@ -7,13 +7,19 @@ alpha=2, generator G(X) = prod(X - alpha^i) for i in 0..15, syndromes by
 Horner evaluation (or, for large batches, as one GF(2)-linear float32
 matmul), Berlekamp-Massey + Forney with exhaustive root search, up to 8
 byte errors corrected per packet. (The fleet's RS decode runs in
-native/byte_backend.cc.) `gf2_encode_matrix` is the encoder as a GF(2)
-matrix, for the device modulator's matmul.
+native/byte_backend.cc.) `gf2_encode_matrix` and `gf2_syndrome_matrix`
+are the encoder and the syndromes as GF(2) matrices; `torch_encode` and
+`torch_syndromes` (the counterparts of jax_encode / jax_syndromes) apply
+them on the tensor's device as one float32 matmul of 0/1 planes, mod 2
+(the device modulator's RS encode).
 """
 
 from functools import lru_cache
 
 import numpy as np
+import torch
+
+from .. import device as _dev
 
 N_PARITY = 16
 RS_SIZE = 204
@@ -275,3 +281,29 @@ def gf2_encode_matrix() -> np.ndarray:
     msgs[k, k // 8] = (1 << (7 - k % 8)).astype(np.uint8)
     parity = encode(msgs)[:, MSG_SIZE:]
     return np.unpackbits(parity, axis=1).astype(np.int8)
+
+
+@lru_cache(maxsize=None)
+def _gf2_matrix_f32(kind: str, device: torch.device) -> torch.Tensor:
+    m = gf2_encode_matrix() if kind == "encode" else gf2_syndrome_matrix()
+    return torch.from_numpy(m.astype(np.float32)).to(device)
+
+
+def _gf2_product(bits: torch.Tensor, kind: str) -> torch.Tensor:
+    """bits [n, k] (0/1, any dtype) @ the GF(2) matrix, mod 2, as uint8.
+    Each sum counts at most k <= 1632 ones, exact in float32 with TF32
+    off."""
+    m = _gf2_matrix_f32(kind, bits.device)
+    with _dev.fp32_matmul():
+        acc = torch.matmul(bits.to(torch.float32), m)
+    return (acc.to(torch.int32) & 1).to(torch.uint8)
+
+
+def torch_encode(msgs_bits: torch.Tensor) -> torch.Tensor:
+    """[n, 1504] message bits -> [n, 128] parity bits (uint8)."""
+    return _gf2_product(msgs_bits, "encode")
+
+
+def torch_syndromes(packet_bits: torch.Tensor) -> torch.Tensor:
+    """[n, 1632] packet bits -> [n, 128] syndrome bits (uint8)."""
+    return _gf2_product(packet_bits, "syndrome")

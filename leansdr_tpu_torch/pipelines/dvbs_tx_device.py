@@ -6,9 +6,9 @@ convolutional encoder -> mapper -> RRC interpolation) is GF(2)-linear or
 a gather, so the chain runs on the device end to end:
 
   randomize    XOR with the precomputed 188*8 pattern
-  RS encode    float32 matmul of 0/1 planes, mod 2 (fec/rs.py
-               gf2_encode_matrix; the sums are at most 1504, exact in
-               float32, with TF32 off)
+  RS encode    fec/rs.torch_encode: one float32 matmul of 0/1 planes,
+               mod 2 (the sums are at most 1504, exact in float32, with
+               TF32 off)
   interleave   static gather over a 12-packet window
   convolve     XOR of statically-shifted bit lanes (the puncturing is in
                the shifted-polynomial taps, like the host encoder)
@@ -77,7 +77,6 @@ class DeviceModulator:
         def t(a):
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
         self.pat = t(prbs.prbs_pattern().reshape(8, 188))
-        self.enc_m = t(rs.gf2_encode_matrix().astype(np.float32))
         self.ilv_idx = t(interleave.interleave_indices().astype(np.int64))
         self.sym_pts = t(cstln.symbols.astype(np.float32))
         order = int(interp * rrc_rej)
@@ -103,9 +102,7 @@ class DeviceModulator:
         rand = packets ^ self.pat[torch.arange(n, device=dev) % 8]
         # --- RS encode: GF(2) matmul of message bits ---
         bits = _unpack_bits(rand)                       # [n, 1504]
-        with _dev.fp32_matmul():
-            acc = torch.matmul(bits.to(torch.float32), self.enc_m)
-        par_bits = (acc.to(torch.int32) & 1).to(torch.uint8)
+        par_bits = rs.torch_encode(bits)
         rspackets = _pack_bits(torch.cat([bits, par_bits], 1))  # [n, 204]
         # --- interleaver: gather over 12-packet windows ---
         flat = rspackets.reshape(-1)

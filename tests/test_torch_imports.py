@@ -45,7 +45,14 @@ def test_import_loads_no_jax():
             "leansdr_tpu_torch.pipelines.mlm_rx",
             "leansdr_tpu_torch.apps.leansdrscan",
             "leansdr_tpu_torch.apps.leanmlmrx",
-            "leansdr_tpu_torch.dsp.fft"} <= set(_modules())
+            "leansdr_tpu_torch.dsp.fft",
+            "leansdr_tpu_torch.parallel",
+            "leansdr_tpu_torch.parallel.group",
+            "leansdr_tpu_torch.parallel.halo",
+            "leansdr_tpu_torch.parallel.mesh",
+            "leansdr_tpu_torch.parallel.timeshard",
+            "leansdr_tpu_torch.parallel.multihost",
+            "leansdr_tpu_torch.util.ingest"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {list(_modules())!r}:\n"
@@ -76,6 +83,40 @@ def _imported_roots(path: Path):
 def test_source_imports_no_jax(path):
     roots = set(_imported_roots(path))
     assert not roots & {"jax", "jaxlib", "leansdr_tpu"}, roots
+
+
+def test_slice10_names_and_cuda_defaults():
+    """Slice 10's modules carry the JAX package's public names (the
+    helpers of item 17 among them), and their entry points default to
+    CUDA and raise without it."""
+    import importlib
+    import torch
+    names = {
+        "parallel.halo": ("make_time_group", "sharded_fir"),
+        "parallel.mesh": ("shard_channels", "gather_channels",
+                          "sharded_demod_step"),
+        "parallel.timeshard": ("diagonal_layout", "undiagonal",
+                               "ring_stream_demod"),
+        "util.ingest": ("DeviceFeeder", "read_chunks"),
+        "fec.rs": ("torch_encode", "torch_syndromes"),
+        "fec.prbs": ("derandomize_scan",),
+        "dsp.math_utils": ("cmul", "parity_u32", "popcount_u32", "log2i"),
+        "core.generic": ("ItemCounter", "decimate", "serialize"),
+        "fec.deconv": ("BatchedDeconvolSync", "bytes_to_symbol_count"),
+    }
+    for mod, want in names.items():
+        m = importlib.import_module(f"leansdr_tpu_torch.{mod}")
+        assert all(hasattr(m, n) for n in want), (mod, want)
+    if torch.cuda.is_available():
+        return
+    from leansdr_tpu_torch.parallel import group, multihost
+    from leansdr_tpu_torch.util.ingest import DeviceFeeder
+    for make in (lambda: DeviceFeeder([]), lambda: group.rank_device(0),
+                 lambda: group.init(0, 1, "file:///nonexistent", "gloo")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    a = multihost.parse_args(["--world", "2"])
+    assert (a.backend, a.device) == ("nccl", None)
 
 
 def test_entry_points_default_to_cuda():
