@@ -1,0 +1,8 @@
+"""Service, in the fleet: the median latency of the same packets as
+fleet.latency_p95_ms, from the hand-over of the chunk that completed each
+to the return of the call that gave it back."""
+from sdrbench.metrics._common import latency_ms
+
+
+def read(data):
+    return latency_ms(data, 50)
