@@ -226,6 +226,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from leansdr_tpu_torch.util import trace
+
 SEED = 20261016
 NCHAN = 64
 CHUNK_SAMPLES = 1 << 18
@@ -1268,7 +1270,7 @@ def fleet_run(rx, frames, nchunks, tag, steady_from, capture=None,
             return demod(*a, **kw)
         return wrapper
 
-    counted = kernel_wrappers()
+    counted = Launches()
     patches = [(mf_prefilter, "mf_prefilter", timed("mf", mf_prefilter.
                                                    mf_prefilter)),
                (rk, "demod", timed(demod_stage, recorded(rk.demod))),
@@ -1298,8 +1300,7 @@ def fleet_run(rx, frames, nchunks, tag, steady_from, capture=None,
     ra = 0 if pre else rx.readahead
     pkts = [[] for _ in range(NCHAN)]
     wall = []
-    for fn in counted.values():
-        fn.launches = 0
+    counted.zero()
     try:
         for k in range(nchunks):
             chunk[0] = k
@@ -1311,7 +1312,7 @@ def fleet_run(rx, frames, nchunks, tag, steady_from, capture=None,
             for c in range(NCHAN):
                 pkts[c] += list(out[c])
     finally:
-        launches = {k: fn.launches for k, fn in counted.items()}
+        launches = counted.read()
         for obj, name, fn in saved:
             setattr(obj, name, fn)
     torch.cuda.synchronize()
@@ -1572,12 +1573,12 @@ def hard_path(dev, frames, code_rate, S=1, sampler="rrc"):
 CLI_WRAPPER = """
 import atexit, json, runpy, sys, time
 import torch
-from chip_smoke import SC_DEMOD_CHECK, kernel_wrappers
+from chip_smoke import SC_DEMOD_CHECK, Launches
 from leansdr_tpu_torch.dsp import blocks, receiver_kernel as rk
 from leansdr_tpu_torch.fec import deconv_device as dd
 from leansdr_tpu_torch.pipelines import multi_rx
 out, keep = sys.argv[1], {int(v) for v in sys.argv[2].split(",")}
-counted = kernel_wrappers()
+counted = Launches()
 calls, captured, marks, resyncs = [0], {}, [], [0]
 host = dict(derotate=0.0, dispatch=0.0, collect=0.0)
 def hosttimed(cls, name, key):
@@ -1615,7 +1616,7 @@ t0 = time.perf_counter()
 def dump():
     torch.save(captured, out + ".pt")
     with open(out + ".json", "w") as f:
-        json.dump(dict(launches={k: w.launches for k, w in counted.items()},
+        json.dump(dict(launches=counted.read(),
                        marks=[m - t0 for m in marks], resyncs=resyncs[0],
                        host_s=host, main_s=time.perf_counter() - t0), f)
 atexit.register(dump)
@@ -1732,42 +1733,40 @@ def cli_path(dev, frames):
 
 
 # The kernels line's name for scan_demod's per-channel-omega mode, counted
-# on its own (run_chunks.launches_per_channel).
+# on its own (the counter launch.scan_demod.per_channel).
 SCAN_PC = "scan_demod per-channel omega"
+# scan_demod's launches on the rrc device-memory instance.
+DEVICE_TAPS = "launch.scan_demod.device_taps"
+
+# Every kernel of the port by its name in the kernels line, and
+# scan_demod's per-channel-omega mode (SCAN_PC; its launches are also
+# scan_demod's), with the port's launch counter of each.
+KERNEL_COUNTERS = {"demod": "launch.demod", "acs": "launch.acs",
+                   "acs_banked": "launch.acs_banked", "cfir": "launch.cfir",
+                   "fir": "launch.fir", "fft4096": "launch.fft4096",
+                   "scan_demod": "launch.scan_demod",
+                   SCAN_PC: "launch.scan_demod.per_channel",
+                   "hs_demod": "launch.hs_demod"}
 
 
-class ModeCounter:
-    """A wrapper's count of its launches in one mode (an attribute beside
-    its `launches`), read and zeroed as `launches` as a wrapper's is."""
+class Launches:
+    """The port's kernel launches by their name in the kernels line,
+    counted from the last zero() (the port's `launch.<kernel>`
+    counters)."""
 
-    def __init__(self, fn, attr: str):
-        self.fn, self.attr = fn, attr
+    def __init__(self):
+        self.zero()
 
-    @property
-    def launches(self) -> int:
-        return getattr(self.fn, self.attr)
+    def zero(self):
+        self.base = trace.counters()
 
-    @launches.setter
-    def launches(self, v: int):
-        setattr(self.fn, self.attr, v)
+    def read(self) -> dict:
+        now = trace.counters()
+        return {k: now.get(c, 0) - self.base.get(c, 0)
+                for k, c in KERNEL_COUNTERS.items()}
 
-
-def kernel_wrappers() -> dict:
-    """Every kernel wrapper of the port by its name in the kernels line
-    (their `launches` counters), and scan_demod's per-channel-omega mode
-    (SCAN_PC, a ModeCounter; its launches are also scan_demod's)."""
-    from leansdr_tpu_torch.dsp import fft_kernel as ffk
-    from leansdr_tpu_torch.dsp import fir_kernel as fk
-    from leansdr_tpu_torch.dsp import receiver, receiver_hs
-    from leansdr_tpu_torch.dsp import receiver_kernel as rk
-    from leansdr_tpu_torch.fec import viterbi_banked as vb
-    from leansdr_tpu_torch.fec import viterbi_device as vd
-    return {"demod": rk.demod, "acs": vd.viterbi_acs,
-            "acs_banked": vb.viterbi_acs_banked, "cfir": fk.cfir,
-            "fir": fk.fir, "fft4096": ffk.fft4096,
-            "scan_demod": receiver.run_chunks,
-            SCAN_PC: ModeCounter(receiver.run_chunks, "launches_per_channel"),
-            "hs_demod": receiver_hs.run_chunks_hs}
+    def __iter__(self):
+        return iter(KERNEL_COUNTERS)
 
 
 def _clone(v):
@@ -2071,7 +2070,7 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
                "cfir": (fk, "cfir"), "scan_demod": (receiver, "run_chunks"),
                "hs_demod": (receiver_hs, "run_chunks_hs")}
     # The wrappers (their counters) before the timing patches.
-    counted = kernel_wrappers()
+    counted = Launches()
     patches = [(mf_prefilter, "mf_prefilter",
                 timed("mf", mf_prefilter.mf_prefilter)),
                (multi_rx, "_demod_segmented",
@@ -2114,8 +2113,7 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
     itemsize = {"u8": 2, "s16": 4, "f32": 8}[fmt]
     step = (1 << 17) * itemsize
     ts = []
-    for fn in counted.values():
-        fn.launches = 0
+    counted.zero()
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2128,7 +2126,7 @@ def single_carrier(dev, rng, stimuli, name, fields, fmt, seconds, updown,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        launches = {k: fn.launches for k, fn in counted.items()}
+        launches = counted.read()
         for obj, a, fn in saved:
             setattr(obj, a, fn)
     device = {}
@@ -2347,7 +2345,7 @@ def check_scan_demod(dev, gen):
                                    dev, gen)
                 st = receiver.init_state(p, C, dev)
                 emitted = 0
-                d0 = receiver.run_chunks.launches_device_taps
+                d0 = trace.counters().get(DEVICE_TAPS, 0)
                 for part in (0, 1):
                     xs = x[:, part * n:(part + 1) * n + p.readahead]
                     (st, out), ms, e = _scan_compare(
@@ -2356,7 +2354,7 @@ def check_scan_demod(dev, gen):
                         (p, tables, st, xs.contiguous()))
                     err = max(err, e)
                     emitted += int(out["valid"].sum())
-                if receiver.run_chunks.launches_device_taps - d0 != (
+                if trace.counters().get(DEVICE_TAPS, 0) - d0 != (
                         2 if device_taps else 0):
                     fail(f"scan_demod {label} C={C}: not the "
                          f"{'device' if device_taps else 'shared'}-memory "
@@ -2702,13 +2700,13 @@ def brickwall(dev):
 # counts and main()'s seconds to OUT.json at exit.
 APP_WRAPPER = """
 import atexit, json, runpy, sys, time
-from chip_smoke import kernel_wrappers
+from chip_smoke import Launches
 out, module = sys.argv[1], sys.argv[2]
-counted = kernel_wrappers()
+counted = Launches()
 t0 = time.perf_counter()
 def dump():
     with open(out, "w") as f:
-        json.dump(dict(launches={k: w.launches for k, w in counted.items()},
+        json.dump(dict(launches=counted.read(),
                        main_s=time.perf_counter() - t0), f)
 atexit.register(dump)
 sys.argv = [module.rsplit(".", 1)[1]] + sys.argv[3:]
@@ -3139,10 +3137,9 @@ def scan_path(dev, rng, chains, clock) -> dict:
         host["read"] += time.perf_counter() - t
         return iq
 
-    counted = kernel_wrappers()
+    counted = Launches()
     receiver.run_chunks, multi_rx._ByteChain.feed = recorded, timed_feed
-    for fn in counted.values():
-        fn.launches = 0
+    counted.zero()
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3163,7 +3160,7 @@ def scan_path(dev, rng, chains, clock) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        launches = {k: fn.launches for k, fn in counted.items()}
+        launches = counted.read()
         receiver.run_chunks, multi_rx._ByteChain.feed = orig, feed
     n_after, n_good, span = check_packets(0, list(np.concatenate(pkts)))
     if launches[SCAN_PC] < 1 or not (
@@ -3452,7 +3449,7 @@ def multi_rank_job(r: int, work: str):
     work = Path(work)
     a = torch.load(work / "multi_in.pt")
     dev = group.init(r, 2, f"file://{work / 'store'}", "gloo")
-    counted = kernel_wrappers()
+    counted = Launches()
     try:
         params = receiver.ReceiverParams(**a["params"])
         tables = {k: v.to(dev) for k, v in a["tables"].items()}
@@ -3464,12 +3461,11 @@ def multi_rank_job(r: int, work: str):
         fir = halo.sharded_fir(a["taps"].numpy())
         ring = timeshard.ring_stream_demod(params)
         torch.cuda.synchronize()
-        for fn in counted.values():
-            fn.launches = 0
+        counted.zero()
         y = fir(xb)
         st, outs = ring(tables, state, ins)
         torch.cuda.synchronize()
-        launches = {k: fn.launches for k, fn in counted.items()}
+        launches = counted.read()
         st = mesh.gather_channels(st)
         outs = mesh.gather_channels(outs, dim=1)
         backend = dist.get_backend()
@@ -3524,7 +3520,7 @@ def multi_path(dev, gen, card) -> dict:
     work = kdev.BUILD / "multi"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    counted = kernel_wrappers()
+    counted = Launches()
     res = {}
 
     # 1. NCCL, one rank.
@@ -3542,13 +3538,12 @@ def multi_path(dev, gen, card) -> dict:
     group.init(0, 1, f"tcp://127.0.0.1:{multihost.free_port()}", "nccl")
     try:
         torch.cuda.synchronize()
-        for fn in counted.values():
-            fn.launches = 0
+        counted.zero()
         st_s, out_s, mer = step(tables, mesh.shard_channels(st0),
                                 mesh.shard_channels(x))
         y_s = sfir(xh)
         torch.cuda.synchronize()
-        nccl = {k: fn.launches for k, fn in counted.items()}
+        nccl = counted.read()
         backend = dist.get_backend()
         halo_ms = cuda_time(lambda: sfir(xh), 20)
     finally:
@@ -3659,8 +3654,7 @@ def multi_path(dev, gen, card) -> dict:
 
     # 3. The single-process fleet through DeviceFeeder.
     torch.cuda.synchronize()
-    for fn in counted.values():
-        fn.launches = 0
+    counted.zero()
     ts = [[] for _ in range(NCHAN)]
     waits, marks = [], []
     it = iter(DeviceFeeder(multihost.windows(iq, CHUNK_SAMPLES,
@@ -3677,7 +3671,7 @@ def multi_path(dev, gen, card) -> dict:
         marks.append(time.perf_counter())
     torch.cuda.synchronize()
     single_s = time.perf_counter() - t0
-    single = {k: fn.launches for k, fn in counted.items()}
+    single = counted.read()
     single_rate = NCHAN * MULTI_WINDOWS * CHUNK_SAMPLES / single_s / 1e6
     # After the first chunk (the rank's one-time set-up), as the ranks
     # report it.

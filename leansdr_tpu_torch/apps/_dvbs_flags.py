@@ -2,9 +2,11 @@
 leansdr_tpu/apps/_dvbs_flags.py: same names, same semantics, same
 code-rate validation, reference leandvb.cc:974-1221 flag set)."""
 
+import atexit
 import sys
 
 from ..dsp.cstln import Predef
+from ..util import trace
 
 CONSTELLATIONS = {
     "BPSK": Predef.BPSK, "QPSK": Predef.QPSK, "8PSK": Predef.PSK8,
@@ -59,6 +61,26 @@ def handle_dvbs_flag(a: str, val, cfg) -> bool:
         cfg.fastlock = True
         cfg.viterbi = True
         cfg.sampler = "rrc"
+    elif a == "--trace":
+        trace_to(val())
     else:
         return False
     return True
+
+
+_trace_path = []
+
+
+def trace_to(path: str):
+    """--trace FILE: trace every input from now on; write_trace() (at the
+    end of main, or at exit) writes the record to FILE."""
+    trace.enable()
+    _trace_path[:] = [path]
+    atexit.register(write_trace)
+
+
+def write_trace():
+    """Write the --trace record as Chrome-trace JSON (once)."""
+    if _trace_path:
+        trace.disable()
+        trace.write_chrome(_trace_path.pop())

@@ -83,7 +83,9 @@ def usage(code=0, f=sys.stderr):
         "  -v, -d                  Verbose / debug\n"
         "\nPort options:\n"
         "  --device DEV            cuda (default) or cpu (plain PyTorch\n"
-        "                          versions of the kernels)\n")
+        "                          versions of the kernels)\n"
+        "  --trace FILE            Spans and counters of every read, as\n"
+        "                          Chrome-trace JSON at exit\n")
     sys.exit(code)
 
 
@@ -210,6 +212,7 @@ def main(argv=None):
     from ..pipelines.dvbs_rx import DvbsReceiver
     from ..util import info as info_mod
     from ..util.iofmt import read_iq
+    from ._dvbs_flags import write_trace
 
     cfg, opts = parse_args(sys.argv[1:] if argv is None else argv)
     rx = DvbsReceiver(cfg, device=opts["device"])
@@ -330,6 +333,7 @@ def main(argv=None):
             out.flush()
         flush_info()
     flush_info()
+    write_trace()
     return 0
 
 

@@ -57,7 +57,9 @@ def usage(code=0, f=sys.stderr):
         " stdout)\n"
         "Info:   --fd-info FD   fleet lock/MER/VBER lines (tagged text)\n"
         "Port:   --device DEV   cuda (default) or cpu (plain PyTorch\n"
-        "                       versions of the kernels)\n")
+        "                       versions of the kernels)\n"
+        "        --trace FILE   spans and counters of every chunk, as\n"
+        "                       Chrome-trace JSON at exit\n")
     sys.exit(code)
 
 
@@ -131,6 +133,7 @@ def main(argv=None):
     from ..pipelines import multi_rx
     from ..util.info import InfoWriter
     from ..util.iofmt import read_iq
+    from ._dvbs_flags import write_trace
 
     nchan = opts["nchan"]
     # Invalid settings raise here, before any device or input is used.
@@ -205,6 +208,7 @@ def main(argv=None):
         rx.close()
         for f in outs or ():
             f.close()
+    write_trace()
     return 0
 
 

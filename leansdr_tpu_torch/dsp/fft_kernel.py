@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import device as _dev
+from ..util import trace
 
 N = 4096
 N1 = 64          # x[a*64 + b]: DFT_64 over a, twiddle, DFT_64 over b
@@ -127,16 +128,10 @@ def fft4096(xr: torch.Tensor, xi: torch.Tensor):
     tables = _device_tables(dev)
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
     if B:
-        err = _kernel().fft4096_launch(
-            tables.data_ptr(), xr.data_ptr(), xi.data_ptr(), yr.data_ptr(),
-            yi.data_ptr(), B, _dev.stream_handle(xr))
+        with trace.span("kernel.fft4096"):
+            err = _kernel().fft4096_launch(
+                tables.data_ptr(), xr.data_ptr(), xi.data_ptr(), yr.data_ptr(),
+                yi.data_ptr(), B, _dev.stream_handle(xr))
         _dev.check_launch("fft4096", err)
-        _FFT.launches += 1
+        trace.count("launch.fft4096")
     return yr, yi
-
-
-# Launch count of the kernel (a plain integer; increments only where the
-# kernel launches). Bound through an alias so a caller that rebinds the
-# module attribute (e.g. to time it) still counts.
-fft4096.launches = 0
-_FFT = fft4096

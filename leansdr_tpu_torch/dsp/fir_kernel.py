@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from .. import device as _dev
+from ..util import trace
 
 MAX_TAPS = 2048          # the taps sit in the kernel's shared memory
 
@@ -117,12 +118,13 @@ def cfir(x: torch.Tensor, taps_r: torch.Tensor, taps_i: torch.Tensor,
     _dev.check_tensor("taps_i", taps_i, torch.float32, (nt,), dev)
     y = torch.empty((2, count), dtype=torch.float32, device=dev)
     if count:
-        err = _kernel().cfir_launch(taps_r.data_ptr(), taps_i.data_ptr(),
-                                    x.data_ptr(), y.data_ptr(), n, nt,
-                                    start, step, count,
-                                    _dev.stream_handle(x))
+        with trace.span("kernel.cfir"):
+            err = _kernel().cfir_launch(taps_r.data_ptr(), taps_i.data_ptr(),
+                                        x.data_ptr(), y.data_ptr(), n, nt,
+                                        start, step, count,
+                                        _dev.stream_handle(x))
         _dev.check_launch("cfir", err)
-        _CFIR.launches += 1
+        trace.count("launch.cfir")
     return y
 
 
@@ -140,21 +142,13 @@ def fir(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     _dev.check_tensor("taps", taps, torch.float32, (nt,), dev)
     y = torch.empty_like(x)
     if n and R:
-        err = _kernel().fir_launch(taps.data_ptr(), x.data_ptr(),
-                                   y.data_ptr(), R, n, nt,
-                                   _dev.stream_handle(x))
+        with trace.span("kernel.fir"):
+            err = _kernel().fir_launch(taps.data_ptr(), x.data_ptr(),
+                                       y.data_ptr(), R, n, nt,
+                                       _dev.stream_handle(x))
         _dev.check_launch("fir", err)
-        _FIR.launches += 1
+        trace.count("launch.fir")
     return y
-
-
-# Launch counts of the kernels (plain integers; they increment only where
-# a kernel launches). Bound through aliases so a caller that rebinds the
-# module attributes (e.g. to time them) still counts.
-cfir.launches = 0
-fir.launches = 0
-_CFIR = cfir
-_FIR = fir
 
 
 class FirFilterDevice:

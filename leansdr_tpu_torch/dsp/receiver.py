@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from .. import device as _dev
+from ..util import trace
 from .cstln import CSTLN_AMP, Cstln, halve_into_s8, lookup_float
 from .math_utils import ATAN_COEFFS_F32, atan2_poly, expi_float, trig16_table
 
@@ -625,34 +626,24 @@ def run_chunks(params: ReceiverParams, tables: dict, state: dict,
     words = torch.empty((nsamp, C), dtype=torch.int32, device=dev)
     meta = torch.empty((5, K, C), dtype=torch.float32, device=dev)
     nmeas = torch.empty((K, C), dtype=torch.int32, device=dev)
-    err = _kernel().scan_demod_launch(
-        ctypes.byref(args), tables["trig"].data_ptr(),
-        tables["lut_cost"].data_ptr(), tables["lut_symbol"].data_ptr(),
-        tables["lut_phase"].data_ptr(), tables["sym3"].data_ptr(),
-        coeffs.data_ptr(), chan.data_ptr() if chan.numel() else None,
-        xt.data_ptr(), fp.data_ptr(), fp_out.data_ptr(),
-        ip.data_ptr(), ip_out.data_ptr(), shifted.data_ptr(),
-        words.data_ptr(), meta.data_ptr(), nmeas.data_ptr(), C, nsamp,
-        _dev.stream_handle(x))
+    with trace.span("kernel.scan_demod"):
+        err = _kernel().scan_demod_launch(
+            ctypes.byref(args), tables["trig"].data_ptr(),
+            tables["lut_cost"].data_ptr(), tables["lut_symbol"].data_ptr(),
+            tables["lut_phase"].data_ptr(), tables["sym3"].data_ptr(),
+            coeffs.data_ptr(), chan.data_ptr() if chan.numel() else None,
+            xt.data_ptr(), fp.data_ptr(), fp_out.data_ptr(),
+            ip.data_ptr(), ip_out.data_ptr(), shifted.data_ptr(),
+            words.data_ptr(), meta.data_ptr(), nmeas.data_ptr(), C, nsamp,
+            _dev.stream_handle(x))
     _dev.check_launch("scan_demod", err)
-    _SCAN.launches += 1
+    trace.count("launch.scan_demod")
     if rrc and not args.taps_shared:
-        _SCAN.launches_device_taps += 1
+        trace.count("launch.scan_demod.device_taps")
     if params.omega_per_channel:
-        _SCAN.launches_per_channel += 1
+        trace.count("launch.scan_demod.per_channel")
     st = unpack_state(fp_out, ip_out,
                       shifted.transpose(0, 1) if rrc else None)
     if params.omega_per_channel:
         st |= {k: state[k] for k in PER_CHANNEL}
     return st, _outputs(words.T, meta, nmeas)
-
-
-# Launch count of the kernel (a plain integer; increments only where the
-# kernel launches), bound through an alias so a caller that rebinds the
-# module attribute still counts; `launches_device_taps` counts those of
-# them that ran the rrc device-memory instance (taps_in_shared False),
-# `launches_per_channel` those in the per-channel-omega mode.
-run_chunks.launches = 0
-run_chunks.launches_device_taps = 0
-run_chunks.launches_per_channel = 0
-_SCAN = run_chunks

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .. import device as _dev
+from ..util import trace
 from .cstln import CSTLN_AMP
 
 CHUNK = 128
@@ -340,24 +341,18 @@ def run_chunks_hs(params: HsParams, tables: dict, state: dict,
     words = torch.empty((nsamp, C), dtype=torch.int32, device=dev)
     freq = torch.empty((K, C), dtype=torch.float32, device=dev)
     meta = torch.empty((4, K, C), dtype=torch.int32, device=dev)
-    err = _kernel().hs_demod_launch(
-        ctypes.byref(_hs_args(params)), tables["polar_a16"].data_ptr(),
-        tables["rect16"].data_ptr(), pw.data_ptr(), mu.data_ptr(),
-        mu_out.data_ptr(), ip.data_ptr(), ip_out.data_ptr(),
-        words.data_ptr(), freq.data_ptr(), meta.data_ptr(), C, nsamp,
-        _dev.stream_handle(x))
+    with trace.span("kernel.hs_demod"):
+        err = _kernel().hs_demod_launch(
+            ctypes.byref(_hs_args(params)), tables["polar_a16"].data_ptr(),
+            tables["rect16"].data_ptr(), pw.data_ptr(), mu.data_ptr(),
+            mu_out.data_ptr(), ip.data_ptr(), ip_out.data_ptr(),
+            words.data_ptr(), freq.data_ptr(), meta.data_ptr(), C, nsamp,
+            _dev.stream_handle(x))
     _dev.check_launch("hs_demod", err)
-    _HS.launches += 1
+    trace.count("launch.hs_demod")
     w = words.T
     return unpack_state(mu_out, ip_out), dict(
         symbol=((w >> 16) & 0xFF).to(torch.uint8),
         valid=((w >> 24) & 1).to(torch.bool), freq=freq.T,
         nmeas=meta[0].T, sampled=meta[1:3].permute(2, 1, 0),
         sampled_ok=meta[3].T.to(torch.bool))
-
-
-# Launch count of the kernel (a plain integer; increments only where the
-# kernel launches), bound through an alias so a caller that rebinds the
-# module attribute still counts.
-run_chunks_hs.launches = 0
-_HS = run_chunks_hs

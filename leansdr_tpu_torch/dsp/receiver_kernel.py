@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import device as _dev
+from ..util import trace
 from .cstln import CSTLN_AMP, Cstln
 from .math_utils import ATAN_COEFFS_F32, atan2_poly
 from .receiver import CHUNK, NSTATE, ReceiverParams, pack_planes, \
@@ -363,17 +364,11 @@ def demod(params: ReceiverParams, sym_consts, planes: torch.Tensor,
     xt = x.transpose(0, 1).contiguous()      # [nsamp+1, C, 2]: coalesced
     st_out = torch.empty_like(planes)
     packed = torch.empty((nsamp, C), dtype=torch.int32, device=x.device)
-    err = lib.demod_launch(ctypes.byref(args), sym.data_ptr(), xt.data_ptr(),
-                           planes.data_ptr(), st_out.data_ptr(),
-                           packed.data_ptr(), C, nsamp,
-                           _dev.stream_handle(x))
+    with trace.span("kernel.demod"):
+        err = lib.demod_launch(ctypes.byref(args), sym.data_ptr(),
+                               xt.data_ptr(), planes.data_ptr(),
+                               st_out.data_ptr(), packed.data_ptr(), C,
+                               nsamp, _dev.stream_handle(x))
     _dev.check_launch("demod", err)
-    _DEMOD.launches += 1
+    trace.count("launch.demod")
     return st_out, packed
-
-
-# Launch count of the kernel (a plain integer; increments only where
-# the kernel launches). Bound through an alias so a caller that rebinds
-# the module attribute (e.g. to time it) still counts.
-demod.launches = 0
-_DEMOD = demod

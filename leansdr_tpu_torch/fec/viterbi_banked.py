@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .. import device as _dev
+from ..util import trace
 from .viterbi import NSTATES, PATH_SPEC, make_trellis
 
 BIG = 1 << 30
@@ -393,20 +394,14 @@ def viterbi_acs_banked(rate: str, metric: torch.Tensor,
     m2, h2, l2 = (torch.empty_like(metric) for _ in range(3))
     us = torch.empty((T, N), dtype=torch.int32, device=dev)
     q = torch.empty((T, N), dtype=torch.int32, device=dev)
-    err = lib.acs_banked_launch(
-        rk.data_ptr(), aux.data_ptr(), metric.data_ptr(),
-        path_hi.data_ptr(), path_lo.data_ptr(), cs.data_ptr(),
-        cost.data_ptr(), m2.data_ptr(), h2.data_ptr(), l2.data_ptr(),
-        us.data_ptr(), q.data_ptr(), T, N, geo.B, nbits,
-        (depth - 1) * nbits - 32, geo.rank_bits, geo.ncs,
-        _dev.stream_handle(cs))
+    with trace.span("kernel.acs_banked"):
+        err = lib.acs_banked_launch(
+            rk.data_ptr(), aux.data_ptr(), metric.data_ptr(),
+            path_hi.data_ptr(), path_lo.data_ptr(), cs.data_ptr(),
+            cost.data_ptr(), m2.data_ptr(), h2.data_ptr(), l2.data_ptr(),
+            us.data_ptr(), q.data_ptr(), T, N, geo.B, nbits,
+            (depth - 1) * nbits - 32, geo.rank_bits, geo.ncs,
+            _dev.stream_handle(cs))
     _dev.check_launch("acs_banked", err)
-    _VITERBI_ACS_BANKED.launches += 1
+    trace.count("launch.acs_banked")
     return m2, h2, l2, us, q
-
-
-# Launch count of the kernel (a plain integer; increments only where
-# the kernel launches). Bound through an alias so a caller that rebinds
-# the module attribute (e.g. to time it) still counts.
-viterbi_acs_banked.launches = 0
-_VITERBI_ACS_BANKED = viterbi_acs_banked

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from .. import device as _dev
+from ..util import trace
 from . import deconv_device
 from .deconv_device import DELTA_MAX, deconv_append
 from .viterbi import PATH_SPEC, make_sync_maps, make_trellis
@@ -187,21 +188,16 @@ def viterbi_acs(rate: str, metric: torch.Tensor, path: torch.Tensor,
     p2 = torch.empty_like(path)
     us = torch.empty((T, N), dtype=torch.int32, device=dev)
     q = torch.empty((T, N), dtype=torch.int32, device=dev)
-    err = lib.acs_launch(tbl.data_ptr(), metric.data_ptr(), path.data_ptr(),
-                         cs.data_ptr(), cost.data_ptr(), m2.data_ptr(),
-                         p2.data_ptr(), us.data_ptr(), q.data_ptr(),
-                         T, N, (depth - 1) * nbits, int(cheap_q),
-                         _dev.stream_handle(cs))
+    with trace.span("kernel.acs"):
+        err = lib.acs_launch(tbl.data_ptr(), metric.data_ptr(),
+                             path.data_ptr(), cs.data_ptr(),
+                             cost.data_ptr(), m2.data_ptr(),
+                             p2.data_ptr(), us.data_ptr(), q.data_ptr(),
+                             T, N, (depth - 1) * nbits, int(cheap_q),
+                             _dev.stream_handle(cs))
     _dev.check_launch("acs", err)
-    _VITERBI_ACS.launches += 1
+    trace.count("launch.acs")
     return m2, p2, us, q
-
-
-# Launch count of the kernel (a plain integer; increments only where
-# the kernel launches). Bound through an alias so a caller that rebinds
-# the module attribute (e.g. to time it) still counts.
-viterbi_acs.launches = 0
-_VITERBI_ACS = viterbi_acs
 
 
 # ---------------------------------------------------------------------------

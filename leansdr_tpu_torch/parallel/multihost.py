@@ -46,13 +46,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from ..dsp import filtergen, fir_kernel, receiver
-from ..dsp import receiver_kernel as rk
+from ..dsp import filtergen, receiver
 from ..dsp.cstln import Predef, make_dvbs2_constellation
-from ..fec import viterbi_device as vd
 from ..pipelines import dvbs_tx, tsgen
 from ..pipelines.dvbs_rx import RxConfig
 from ..pipelines.multi_rx import MultiDvbsReceiver
+from ..util import trace
 from ..util.ingest import DeviceFeeder
 from . import group as _group
 from . import halo, mesh
@@ -135,9 +134,9 @@ def share_bookkeeping(rx: MultiDvbsReceiver, group=None):
 
 def _counts() -> dict:
     """The kernels' launch counts in this process."""
-    return {"demod": rk.demod.launches, "acs": vd.viterbi_acs.launches,
-            "scan_demod": receiver.run_chunks.launches,
-            "fir": fir_kernel.fir.launches}
+    c = trace.counters()
+    return {k: c.get(f"launch.{k}", 0)
+            for k in ("demod", "acs", "scan_demod", "fir")}
 
 
 def _sync(dev):

@@ -72,6 +72,7 @@ from ..fec.viterbi import ViterbiSyncDevice, make_sync_maps
 from ..fec.viterbi_banked import fleet_rate, viterbi_rate
 from ..proto.framing import MpegSync
 from ..proto.hdlc import HdlcSync, etr192_descramble
+from ..util import trace
 from . import chansim
 
 TS_SIZE = 188
@@ -153,6 +154,14 @@ def rrc_sampler(Fs: float, cfg: RxConfig) -> tuple:
     return (tuple(filtergen.root_raised_cosine(order, cfg.Fm / Frrc,
                                                cfg.rolloff).tolist()),
             steps)
+
+
+def _host_copy(t: torch.Tensor) -> np.ndarray:
+    """A demod output to the host (the host waits for the device work
+    before it), counted in rx.d2h_bytes."""
+    a = t.cpu().numpy()
+    trace.count("rx.d2h_bytes", a.nbytes)
+    return a
 
 
 def state_to_numpy(st):
@@ -485,6 +494,7 @@ class DvbsReceiver(TsStages):
                      "cnr": []}
         self.spectrum_lines = []     # [1024] dB lines for --fd-spectrum
         self.sampled_points = []     # (re, im) for --fd-const SYMBOLS
+        self._reads = 0              # process() calls so far
 
     @property
     def readahead(self) -> int:
@@ -511,80 +521,107 @@ class DvbsReceiver(TsStages):
     def process(self, iq: np.ndarray) -> np.ndarray:
         """Feed [n, 2] float32 IQ; returns TS packets [k, 188] decoded so
         far."""
-        if self.cfg.hs:
-            return self._process_hs(iq)
-        iq = np.asarray(iq, dtype=np.float32) * np.float32(
-            self.cfg.float_scale)
-        iq = self._preprocess(iq)
-        if self.cfg.fd_pp >= 0:
-            # --fd-pp: the preprocessed cf32 stream (p_preprocessed,
-            # leandvb.cc:418-422): what feeds the demodulator.
-            os.write(self.cfg.fd_pp, np.ascontiguousarray(
-                iq, np.float32).tobytes())
-        self.sample_backlog = np.concatenate([self.sample_backlog, iq])
+        inp = trace.begin(self._reads)
+        self._reads += 1
+        with inp, trace.span("rx.process"):
+            trace.count("rx.reads")
+            if self.cfg.hs:
+                return self._process_hs(iq)
+            with trace.span("rx.preprocess"):
+                iq = np.asarray(iq, dtype=np.float32) * np.float32(
+                    self.cfg.float_scale)
+                iq = self._preprocess(iq)
+            if self.cfg.fd_pp >= 0:
+                # --fd-pp: the preprocessed cf32 stream (p_preprocessed,
+                # leandvb.cc:418-422): what feeds the demodulator.
+                os.write(self.cfg.fd_pp, np.ascontiguousarray(
+                    iq, np.float32).tobytes())
+            S = self.cfg.segments
+            seg_live = S > 1 and self._chunks_done >= self.cfg.seg_holdoff
+            with trace.span("rx.ingest"):
+                xd = self._ingest(iq, S if seg_live else 1)
+            if xd is None:
+                return np.empty((0, TS_SIZE), np.uint8)
+            n = xd.shape[1] - self.readahead
+            # multi_rx imports this module, so its engine is imported here.
+            from .multi_rx import _SEG_T, _demod_segmented, init_seg_state
+            if seg_live and n // S >= self.cfg.seg_warmup + _SEG_T:
+                # The fleet's time-segmented demod on one carrier.
+                nseg = n // S
+                if self._seg_state is None or self._seg_nseg != nseg:
+                    self._seg_state = init_seg_state(self.dem_state, 1, S,
+                                                     nseg)
+                    self._seg_nseg = nseg
+                with trace.span("rx.demod"):
+                    (self.dem_state, self._seg_state, sym, valid,
+                     cost) = _demod_segmented(
+                        self.params, getattr(self, "_sym_consts", None),
+                        self.mf_taps, 1, S, self.cfg.seg_warmup,
+                        self.cfg.viterbi, self.dem_state, self._seg_state, xd,
+                        tables=self.tables)
+                with trace.span("rx.fetch"):
+                    valid = _host_copy(valid[:, 0])
+                    syms = _host_copy(sym[:, 0])[valid]
+                    costs = (_host_copy(cost[:, 0])[valid]
+                             if self.cfg.viterbi else None)
+                with trace.span("rx.meas"):
+                    self._meas_snapshot(n)
+            else:
+                # A sequential call moves the stream past the persisted
+                # per-segment positions: rebuild them at the next segmented
+                # call.
+                self._seg_state = None
+                if self.mf_taps is not None:
+                    with trace.span("rx.mf"):
+                        freqw = (self._planes[2] if self.use_pallas
+                                 else self.state["freqw"])
+                        xd = mf_prefilter.mf_prefilter(self.mf_taps, freqw, xd)
+                if self.use_pallas:
+                    with trace.span("rx.demod"):
+                        self._planes, packed = rk.demod(
+                            self.params, self._sym_consts, self._planes, xd)
+                    with trace.span("rx.fetch"):
+                        p = _host_copy(packed[:, 0])
+                    valid = ((p >> 24) & 1).astype(bool)
+                    syms = ((p >> 16) & 0xFF).astype(np.uint8)[valid]
+                    costs = (-(p & 0xFFFF)).astype(np.int16)[valid]
+                    with trace.span("rx.meas"):
+                        self._meas_snapshot(n)
+                else:
+                    with trace.span("rx.demod"):
+                        self.state, out = receiver.run_chunks(
+                            self.params, self.tables, self.state, xd)
+                    with trace.span("rx.fetch"):
+                        valid = _host_copy(out["valid"][0])
+                        syms = _host_copy(out["symbol"][0])[valid]
+                        costs = _host_copy(out["cost"][0])[valid]
+                    with trace.span("rx.meas"):
+                        self._collect_meas(out)
+            self._chunks_done += 1
 
+            with trace.span("rx.deconv"):
+                if self.cfg.viterbi:
+                    bytes_out = self.deconv.process(syms, costs)
+                else:
+                    bytes_out = self.deconv.process(syms)
+            with trace.span("rx.bytes"):
+                return self._byte_stages(bytes_out)
+
+    def _ingest(self, iq: np.ndarray, S: int):
+        """The sample backlog and the copy of its whole chunks (a multiple
+        of S, with the readahead) to the device as [1, n + ra, 2]; None
+        until a chunk is buffered."""
+        self.sample_backlog = np.concatenate([self.sample_backlog, iq])
         ra = self.readahead
         K = (len(self.sample_backlog) - ra) // receiver.CHUNK
-        S = self.cfg.segments
-        seg_live = S > 1 and self._chunks_done >= self.cfg.seg_holdoff
-        if seg_live:
-            K -= K % S                  # nseg must stay CHUNK-aligned
+        K -= K % S                      # nseg must stay CHUNK-aligned
         if K <= 0:
-            return np.empty((0, TS_SIZE), np.uint8)
+            return None
         n = K * receiver.CHUNK
-        x = self.sample_backlog[: n + ra]
+        x = np.ascontiguousarray(self.sample_backlog[: n + ra][None])
         self.sample_backlog = self.sample_backlog[n:]
-
-        xd = torch.from_numpy(np.ascontiguousarray(x[None])).to(self.device)
-        # multi_rx imports this module, so its engine is imported here.
-        from .multi_rx import _SEG_T, _demod_segmented, init_seg_state
-        if seg_live and n // S >= self.cfg.seg_warmup + _SEG_T:
-            # The fleet's time-segmented demod on one carrier.
-            nseg = n // S
-            if self._seg_state is None or self._seg_nseg != nseg:
-                self._seg_state = init_seg_state(self.dem_state, 1, S, nseg)
-                self._seg_nseg = nseg
-            (self.dem_state, self._seg_state, sym, valid,
-             cost) = _demod_segmented(
-                self.params, getattr(self, "_sym_consts", None),
-                self.mf_taps, 1, S, self.cfg.seg_warmup, self.cfg.viterbi,
-                self.dem_state, self._seg_state, xd, tables=self.tables)
-            valid = valid[:, 0].cpu().numpy()
-            syms = sym[:, 0].cpu().numpy()[valid]
-            costs = (cost[:, 0].cpu().numpy()[valid] if self.cfg.viterbi
-                     else None)
-            self._meas_snapshot(n)
-        else:
-            # A sequential call moves the stream past the persisted
-            # per-segment positions: rebuild them at the next segmented
-            # call.
-            self._seg_state = None
-            if self.mf_taps is not None:
-                freqw = (self._planes[2] if self.use_pallas
-                         else self.state["freqw"])
-                xd = mf_prefilter.mf_prefilter(self.mf_taps, freqw, xd)
-            if self.use_pallas:
-                self._planes, packed = rk.demod(
-                    self.params, self._sym_consts, self._planes, xd)
-                p = packed[:, 0].cpu().numpy()
-                valid = ((p >> 24) & 1).astype(bool)
-                syms = ((p >> 16) & 0xFF).astype(np.uint8)[valid]
-                costs = (-(p & 0xFFFF)).astype(np.int16)[valid]
-                self._meas_snapshot(n)
-            else:
-                self.state, out = receiver.run_chunks(
-                    self.params, self.tables, self.state, xd)
-                valid = out["valid"][0].cpu().numpy()
-                syms = out["symbol"][0].cpu().numpy()[valid]
-                costs = out["cost"][0].cpu().numpy()[valid]
-                self._collect_meas(out)
-        self._chunks_done += 1
-
-        if self.cfg.viterbi:
-            bytes_out = self.deconv.process(syms, costs)
-        else:
-            bytes_out = self.deconv.process(syms)
-        return self._byte_stages(bytes_out)
+        trace.count("rx.h2d_bytes", x.nbytes)
+        return torch.from_numpy(x).to(self.device)
 
     def _meas_snapshot(self, n: int):
         """Measurement snapshots from the demod state at the scan path's
@@ -674,7 +711,8 @@ class DvbsReceiver(TsStages):
             return iq
         z = iq[:, 0] + 1j * iq[:, 1]
         if self.notch:
-            z = self.notch.process(z)
+            with trace.span("rx.notch"):
+                z = self.notch.process(z)
         if self.derot:
             z = self.derot.process(z)
         freq_tap = self.meas["freq"][-1] if self.meas["freq"] else 0.0
@@ -703,6 +741,7 @@ class DvbsReceiver(TsStages):
             return np.empty((0, TS_SIZE), np.uint8)
         pkts, failed, bits = self._ts_stages(bytes_out)
         if failed is not None:
+            trace.count("rx.rs_failed", int(failed.sum()))
             if self.cfg.debug:
                 # Per-packet RS classification glyphs (dvb.h:1029-1038):
                 # '_' clean, '.' corrected, '!' still corrupted.

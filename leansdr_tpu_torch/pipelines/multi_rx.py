@@ -63,6 +63,7 @@ from ..fec.viterbi_banked import fleet_rate
 from ..fec.viterbi_device import MultiViterbiSync, decoder
 from ..native import NativeByteBackend
 from ..proto.framing import RS_SIZE, MpegSync
+from ..util import trace
 from .dvbs_rx import (RxConfig, TS_SIZE, TsStages, _DeconvolSync,
                       rrc_sampler, state_from_numpy, state_to_numpy)
 
@@ -375,14 +376,18 @@ def _fused_chunk(params, sym_consts, mf_taps, kind, plan, plan_dec, maps,
     decode = decoder(kind)
     want_cost = kind.startswith("viterbi")
     if segments > 1:
-        dem_state, seg_state, sym, valid, cost = _demod_segmented(
-            params, sym_consts, mf_taps, nlanes(dem_state), segments,
-            seg_warmup, want_cost, dem_state, seg_state, x, tables=tables)
+        with trace.span("fleet.segmented"):
+            dem_state, seg_state, sym, valid, cost = _demod_segmented(
+                params, sym_consts, mf_taps, nlanes(dem_state), segments,
+                seg_warmup, want_cost, dem_state, seg_state, x,
+                tables=tables)
     else:
         if mf_taps is not None:
-            x = mf_prefilter.mf_prefilter(mf_taps, _freqw(dem_state), x)
-        dem_state, sym, valid, cost = demod(params, sym_consts, tables,
-                                            dem_state, x)
+            with trace.span("fleet.mf"):
+                x = mf_prefilter.mf_prefilter(mf_taps, _freqw(dem_state), x)
+        with trace.span("fleet.demod"):
+            dem_state, sym, valid, cost = demod(params, sym_consts, tables,
+                                                dem_state, x)
         if not want_cost:
             cost = None
     n = sym.shape[0]
@@ -390,12 +395,17 @@ def _fused_chunk(params, sym_consts, mf_taps, kind, plan, plan_dec, maps,
     flat = []
     for i, o in enumerate(range(0, n, step)):
         m = min(step, n - o)
-        dstate = deconv_append(plan, dstate, sym[o:o + m], valid[o:o + m],
-                               None if cost is None else cost[o:o + m])
+        with trace.span("fleet.ring_append"):
+            dstate = deconv_append(plan, dstate, sym[o:o + m],
+                                   valid[o:o + m],
+                                   None if cost is None else cost[o:o + m])
         for _ in range(schedule[i]):
-            dstate, by, errs, under = decode(plan_dec, dstate, maps)
+            with trace.span("fleet.decode"):
+                dstate, by, errs, under = decode(plan_dec, dstate, maps)
             flat += [by, errs, under]
-    return dem_state, seg_state, dstate, _pack_fetch(dstate["fill"], flat)
+    with trace.span("fleet.pack"):
+        packed = _pack_fetch(dstate["fill"], flat)
+    return dem_state, seg_state, dstate, packed
 
 
 def _check_config(cfg: RxConfig, segments, seg_warmup):
@@ -658,6 +668,8 @@ class MultiDvbsReceiver:
                          if cfg.want_spectrum else None)
         self.cnr = []                  # [C] vectors (dB), ~1 Hz
         self.spectrum_lines = []       # [C, 1024] dB lines
+        self._inputs = 0               # submit()/process() calls so far
+        self._locks = [False] * nchan  # MPEG lock at the last collect()
 
     @property
     def dem_state(self):
@@ -688,85 +700,110 @@ class MultiDvbsReceiver:
         readahead + a multiple of CHUNK (with float_scale already
         applied): it is then consumed directly with no host round trip.
         """
-        pend = self.dispatch(iq)
-        if pend is None:
-            return [np.empty((0, TS_SIZE), np.uint8)] * self.nchan
-        return self.collect(pend)
+        with self._begin():
+            pend = self.dispatch(iq)
+            if pend is None:
+                return [np.empty((0, TS_SIZE), np.uint8)] * self.nchan
+            return self.collect(pend)
+
+    def _begin(self) -> trace.Input:
+        """The tracing decision for the next input (trace.begin)."""
+        inp = trace.begin(self._inputs)
+        self._inputs += 1
+        return inp
 
     def dispatch(self, iq):
         """Enqueue the device work of one chunk; returns a pending handle
         or None if not enough samples are buffered."""
-        ra = self.readahead
-        preproc = (self.notch is not None or self.cnr_est is not None
-                   or self.spectrum is not None)
-        if (isinstance(iq, torch.Tensor) and iq.device == self.device
-                and self.device.type == "cuda" and not preproc
-                and self.sample_backlog.shape[1] == 0
-                and (iq.shape[1] - ra) % (receiver.CHUNK
-                                          * self.segments) == 0):
-            # Device-resident fast path (only without preprocessing, which
-            # it must not skip).
-            x = iq
-            n = iq.shape[1] - ra
-        else:
-            if isinstance(iq, torch.Tensor):
-                iq = iq.cpu().numpy()
-            iq = np.asarray(iq, np.float32) * np.float32(
-                self.cfg.float_scale)
-            # The notch before the estimators, so a notched birdie does
-            # not inflate the CNR (leandvb.cc:277-399).
-            if self.notch is not None:
-                iq = self.notch.process(iq)
-            if self.cnr_est or self.spectrum:
-                if self.cnr_est:
-                    freqw = (self._planes[2] if self.use_pallas
-                             else self.state["freqw"])
-                    self.cnr.extend(self.cnr_est.process(
-                        iq, freqw.cpu().numpy() / 65536.0))
-                if self.spectrum:
-                    self.spectrum_lines.extend(self.spectrum.process(iq))
-            self.sample_backlog = np.concatenate(
-                [self.sample_backlog, iq], axis=1)
-            K = (self.sample_backlog.shape[1] - ra) // receiver.CHUNK
-            K -= K % self.segments       # nseg must stay CHUNK-aligned
-            if K <= 0:
-                return None
-            n = K * receiver.CHUNK
-            x = torch.from_numpy(np.ascontiguousarray(
-                self.sample_backlog[:, :n + ra])).to(self.device)
-            self.sample_backlog = self.sample_backlog[:, n:]
+        with trace.span("fleet.dispatch"):
+            ra = self.readahead
+            preproc = (self.notch is not None or self.cnr_est is not None
+                       or self.spectrum is not None)
+            if (isinstance(iq, torch.Tensor) and iq.device == self.device
+                    and self.device.type == "cuda" and not preproc
+                    and self.sample_backlog.shape[1] == 0
+                    and (iq.shape[1] - ra) % (receiver.CHUNK
+                                              * self.segments) == 0):
+                # Device-resident fast path (only without preprocessing, which
+                # it must not skip).
+                x = iq
+                n = iq.shape[1] - ra
+            else:
+                with trace.span("fleet.ingest"):
+                    x = self._ingest(iq, ra)
+                if x is None:
+                    return None
+                n = x.shape[1] - ra
 
-        # The decode schedule comes from host fill bookkeeping; appends
-        # larger than the ring's sizing split along time with decodes
-        # drained between slices.
-        self.deconv.apply_pending_transition()
-        plan_dec = self.deconv.plan_dec
-        step = self.deconv.plan.nsamp
-        schedule = []
-        for o in range(0, n, step):
-            m = min(step, n - o)
-            self.deconv.note_production(max(0, int(m / self.omega) - 8))
-            schedule.append(self.deconv.schedule_decode())
-        S = self.segments if self._chunk_count >= self.seg_holdoff else 1
-        if S > 1 and (self._seg_state is None or self._seg_nseg != n // S):
-            # The persisted states assume a constant segment length:
-            # (re)build them from the carried chunk-head state.
-            self._seg_state = init_seg_state(self.dem_state, self.nchan, S,
-                                             n // S)
-            self._seg_nseg = n // S
-        (self.dem_state, seg_state, self.deconv.state,
-         packed_out) = _fused_chunk(
-            self.params, self._sym_consts, self.mf_taps, self.deconv.kind,
-            self.deconv.plan, plan_dec, self.deconv.maps, schedule,
-            self.dem_state, self._seg_state, self.deconv.state, x,
-            segments=S, seg_warmup=self.seg_warmup, tables=self.tables)
-        if S > 1:
-            self._seg_state = seg_state
-        self._chunk_count += 1
-        ecols = plan_dec.E + (1 if self.deconv.kind.startswith("viterbi")
-                              else 0)
-        shapes = [(plan_dec.nbytes, ecols)] * sum(schedule)
-        return packed_out, shapes
+            # The decode schedule comes from host fill bookkeeping; appends
+            # larger than the ring's sizing split along time with decodes
+            # drained between slices.
+            with trace.span("fleet.plan"):
+                self.deconv.apply_pending_transition()
+                plan_dec = self.deconv.plan_dec
+                step = self.deconv.plan.nsamp
+                schedule = []
+                for o in range(0, n, step):
+                    m = min(step, n - o)
+                    self.deconv.note_production(
+                        max(0, int(m / self.omega) - 8))
+                    schedule.append(self.deconv.schedule_decode())
+            # The hard decoder always runs every hypothesis: ACQUIRE.
+            trace.count("fleet.decodes.track" if getattr(self.deconv, "track",
+                                                         False)
+                        else "fleet.decodes.acquire", sum(schedule))
+            trace.count("fleet.chunks")
+            S = self.segments if self._chunk_count >= self.seg_holdoff else 1
+            if S > 1 and (self._seg_state is None or self._seg_nseg != n // S):
+                # The persisted states assume a constant segment length:
+                # (re)build them from the carried chunk-head state.
+                self._seg_state = init_seg_state(self.dem_state, self.nchan, S,
+                                                 n // S)
+                self._seg_nseg = n // S
+            (self.dem_state, seg_state, self.deconv.state,
+             packed_out) = _fused_chunk(
+                self.params, self._sym_consts, self.mf_taps, self.deconv.kind,
+                self.deconv.plan, plan_dec, self.deconv.maps, schedule,
+                self.dem_state, self._seg_state, self.deconv.state, x,
+                segments=S, seg_warmup=self.seg_warmup, tables=self.tables)
+            if S > 1:
+                self._seg_state = seg_state
+            self._chunk_count += 1
+            ecols = plan_dec.E + (1 if self.deconv.kind.startswith("viterbi")
+                                  else 0)
+            shapes = [(plan_dec.nbytes, ecols)] * sum(schedule)
+            return packed_out, shapes
+
+    def _ingest(self, iq, ra: int):
+        """The host path's ingest: scale, preprocessing, the sample
+        backlog and the copy to the device of its whole chunks ([C, n +
+        ra, 2]; None until a chunk is buffered)."""
+        if isinstance(iq, torch.Tensor):
+            iq = iq.cpu().numpy()
+        iq = np.asarray(iq, np.float32) * np.float32(self.cfg.float_scale)
+        # The notch before the estimators, so a notched birdie does not
+        # inflate the CNR (leandvb.cc:277-399).
+        if self.notch is not None:
+            iq = self.notch.process(iq)
+        if self.cnr_est or self.spectrum:
+            if self.cnr_est:
+                freqw = (self._planes[2] if self.use_pallas
+                         else self.state["freqw"])
+                self.cnr.extend(self.cnr_est.process(
+                    iq, freqw.cpu().numpy() / 65536.0))
+            if self.spectrum:
+                self.spectrum_lines.extend(self.spectrum.process(iq))
+        self.sample_backlog = np.concatenate([self.sample_backlog, iq],
+                                             axis=1)
+        K = (self.sample_backlog.shape[1] - ra) // receiver.CHUNK
+        K -= K % self.segments           # nseg must stay CHUNK-aligned
+        if K <= 0:
+            return None
+        n = K * receiver.CHUNK
+        host = np.ascontiguousarray(self.sample_backlog[:, :n + ra])
+        trace.count("fleet.h2d_bytes", host.nbytes)
+        self.sample_backlog = self.sample_backlog[:, n:]
+        return torch.from_numpy(host).to(self.device)
 
     def prefetch(self, pending):
         """Start the device->host copy of a dispatch()'s packed result on
@@ -783,11 +820,28 @@ class MultiDvbsReceiver:
     def collect(self, pending) -> list:
         """Fetch one dispatch()'s results (ONE device->host copy) and run
         the host byte backend."""
-        packed_out, shapes = pending
-        if hasattr(packed_out, "result"):
-            buf = packed_out.result()                # prefetched
-        else:
-            buf = _to_host(packed_out)               # [C, total]
+        with trace.span("fleet.collect"):
+            packed_out, shapes = pending
+            with trace.span("fleet.fetch_wait"):
+                if hasattr(packed_out, "result"):
+                    buf = packed_out.result()        # prefetched
+                else:
+                    buf = _to_host(packed_out)       # [C, total]
+            with trace.span("fleet.unpack"):
+                bytes_by_chan = self._unpack(buf, shapes)
+            with trace.span("fleet.backend_feed"):
+                out = self.backend.feed(bytes_by_chan)
+            locks = self.backend.locks
+            for was, now in zip(self._locks, locks):
+                if was != now:
+                    trace.count("fleet.lock_gained" if now
+                                else "fleet.lock_lost")
+            self._locks = list(locks)
+            return out
+
+    def _unpack(self, buf: np.ndarray, shapes) -> list:
+        """A fetched buffer -> the new bytes of each channel (the
+        decoder's observations and fill fed back on the way)."""
         per_chan = [[] for _ in range(self.nchan)]
         observe = getattr(self.deconv, "observe", None)
         o = 0
@@ -805,10 +859,8 @@ class MultiDvbsReceiver:
                     per_chan[c].append(by[c])
         fill = buf[:, o:o + 4].copy().view(np.int32)[:, 0]
         self.deconv.sync_fill(fill)
-        bytes_by_chan = [
-            np.concatenate(p) if p else np.empty(0, np.uint8)
-            for p in per_chan]
-        return self.backend.feed(bytes_by_chan)
+        return [np.concatenate(p) if p else np.empty(0, np.uint8)
+                for p in per_chan]
 
     # -- software-pipelined streaming --------------------------------------
     #
@@ -829,25 +881,40 @@ class MultiDvbsReceiver:
         """Enqueue one chunk; return the TS outputs of any chunks whose
         backend completed (a list of per-channel packet-array lists).
         Blocks only when more than `max_inflight` chunks are in flight."""
-        if self._jobs is None:
-            from collections import deque
-            from concurrent.futures import ThreadPoolExecutor
-            self._fetch_pool = ThreadPoolExecutor(1)
-            self._backend_pool = ThreadPoolExecutor(1)
-            self._jobs = deque()
-        done = []
-        while self._sync_feedback and self._jobs:
-            done.append(self._jobs.popleft().result())
-        pend = self.dispatch(iq)
-        if pend is not None:
-            packed_out, shapes = pend
-            fut = self._fetch_pool.submit(_to_host, packed_out)
-            self._jobs.append(
-                self._backend_pool.submit(self.collect, (fut, shapes)))
-        while self._jobs and (self._jobs[0].done()
-                              or len(self._jobs) > self.max_inflight):
-            done.append(self._jobs.popleft().result())
-        return done
+        inp = self._begin()
+        with inp, trace.span("fleet.submit"):
+            if self._jobs is None:
+                from collections import deque
+                from concurrent.futures import ThreadPoolExecutor
+                self._fetch_pool = ThreadPoolExecutor(1)
+                self._backend_pool = ThreadPoolExecutor(1)
+                self._jobs = deque()
+            trace.count("fleet.submits")
+            done = []
+            if self._sync_feedback and self._jobs:
+                with trace.span("fleet.wait"):
+                    done += [j.result() for j in self._jobs]
+                    self._jobs.clear()
+            pend = self.dispatch(iq)
+            if pend is not None:
+                packed_out, shapes = pend
+                fut = self._fetch_pool.submit(_fetch_job, inp, packed_out)
+                self._jobs.append(self._backend_pool.submit(
+                    self._collect_job, inp, trace.stamp(), fut, shapes))
+            trace.count("fleet.inflight", len(self._jobs))
+            if len(self._jobs) > self.max_inflight:
+                with trace.span("fleet.wait"):
+                    while len(self._jobs) > self.max_inflight:
+                        done.append(self._jobs.popleft().result())
+            while self._jobs and self._jobs[0].done():
+                done.append(self._jobs.popleft().result())
+            return done
+
+    def _collect_job(self, inp: trace.Input, queued: int, fut, shapes):
+        """collect() on the back-end thread, traced as its input was."""
+        with inp:
+            trace.since("fleet.backend_queue", queued)
+            return self.collect((fut, shapes))
 
     def flush(self) -> list:
         """Wait for all in-flight chunks; return their TS outputs."""
@@ -934,6 +1001,7 @@ class MultiDvbsReceiver:
             raise ValueError(f"checkpoint byte backend {d['backend_native']}"
                              f" != {type(self.backend).__name__}")
         self.backend.restore_blob(d["backend"])
+        self._locks = list(self.backend.locks)
         self.sample_backlog = d["sample_backlog"]
         self._chunk_count = d["chunk_count"]
 
@@ -968,4 +1036,12 @@ class MultiDvbsReceiver:
 
 
 def _to_host(t: torch.Tensor) -> np.ndarray:
+    trace.count("fleet.d2h_bytes", t.numel() * t.element_size())
     return t.cpu().numpy()
+
+
+def _fetch_job(inp: trace.Input, t: torch.Tensor) -> np.ndarray:
+    """_to_host on the fetch thread, traced as its input was (the wait for
+    the chunk's device work included)."""
+    with inp, trace.span("fleet.fetch"):
+        return _to_host(t)

@@ -8,6 +8,8 @@ the host-side conversions of file byte streams).
 
 import numpy as np
 
+from . import trace
+
 
 def read_iq(raw: bytes, fmt: str) -> np.ndarray:
     """Decode raw bytes into [n, 2] float32 IQ, like leandvb's input stage.
@@ -15,19 +17,22 @@ def read_iq(raw: bytes, fmt: str) -> np.ndarray:
     fmt: 'u8' (cu8, offset 128), 's8', 'u16' (offset 32768), 's16',
     'f32' (no scaling here; apply float_scale separately).
     """
-    if fmt == "u8":
-        a = np.frombuffer(raw, dtype=np.uint8).astype(np.float32) - 128.0
-    elif fmt == "s8":
-        a = np.frombuffer(raw, dtype=np.int8).astype(np.float32)
-    elif fmt == "u16":
-        a = np.frombuffer(raw, dtype=np.uint16).astype(np.float32) - 32768.0
-    elif fmt == "s16":
-        a = np.frombuffer(raw, dtype=np.int16).astype(np.float32)
-    elif fmt == "f32":
-        a = np.frombuffer(raw, dtype=np.float32).copy()
-    else:
-        raise ValueError(fmt)
-    return a.reshape(-1, 2)
+    with trace.span("io.read_iq"):
+        if fmt == "u8":
+            a = np.frombuffer(raw, dtype=np.uint8).astype(np.float32) \
+                - 128.0
+        elif fmt == "s8":
+            a = np.frombuffer(raw, dtype=np.int8).astype(np.float32)
+        elif fmt == "u16":
+            a = np.frombuffer(raw, dtype=np.uint16).astype(np.float32) \
+                - 32768.0
+        elif fmt == "s16":
+            a = np.frombuffer(raw, dtype=np.int16).astype(np.float32)
+        elif fmt == "f32":
+            a = np.frombuffer(raw, dtype=np.float32).copy()
+        else:
+            raise ValueError(fmt)
+        return a.reshape(-1, 2)
 
 
 def write_iq(iq: np.ndarray, fmt: str) -> bytes:

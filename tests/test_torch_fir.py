@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from leansdr_tpu_torch.dsp import fir_kernel as tfir
+from leansdr_tpu_torch.util import trace
 
 # Single-threaded torch: the plain versions run many small ops, which
 # OpenMP threads only slow down, most of all beside other test workers.
@@ -216,12 +217,13 @@ def test_kernel_wrappers_take_the_plain_version_on_cpu():
     on the card before any launch."""
     x = torch.ones((2, 10))
     w = torch.ones(3)
-    before = (tfir.cfir.launches, tfir.fir.launches)
+    launches = ("launch.cfir", "launch.fir")
+    before = [trace.counters().get(k, 0) for k in launches]
     assert torch.equal(tfir.cfir(x, w, w), tfir.cfir_ref(x, w, w))
     assert torch.equal(tfir.cfir(x, w, w, 2, 3),
                        tfir.cfir_ref(x, w, w, 2, 3))
     assert torch.equal(tfir.fir(x, w), tfir.fir_ref(x, w))
-    assert (tfir.cfir.launches, tfir.fir.launches) == before
+    assert [trace.counters().get(k, 0) for k in launches] == before
     with pytest.raises(ValueError, match="taps"):
         tfir._check_taps(tfir.MAX_TAPS + 1)
 

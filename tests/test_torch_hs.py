@@ -30,6 +30,7 @@ from leansdr_tpu_torch.convert import from_jax_dvbs_checkpoint
 from leansdr_tpu_torch.dsp import receiver_hs as T
 from leansdr_tpu_torch.fec import deconv as tdeconv
 from leansdr_tpu_torch.pipelines import dvbs_rx as TR
+from leansdr_tpu_torch.util import trace
 
 # Single-threaded torch, as in every port test file.
 torch.set_num_threads(1)
@@ -102,7 +103,7 @@ def test_run_chunks_hs_matches_jax(omega, freq0, drift):
             np.testing.assert_array_equal(ts[k].numpy(), np.asarray(v),
                                           err_msg=f"{call} state {k}")
         assert to["valid"].sum() > C * n // 3 and to["nmeas"].sum() > 0
-    assert T.run_chunks_hs.launches == 0           # CPU: the plain version
+    assert trace.counters().get("launch.hs_demod", 0) == 0  # CPU: plain
 
 
 @pytest.mark.parametrize("fastlock", [True, False])

@@ -63,6 +63,7 @@ from leansdr_tpu_torch.pipelines import dvbs_tx, tsgen
 from leansdr_tpu_torch.pipelines.dvbs_rx import RxConfig, rrc_sampler
 from leansdr_tpu_torch.pipelines.scan_rx import CandidateScanReceiver
 from leansdr_tpu_torch.util.iofmt import write_iq
+from leansdr_tpu_torch.util import trace
 
 # Single-threaded torch, as in every port test file.
 torch.set_num_threads(1)
@@ -367,7 +368,7 @@ def test_run_chunks_per_channel_matches_jax(name, jax):
     # Each channel emits at its own rate: about 1 in omega samples.
     n = 2 * K * T.CHUNK
     np.testing.assert_allclose(emitted, n / np.array(OMEGAS), rtol=0.1)
-    assert T.run_chunks.launches == 0              # CPU: the plain version
+    assert trace.counters().get("launch.scan_demod", 0) == 0  # CPU: plain
 
 
 def test_leansdrscan_device_live_cpu(cli):
