@@ -39,7 +39,8 @@ frames) that were sent.
 Phases (any failure exits non-zero):
   1. card name and power limit, versions, kernel build time; dependent
      instruction latencies on the card (tools/latency_probe.cu) and the
-     serial chains of the demod (per sample), of the ACS kernel (per
+     serial chains of the demod (per sample, both QPSK loops: on the
+     phase-error table and without it), of the ACS kernel (per
      trellis block, ACQUIRE and TRACK) and of the banked ACS kernel (per
      block at each B, through its shared-memory exchange and barrier)
      counted from their SASS (tools/sass_chain.py on `cuobjdump -sass` of
@@ -54,13 +55,19 @@ Phases (any failure exits non-zero):
      takes from the table), and the scan demods' serial chains per
      emitted symbol from their SASS, their gathers priced at L1 and at L2
      hits (tools/latency_probe.cu's two pointer chases);
-     demod kernel == demod_ref, every packed
+     the QPSK phase-error table the card fills == pe16_table_ref on all
+     65536 entries; demod kernel == demod_ref, every packed
      word and every state plane bit for bit (DEMOD_CHECKS: QPSK at C=64
      and C=8192, 8PSK at C=64, 4096 samples; QPSK and 16APSK at C in
      {1, 33, 100} over 1024 samples and C=33 over 128, the ragged
      32-channel blocks and the copy ring's prologue and epilogue; BPSK,
-     32APSK and 64APSKe at C=64 over 1024 samples; the plain version
-     costs one launch per op per sample); scan_demod also at 8PSK (linear
+     32APSK and 64APSKe at C=64 over 1024 samples; QPSK at 2^16 times
+     the setpoint amplitude, where the table's off-grid fallback runs;
+     DEMOD_LONG: the benchmark's launches, 14 lanes x 2^18 and one lane
+     x 2^17 at omega 1.2; the plain version costs one launch per op per
+     sample), each QPSK launch on the table where its 32-channel blocks
+     fit on the SMs (C=8192 not, nor any other constellation);
+     scan_demod also at 8PSK (linear
      sampler, both decision modes, C=64); scan_demod's per-channel-omega
      mode (slice 9) == run_chunks_ref bit for bit, each sampler x
      decision mode, at C=4 with the scan grid's omegas and C=64 with 64
@@ -97,7 +104,9 @@ Phases (any failure exits non-zero):
      to the 4th power) and coarse_carrier_estimate equal on the card and
      on the host's plain FFT;
   4. the main path through MultiDvbsReceiver.process, with the kernels'
-     launch counters zeroed just before and read just after, and
+     launch counters zeroed just before and read just after (every
+     demod launch of the fleet at 1/2 and of the canonical stream on the
+     phase-error table), and
      per-stage times from CUDA events; at rate 1/2 then the same stream
      through the pipelined submit()/flush() path (device->host copy and
      byte backend on threads), held to the same TS gate; then with
@@ -272,6 +281,9 @@ SEED_9 = SEED + 9
 # Slice 10 (multi-GPU and host ingest: multi_path) likewise, from
 # SEED + 10.
 SEED_10 = SEED + 10
+# The demod's phase-error table checks (the off-grid and DEMOD_LONG
+# stimuli) likewise, from SEED + 11.
+SEED_PE = SEED + 11
 # The candidate scan's grid: the reference's 4 SR x 5 CR at 2.4 Msps
 # (SURVEY.md:251, `leansdrscan leandvb --sr a,b,c,d --cr ...`): 20
 # candidates on 4 scan lanes.
@@ -288,7 +300,23 @@ SCAN_PC_C = (4, 64)
 # assumed count, 90 dependent operations per sample at 4 cycles, still
 # printed beside it.
 ASSUMED_CHAIN_CYCLES = 90 * 4
-DEMOD_QPSK_FUNCTION = "demod_kernelILb1E"     # demod_kernel<true>
+# The demod's two QPSK loops: demod_kernel<true, true> takes the phase
+# error from its table (every main path), demod_kernel<true, false> is the
+# layout without it (a launch whose blocks exceed one wave). Each loop is
+# the smallest holding the packed word's STS and truncf's FRND (the table
+# instance's loop holds no MUFU: its division is out of line).
+DEMOD_QPSK_FUNCTIONS = {"table": "demod_kernelILb1ELb1E",
+                        "no table": "demod_kernelILb1ELb0E"}
+DEMOD_LOOP_ALSO = "FRND"
+# The demod against demod_ref at the benchmark's main launches, on random
+# QPSK at the sample rate's samples per symbol: (lanes, samples, omega):
+# the 14-carrier fleet's chunk and one leandvb read at 2.4 Msps (the plain
+# version takes ~1.7 ms a sample on the card: ~11 min together).
+DEMOD_LONG = ((14, 1 << 18, 2.0), (1, 1 << 17, 1.2))
+# The table's fallback: the fleet's lanes at this many times the AGC's
+# setpoint amplitude, where the halving cap of 12 binds from the cold
+# state (gain 1) until the AGC has come down.
+DEMOD_OFF_GRID = (14, 1024, 2.0 ** 16)
 TOOLS = Path(__file__).resolve().parent / "tools"
 LATENCY_PROBES = 26                           # tools/latency_probe.cu
 # The ACS kernel's per-block chain, from its SASS the same way: per
@@ -560,21 +588,32 @@ def acs_chain(so, lat_int, clock, functions=None) -> dict:
 
 def demod_chain(so, lat, clock) -> dict:
     """The demod's serial bound per sample from its built library's SASS
-    (tools/sass_chain.py on the QPSK loop of `cuobjdump -sass`)."""
+    (tools/sass_chain.py on each QPSK loop of `cuobjdump -sass`):
+    {"table": ..., "no table": ...} (DEMOD_QPSK_FUNCTIONS)."""
     sys.path.insert(0, str(TOOLS))
     import sass_chain
-    res = sass_chain.analyse(sass_of(so), DEMOD_QPSK_FUNCTION, lat)
-    print(f"demod serial chain (tools/sass_chain.py on cuobjdump -sass "
-          f"{so.name}, QPSK loop {res['loop'][0]}-{res['loop'][1]}): "
-          f"{res['path_instructions_per_step']:.0f} instructions on the "
-          f"loop-carried path, {res['cycles_per_step']:.1f} cycles per "
-          f"sample ({res['cycles_per_step'] / clock * 1e9:.1f} ns at "
-          f"{clock / 1e6:.0f} MHz; assumed before: {ASSUMED_CHAIN_CYCLES}); "
-          f"{res['instructions_per_step']:.0f} hot-path instructions per "
-          f"sample, {res['issue_cycles_per_step']:.1f} cycles per sample "
-          f"issued in order by one warp; priced as fixed-pipe: "
-          f"{', '.join(res['priced_as_fixed'])}")
-    return res
+    text = sass_of(so)
+    out = {}
+    for key, fn in DEMOD_QPSK_FUNCTIONS.items():
+        res = out[key] = sass_chain.analyse(text, fn, lat, "STS",
+                                            DEMOD_LOOP_ALSO)
+        lds = res["path_mix"].get("LDS.S16", (0.0, 0.0))
+        print(f"demod serial chain [{key}] (tools/sass_chain.py on "
+              f"cuobjdump -sass {so.name}, QPSK loop {res['loop'][0]}-"
+              f"{res['loop'][1]}): {res['path_instructions_per_step']:.0f} "
+              f"instructions on the loop-carried path, "
+              f"{res['cycles_per_step']:.1f} cycles per sample "
+              f"({res['cycles_per_step'] / clock * 1e9:.1f} ns at "
+              f"{clock / 1e6:.0f} MHz; assumed before: "
+              f"{ASSUMED_CHAIN_CYCLES}), the table load {lds[1]:.1f} of "
+              f"them; {res['instructions_per_step']:.0f} hot-path "
+              f"instructions per sample, {res['issue_cycles_per_step']:.1f} "
+              f"cycles per sample issued in order by one warp; on the "
+              f"path: " + ", ".join(f"{k} {n:g}x {c:.1f}" for k, (n, c)
+                                     in res["path_mix"].items())
+              + f"; priced as fixed-pipe: "
+              f"{', '.join(res['priced_as_fixed'])}")
+    return out
 
 
 # ---------------------------------------------------------------- phase 2
@@ -629,21 +668,29 @@ def check_sincos(dev):
              f"{bad} values")
 
 
-def check_demod(name, rate, nsym, C, nsamp, dev, gen):
-    """The demod kernel against demod_ref on demod_stimulus from the
-    cold-start state: every packed word and every state plane equal.
-    Returns (state max |diff|, plain ms)."""
+def check_demod(name, rate, nsym, C, nsamp, dev, gen, x=None, omega=2.0,
+                 label=""):
+    """The demod kernel against demod_ref from the cold-start state, on
+    demod_stimulus unless `x` is given: every packed word and every state
+    plane equal, and the launch on the phase-error table exactly where
+    use_pe_table says. Returns (state max |diff|, plain ms)."""
     from leansdr_tpu_torch.dsp import receiver, receiver_kernel as rk
     from leansdr_tpu_torch.dsp.cstln import Predef, make_dvbs2_constellation
     predef = Predef[name]
     cst = make_dvbs2_constellation(predef, rate)
-    params = receiver.ReceiverParams(omega=2.0, sampler="linear",
+    params = receiver.ReceiverParams(omega=omega, sampler="linear",
                                      nsymbols=nsym, exact_lut=False,
                                      pll_adjustment=1.0 / 6)
     sc = rk.sym_constants(cst)
-    x = demod_stimulus(predef, rate, C, nsamp, dev, gen)
+    if x is None:
+        x = demod_stimulus(predef, rate, C, nsamp, dev, gen)
     planes = rk.pack_state(receiver.init_state(params, C, dev))
+    base = trace.counters()
     st_k, pk_k = rk.demod(params, sc, planes, x)
+    table = trace.counters().get(DEMOD_PE_COUNTER, 0) - base.get(
+        DEMOD_PE_COUNTER, 0)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = int(rk.use_pe_table(rk.is_qpsk_grid(*sc[:2]), C, sms))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     st_r, pk_r = rk.demod_ref(params, sc, planes, x)
@@ -653,13 +700,90 @@ def check_demod(name, rate, nsym, C, nsamp, dev, gen):
     planes_equal = torch.equal(st_k, st_r)
     nvalid = int(((pk_r >> 24) & 1).sum())
     err = float((st_k - st_r).abs().max())
-    print(f"demod {name:6s} C={C:5d} nsamp={nsamp}: valid symbols "
+    print(f"demod {name:6s} C={C:5d} nsamp={nsamp}{label} "
+          f"[{'table' if table else 'no table'}]: valid symbols "
           f"{nvalid}, differing words {words}, state planes bit-equal "
           f"{planes_equal} (max |d| {err:.3g}), plain {plain_ms:.0f} ms")
     if words or not planes_equal or nvalid < C * nsamp // 4:
         fail(f"demod kernel != demod_ref ({name}, C={C}, "
-             f"nsamp={nsamp})")
+             f"nsamp={nsamp}{label})")
+    if table != want:
+        fail(f"demod {name} C={C}: {table} launches on the phase-error "
+             f"table, {want} expected")
     return err, plain_ms
+
+
+def check_pe_table(dev):
+    """The QPSK phase-error table the card filled (the wrapper's cache)
+    against pe16_table_ref on all 65536 (i8, q8), bit for bit."""
+    from leansdr_tpu_torch.dsp import receiver_kernel as rk
+    from leansdr_tpu_torch.dsp.cstln import Predef, make_dvbs2_constellation
+    phases = rk.sym_constants(make_dvbs2_constellation(Predef.QPSK,
+                                                       "1/2"))[2]
+    card = rk._pe_table(phases, dev).cpu()
+    bad = int((card != rk.pe16_table_ref(phases)).sum())
+    print(f"demod phase-error table (the card's fill) == pe16_table_ref on "
+          f"all {card.numel()} (i8, q8): {bad} differing entries")
+    if bad:
+        fail(f"the card's phase-error table differs from pe16_table_ref "
+             f"in {bad} entries")
+
+
+def check_demod_off_grid(dev, gen):
+    """The table instance where the halving cap binds: the fleet's lanes
+    at DEMOD_OFF_GRID's amplitude, held against demod_ref; the samples
+    off the grid at the cold state's gain of 1 (before the AGC comes down)
+    are counted on the host to show the fallback is taken."""
+    from leansdr_tpu_torch.dsp import receiver_kernel as rk
+    from leansdr_tpu_torch.dsp.cstln import Predef
+    C, n, scale = DEMOD_OFF_GRID
+    x = demod_stimulus(Predef.QPSK, "1/2", C, n, dev, gen) * scale
+    i8, q8 = rk.quantize_s8(x[:, :rk.CHUNK, 0], x[:, :rk.CHUNK, 1])
+    off = int((~((i8 >= -128) & (i8 <= 127) & (q8 >= -128)
+                 & (q8 <= 127))).sum())
+    if off == 0:
+        fail("the off-grid demod check put no sample off the grid")
+    return check_demod("QPSK", "1/2", 4, C, n, dev, gen, x=x,
+                       label=f" x{scale:g} ({off} of the first chunk's "
+                             f"{C * rk.CHUNK} samples off the grid)")
+
+
+def qpsk_at(C: int, n: int, gen, sps: float) -> torch.Tensor:
+    """[C, n+1, 2]: random QPSK at `sps` samples per symbol (linear
+    interpolation), amplitude ~75, per-carrier fractional delays, carrier
+    offsets ((c % 64) - 32) * 5e-6 cycles per sample (the fleet
+    stimulus's; they move the trig16 index as a real carrier does),
+    noise."""
+    dev = gen.device
+    sym = (torch.randint(0, 2, (C, int(n / sps) + 3, 2), device=dev,
+                         generator=gen) * 2 - 1).float() * 53.0
+    d = torch.rand((C, 1), device=dev, generator=gen)
+    t = torch.arange(n + 1, device=dev)[None, :] / sps + d
+    i = t.long()
+    f = (t - i)[..., None]
+    x = (1 - f) * torch.gather(sym, 1, i[..., None].expand(-1, -1, 2)) \
+        + f * torch.gather(sym, 1, (i + 1)[..., None].expand(-1, -1, 2))
+    off = ((torch.arange(C, device=dev) % 64) - 32).double() * 5e-6
+    ang = (2 * np.pi * off[:, None] * torch.arange(
+        n + 1, device=dev).double()).float()
+    z = torch.complex(x[..., 0], x[..., 1]) * torch.polar(
+        torch.ones_like(ang), ang)
+    x = torch.stack([z.real, z.imag], -1)
+    return (x + 6.0 * torch.randn(x.shape, device=dev, generator=gen)
+            ).contiguous()
+
+
+def check_demod_long(dev, gen):
+    """The demod at the benchmark's main launches (DEMOD_LONG: the fleet's
+    14-lane chunk, one 2.4 Msps read) against demod_ref on every word and
+    state plane. Returns the plain version's ms by shape."""
+    out = {}
+    for C, n, omega in DEMOD_LONG:
+        x = qpsk_at(C, n, gen, omega)
+        _, ms = check_demod("QPSK", "1/2", 4, C, n, dev, gen, x=x,
+                            omega=omega, label=f" omega {omega:g}")
+        out[f"C={C} nsamp={n}"] = ms
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -1737,11 +1861,17 @@ def cli_path(dev, frames):
 SCAN_PC = "scan_demod per-channel omega"
 # scan_demod's launches on the rrc device-memory instance.
 DEVICE_TAPS = "launch.scan_demod.device_taps"
+# The kernels line's name for the demod's launches on its phase-error
+# table (also counted as demod launches), and their counter.
+DEMOD_PE = "demod.pe_table"
+DEMOD_PE_COUNTER = "launch.demod.pe_table"
 
-# Every kernel of the port by its name in the kernels line, and
-# scan_demod's per-channel-omega mode (SCAN_PC; its launches are also
-# scan_demod's), with the port's launch counter of each.
-KERNEL_COUNTERS = {"demod": "launch.demod", "acs": "launch.acs",
+# Every kernel of the port by its name in the kernels line, the demod's
+# launches on its phase-error table (DEMOD_PE) and scan_demod's
+# per-channel-omega mode (SCAN_PC; their launches are also the demod's
+# and scan_demod's), with the port's launch counter of each.
+KERNEL_COUNTERS = {"demod": "launch.demod", DEMOD_PE: DEMOD_PE_COUNTER,
+                   "acs": "launch.acs",
                    "acs_banked": "launch.acs_banked", "cfir": "launch.cfir",
                    "fir": "launch.fir", "fft4096": "launch.fft4096",
                    "scan_demod": "launch.scan_demod",
@@ -3790,9 +3920,13 @@ def chain_ms(nsamp: int, chain: dict, clock: float) -> dict:
                 * 1e3)
 
 
-def kernel_times(rx, frames, dev, gen, chain, acs_chain_res):
+def kernel_times(rx, frames, dev, gen, chains, acs_chain_res):
+    """Kernel times at the main paths' shapes. `chains`: demod_chain's
+    (the table instance's chain bounds the launches that take the table,
+    the other QPSK loop's the 8192-channel launch)."""
     from leansdr_tpu_torch.dsp import mf_prefilter, receiver_kernel as rk
     from leansdr_tpu_torch.fec import viterbi_device as vd
+    chain = chains["table"]
     C, n = NCHAN, CHUNK_SAMPLES
     clock = max_sm_clock_hz()
     x = frames[:, :n + rx.readahead]
@@ -3805,10 +3939,12 @@ def kernel_times(rx, frames, dev, gen, chain, acs_chain_res):
     out = {"demod": dict(ms=demod_ms, bound=bound_ms(d_bytes, d_ops),
                          shape=f"C={C} nsamp={n}", **chain_ms(n, chain,
                                                               clock))}
-    # A fleet wide enough to occupy every SM (8192 channels = 256 warps),
-    # and one carrier over one of leandvb's 2^17-sample reads.
+    # A fleet wide enough to occupy every SM (8192 channels = 256 warps:
+    # the layout without the table), one carrier over one of leandvb's
+    # 2^17-sample reads, and the benchmark's 14-carrier fleet chunk.
     for key, Cw, nw in (("demod_wide", 8192, 1 << 15),
-                        ("demod_one", 1, 1 << 17)):
+                        ("demod_one", 1, 1 << 17),
+                        ("demod_14", 14, 1 << 18)):
         rows = torch.arange(Cw, device=dev) % C
         xw = xm[rows, :nw + 1].contiguous()
         pw = planes[:, rows].contiguous()
@@ -3817,7 +3953,9 @@ def kernel_times(rx, frames, dev, gen, chain, acs_chain_res):
         out[key] = dict(
             ms=ms, bound=bound_ms((nw + 1) * Cw * 8 + nw * Cw * 4,
                                   110.0 * nw * Cw),
-            shape=f"C={Cw} nsamp={nw}", **chain_ms(nw, chain, clock))
+            shape=f"C={Cw} nsamp={nw}",
+            **chain_ms(nw, chains["no table" if Cw == 8192 else "table"],
+                       clock))
         del xw, pw
     T = rx.deconv.plan.nblocks
     # ACQUIRE (N=256) and TRACK (N=64, cheap_q) of the fleet, one decode
@@ -3865,7 +4003,8 @@ def kernel_times(rx, frames, dev, gen, chain, acs_chain_res):
           + ", ".join(f"{out[k]['shape']} "
                       f"{out[k]['ms'] * 1e-3 * clock / m:.0f}"
                       for k, m in (("demod", n), ("demod_wide", 1 << 15),
-                                   ("demod_one", 1 << 17)))
+                                   ("demod_one", 1 << 17),
+                                   ("demod_14", 1 << 18)))
           + f" (max SM clock {clock / 1e6:.0f} MHz)")
     return out
 
@@ -4201,7 +4340,8 @@ def main() -> int:
 
     clock = max_sm_clock_hz()
     lat, lat_int = latency_table(probe_build, dev)
-    chain = demod_chain(built["demod"][0], lat, clock)
+    chains = demod_chain(built["demod"][0], lat, clock)
+    chain = chains["table"]
     a_chain = acs_chain(built["acs"][0], lat_int, clock)
     b_chain = banked_chain(built["acs_banked"][0], lat_int, clock)
     s_chain = scan_chain(built, lat, clock)
@@ -4209,6 +4349,7 @@ def main() -> int:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     check_sincos(dev)
+    check_pe_table(dev)
     d_err = 0.0
     d_plain = None
     for predef, rate, nsym, C, n in DEMOD_CHECKS:
@@ -4216,6 +4357,10 @@ def main() -> int:
         d_err = max(d_err, e)
         if d_plain is None:
             d_plain = p
+    gen_pe = torch.Generator(device=dev)
+    gen_pe.manual_seed(SEED_PE)
+    d_err = max(d_err, check_demod_off_grid(dev, gen_pe)[0])
+    d_long = check_demod_long(dev, gen_pe)
     s_err, s_plain = check_scan_demod(dev, gen)
     a_err, a_plain = check_acs(dev, gen)
     long_acs = start_long_acs(dev, gen)
@@ -4244,7 +4389,7 @@ def main() -> int:
     acq_rel = check_acq_fft(dev, frames)
     rx, run, piped_rate = main_path(dev, gen, frames)
     launches, stages, rate = run["launches"], run["stages"], run["rate"]
-    times = kernel_times(rx, frames, dev, gen, chain, a_chain)
+    times = kernel_times(rx, frames, dev, gen, chains, a_chain)
     params, sym_consts = rx.params, rx._sym_consts
     del rx
     seg = {"1/2": segmented_path(dev, frames, "1/2", 8, capture=True)}
@@ -4336,6 +4481,14 @@ def main() -> int:
     by_path["multi: multihost 2 gloo ranks"] = multi["multihost_launches"]
     by_path["multi: single-process fleet (DeviceFeeder)"] = \
         multi["single_launches"]
+    print("demod launches on the phase-error table: " + ", ".join(
+        f"{p} {c.get(DEMOD_PE, '-')} of {c['demod']}"
+        for p, c in by_path.items() if c.get("demod")))
+    for p in ("fleet 1/2", "canonical"):   # the benchmark's two paths
+        c = by_path[p]
+        if c["demod"] < 1 or c[DEMOD_PE] != c["demod"]:
+            fail(f"{p}: {c[DEMOD_PE]} of {c['demod']} demod launches on "
+                 f"the phase-error table")
     halo_fir = (multi["nccl_launches"]["fir"]
                 + multi["gloo_launches"]["fir"])
     resample = next(r for r in single if r["path"] == "resample")
@@ -4359,11 +4512,18 @@ def main() -> int:
          "issue_cycles_per_sample": chain["issue_cycles_per_step"],
          "chain_path_instructions": chain["path_instructions_per_step"],
          "hot_instructions_per_sample": chain["instructions_per_step"],
+         "chain_path_mix": chain["path_mix"],
+         "no_table": {k: chains["no table"][k] for k in (
+             "cycles_per_step", "issue_cycles_per_step",
+             "path_instructions_per_step", "instructions_per_step")},
          "latency_cycles": lat,
          "wide_ms": times["demod_wide"]["ms"],
          "wide_shape": times["demod_wide"]["shape"],
          "one_ms": times["demod_one"]["ms"],
          "one_shape": times["demod_one"]["shape"],
+         "fleet14_ms": times["demod_14"]["ms"],
+         "fleet14_shape": times["demod_14"]["shape"],
+         "long_plain_ms": d_long,
          "segmented_shapes": seg_times,
          "segmented_plain": [dict(lanes=c, nsamp=SC_DEMOD_CHECK, plain_ms=ms)
                              for c, ms in seg_checks],

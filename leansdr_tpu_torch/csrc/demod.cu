@@ -9,12 +9,12 @@
 //
 // What bounds it on an H100: the per-sample recurrence is strictly
 // serial (the PLL phase, M&M mu and the 3-deep history feed the next
-// sample), so one channel is one dependency chain of float operations,
-// a sincosf and an IEEE division per sample. Each channel's data
-// is tiny (8 bytes in, 4 bytes out per sample), so the bound is the
-// latency of that chain times the number of samples, not bytes or peak
-// FLOP/s; parallelism comes only from channels. chip_smoke.py counts
-// the chain from this kernel's SASS.
+// sample), so one channel is one dependency chain of float operations
+// and a sincosf per sample. Each channel's data is tiny (8 bytes in, 4
+// bytes out per sample), so the bound is the latency of that chain times
+// the number of samples, not bytes or peak FLOP/s; parallelism comes
+// only from channels. chip_smoke.py counts the chain from this kernel's
+// SASS.
 //
 // Design: one warp per block of 32 channels, one thread per channel, all
 // loop state in registers. The wrapper transposes the input to
@@ -28,9 +28,27 @@
 // loop would wait a device-memory latency per sample.) The packed words
 // go to a [CHUNK, 32] int32 tile in shared memory and leave once per
 // chunk (16 bytes per store where C % 4 == 0). The constellation tables sit in
-// shared memory. 82.4 KB of dynamic shared memory per block (plus the
-// tables), so two blocks share an SM and 8192 channels (256 blocks) are
-// one wave. Lanes past C run on zero-filled rows and store nothing.
+// shared memory. Lanes past C run on zero-filled rows and store nothing.
+//
+// The QPSK phase error (PE_TABLE). For QPSK the decision's phase error
+// pe16 is a function of the quantized sample (i8, q8) alone: the symbol's
+// phase follows from their signs. So the QPSK instance looks pe16 up in a
+// 256 x 256 int16 table, index (i8 + 128) * 256 + (q8 + 128), one 16-bit
+// shared-memory load where the polynomial atan2, its division and the
+// fold took ~110 cycles of the chain. pe16_table_kernel fills the table
+// once per constellation on the card from the very functions the loop
+// would call (atan2_poly, pe16_of), so the words and state stay equal to
+// the plain version's bit for bit; each block copies it into shared
+// memory with cp.async behind its first chunk's rows. Off the grid (the
+// halving cap of 12 binds, or the sample is NaN) the loop calls pe16_of
+// itself: a rare, exact path, out of line. Shared memory per block:
+// 66,048 B of input ring + 16,384 B of out tile + 131,072 B of table +
+// 48 B of constellation (213,552 B of the 232,448 a block may have), so
+// one block per SM: the wrapper takes this instance while the blocks
+// (32 channels each) fit on the SMs in one wave, which covers every
+// main path (C <= 512). Wider launches, and every other constellation
+// (whose phase comes from the nearest-symbol search), keep the 82.4 KB
+// layout without the table: two blocks per SM, 8192 channels one wave.
 //
 // Exactness: symbol, valid and cost must equal the plain version's, and
 // the recurrence amplifies any rounding difference. This file is built
@@ -99,12 +117,47 @@ __device__ __forceinline__ float atan2_poly(const DemodArgs& A, float q,
   return q < 0.0f ? -t : t;
 }
 
+// The phase error of the decision at (i8, q8) against the symbol phase
+// ph_sym, in u16 angle units, truncated and sign-folded to int16.
+__device__ __forceinline__ int pe16_of(const DemodArgs& A, float q8,
+                                       float i8, float ph_sym) {
+  const float ph_err = atan2_poly(A, q8, i8) - ph_sym;
+  const int pe_i = (int)truncf(ph_err * K16);
+  return ((pe_i & 0xFFFF) ^ 0x8000) - 0x8000;
+}
+
+// pe16_of off the table's grid: out of line, so that the rare path
+// (the halving cap binds, or NaN) keeps its division and polynomial off
+// the table instance's loop.
+__device__ __noinline__ int pe16_off_grid(const DemodArgs& A, float q8,
+                                          float i8, float ph_sym) {
+  return pe16_of(A, q8, i8, ph_sym);
+}
+
+// truncf(v) as an int clamped to [-128, 127] (a float-to-integer cvt
+// saturates to its type; NaN gives 0): a grid index that is always in
+// the table, computed beside the float truncf.
+__device__ __forceinline__ int trunc_s8(float v) {
+  int r;
+  asm("cvt.rzi.s8.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// The QPSK symbol's phase from the signs of (i8, q8): the symbol order
+// of the sign-quadrant grid, 0:(+,+) 1:(+,-) 2:(-,+) 3:(-,-).
+__device__ __forceinline__ float qpsk_phase(const float qph[4], bool neg_i,
+                                            bool neg_q) {
+  return neg_q ? (neg_i ? qph[3] : qph[1]) : (neg_i ? qph[2] : qph[0]);
+}
+
 constexpr int LANES = 32;          // channels per block: one warp
 constexpr int ROWS = CHUNK + 1;    // a chunk's samples and its lookahead
 constexpr int STAGES = 2;          // input ring: the chunk run, the next
 constexpr size_t X_BYTES = (size_t)STAGES * ROWS * LANES * sizeof(float2);
 constexpr size_t OUT_BYTES = (size_t)CHUNK * LANES * sizeof(int32_t);
 constexpr int MAX_SYM = 256;
+constexpr int PE_ENTRIES = 256 * 256;   // the QPSK phase-error table
+constexpr size_t PE_BYTES = PE_ENTRIES * sizeof(int16_t);
 
 __device__ __forceinline__ void cp_async8(float2* dst, const float2* src,
                                           bool valid) {
@@ -116,6 +169,13 @@ __device__ __forceinline__ void cp_async8(float2* dst, const float2* src,
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
 }
 
 // Every group but the newest has landed.
@@ -135,16 +195,23 @@ __device__ __forceinline__ void stage_rows(float2* stage,
     cp_async8(dst + r * LANES, src + (size_t)r * C, active);
 }
 
-template <bool QPSK>
+// PE_TABLE (QPSK only): pe16 from the table pe_tab [PE_ENTRIES] that
+// pe16_table_kernel filled, copied into shared memory behind the first
+// chunk's rows.
+template <bool QPSK, bool PE_TABLE>
 __global__ void __launch_bounds__(LANES)
 demod_kernel(const DemodArgs A, const float* __restrict__ sym,
+             const int16_t* __restrict__ pe_tab,
              const float2* __restrict__ x, const float* __restrict__ st_in,
              float* __restrict__ st_out, int32_t* __restrict__ out, int C,
              int nsamp) {
+  static_assert(QPSK || !PE_TABLE, "the table is QPSK's");
   extern __shared__ __align__(16) unsigned char smem[];
   float2* xs = reinterpret_cast<float2*>(smem);
   int32_t* os = reinterpret_cast<int32_t*>(smem + X_BYTES);
-  float* tab = reinterpret_cast<float*>(smem + X_BYTES + OUT_BYTES);
+  int16_t* pe = reinterpret_cast<int16_t*>(smem + X_BYTES + OUT_BYTES);
+  float* tab = reinterpret_cast<float*>(smem + X_BYTES + OUT_BYTES +
+                                        (PE_TABLE ? PE_BYTES : 0));
   const int lane = threadIdx.x;
   const int c0 = blockIdx.x * LANES;
   const int c = c0 + lane;
@@ -152,6 +219,12 @@ demod_kernel(const DemodArgs A, const float* __restrict__ sym,
   const int nchunks = nsamp / CHUNK;
   if (nchunks > 0) stage_rows(xs, x, C, c, active, 0);
   cp_async_commit();
+  if (PE_TABLE && nchunks > 0) {
+    for (int i = lane; i < (int)(PE_BYTES / 16); i += LANES)
+      cp_async16(reinterpret_cast<unsigned char*>(pe) + 16 * i,
+                 reinterpret_cast<const unsigned char*>(pe_tab) + 16 * i);
+    cp_async_commit();
+  }
 
   for (int i = lane; i < 3 * A.nsym; i += LANES) tab[i] = sym[i];
   float st[NSTATE];
@@ -181,6 +254,7 @@ demod_kernel(const DemodArgs A, const float* __restrict__ sym,
                  base + CHUNK);
     cp_async_commit();
     cp_async_wait_prior();                 // this chunk's rows are in
+    if (PE_TABLE && ck == 0) __syncwarp();   // and every lane's table share
     const float2* xk = xs + (ck & 1) * ROWS * LANES + lane;
     // pin1's rotation = pin0's advanced by the chunk-constant step.
     const float a_d = wrap_angle(-freqw);
@@ -229,7 +303,7 @@ demod_kernel(const DemodArgs A, const float* __restrict__ sym,
         near = (int)neg_i * 2 + (int)neg_q;
         cpt_re = neg_i ? -a : a;
         cpt_im = neg_q ? -a : a;
-        ph_sym = neg_q ? (neg_i ? qph[3] : qph[1]) : (neg_i ? qph[2] : qph[0]);
+        ph_sym = qpsk_phase(qph, neg_i, neg_q);
       } else {
         d1 = 3.4e38f;
         d2 = 3.4e38f;
@@ -253,9 +327,18 @@ demod_kernel(const DemodArgs A, const float* __restrict__ sym,
       }
       const float cost = fminf(d1, 32767.0f) - fminf(d2, 32767.0f);
 
-      const float ph_err = atan2_poly(A, q8, i8) - ph_sym;
-      const int pe_i = (int)truncf(ph_err * K16);
-      const int pe16 = ((pe_i & 0xFFFF) ^ 0x8000) - 0x8000;
+      int pe16;
+      if (PE_TABLE) {
+        // One shared load, indexed from the products that truncf rounds
+        // (clamped: the load waits for no range test); off the grid
+        // [-128, 127]^2 (the halving cap binds, or NaN) computed.
+        pe16 = pe[(trunc_s8(s_re * scale) + 128) * 256 +
+                  trunc_s8(s_im * scale) + 128];
+        if (!(i8 >= -128.0f && i8 <= 127.0f && q8 >= -128.0f && q8 <= 127.0f))
+          pe16 = pe16_off_grid(A, q8, i8, ph_sym);
+      } else {
+        pe16 = pe16_of(A, q8, i8, ph_sym);
+      }
       const float perr_f = (float)pe16;
 
       // PLL (sdr.h:813-815)
@@ -333,6 +416,20 @@ demod_kernel(const DemodArgs A, const float* __restrict__ sym,
   for (int k = 0; k < NSTATE; ++k) st_out[k * C + c] = fin[k];
 }
 
+// The QPSK phase-error table: pe16_of at every (i8, q8) of the grid,
+// entry (i8 + 128) * 256 + (q8 + 128), against the phase of the symbol
+// their signs choose (qph: the constellation's four phases).
+__global__ void pe16_table_kernel(const DemodArgs A,
+                                  const float* __restrict__ qph,
+                                  int16_t* __restrict__ pe_tab) {
+  const int k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k >= PE_ENTRIES) return;
+  const float i8 = (float)((k >> 8) - 128), q8 = (float)((k & 255) - 128);
+  const float ph[4] = {qph[0], qph[1], qph[2], qph[3]};
+  pe_tab[k] = (int16_t)pe16_of(A, q8, i8,
+                               qpsk_phase(ph, i8 < 0.0f, q8 < 0.0f));
+}
+
 __global__ void sincos_kernel(const float* __restrict__ a,
                               float* __restrict__ c, float* __restrict__ s,
                               int n) {
@@ -342,20 +439,35 @@ __global__ void sincos_kernel(const float* __restrict__ a,
 
 }  // namespace
 
+// pe_tab: the QPSK phase-error table (demod_pe_table_launch) for the
+// table instance, or null for the layout without it.
 extern "C" int demod_launch(const DemodArgs* args, const void* sym,
-                            const void* x, const void* st_in, void* st_out,
-                            void* out, int C, int nsamp, void* stream) {
-  if (args->nsym < 1 || args->nsym > MAX_SYM)
+                            const void* pe_tab, const void* x,
+                            const void* st_in, void* st_out, void* out,
+                            int C, int nsamp, void* stream) {
+  if (args->nsym < 1 || args->nsym > MAX_SYM || (pe_tab && !args->qpsk))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = X_BYTES + OUT_BYTES + 3 * sizeof(float) * args->nsym;
+  const size_t smem = X_BYTES + OUT_BYTES + (pe_tab ? PE_BYTES : 0) +
+                      3 * sizeof(float) * args->nsym;
   const int blocks = (C + LANES - 1) / LANES;
-  auto kernel = args->qpsk ? demod_kernel<true> : demod_kernel<false>;
+  auto kernel = pe_tab       ? demod_kernel<true, true>
+                : args->qpsk ? demod_kernel<true, false>
+                             : demod_kernel<false, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   kernel<<<blocks, LANES, smem, (cudaStream_t)stream>>>(
-      *args, (const float*)sym, (const float2*)x, (const float*)st_in,
-      (float*)st_out, (int32_t*)out, C, nsamp);
+      *args, (const float*)sym, (const int16_t*)pe_tab, (const float2*)x,
+      (const float*)st_in, (float*)st_out, (int32_t*)out, C, nsamp);
+  return (int)cudaGetLastError();
+}
+
+// Fill pe_tab [65536] int16 with the QPSK phase-error table for the four
+// symbol phases qph (float32 on the device).
+extern "C" int demod_pe_table_launch(const DemodArgs* args, const void* qph,
+                                     void* pe_tab, void* stream) {
+  pe16_table_kernel<<<PE_ENTRIES / 256, 256, 0, (cudaStream_t)stream>>>(
+      *args, (const float*)qph, (int16_t*)pe_tab);
   return (int)cudaGetLastError();
 }
 

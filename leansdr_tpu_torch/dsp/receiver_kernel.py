@@ -18,7 +18,11 @@ Output is one packed int32 per sample per channel, [nsamp, C]:
 The decision is the gather-free computed form of the reference's
 256x256 LUT (integer squared distances over the s8-quantized grid), the
 out-of-range halving count comes from the float's exponent bits, and the
-phase error is the polynomial atan2 of math_utils.
+phase error is the polynomial atan2 of math_utils. For QPSK the kernel
+looks the phase error up instead, in a 256 x 256 int16 table over the
+s8 grid that the card fills once per constellation from the same
+arithmetic (`pe16_table_ref` is its plain version, `pe16_lookup_ref`
+the lookup with its off-grid fallback).
 """
 
 import ctypes
@@ -105,6 +109,60 @@ def _kceil(v, bref, bound):
     return torch.where(v > bound, k, torch.zeros_like(k))
 
 
+def quantize_s8(s_re, s_im):
+    """(i8, q8): the s8 grid point of the AGC'd sample, as float32
+    integers. Out-of-range samples are halved (sdr.h:470-485) by one
+    exact power of 2, at most 2^12, so (i8, q8) lies in [-128, 127]^2
+    unless that cap binds or the sample is NaN."""
+    k_half = torch.maximum(
+        torch.maximum(_kceil(s_re, B_HI, 127.0), _kceil(-s_re, B_LO, 128.0)),
+        torch.maximum(_kceil(s_im, B_HI, 127.0), _kceil(-s_im, B_LO, 128.0)))
+    k_half = torch.clamp(k_half, max=12)
+    scale = ((127 - k_half) << 23).view(torch.float32)
+    return torch.trunc(s_re * scale), torch.trunc(s_im * scale)
+
+
+def qpsk_phase(neg_i, neg_q, phases):
+    """The phase of the QPSK symbol that the signs of (i8, q8) choose
+    (neg_i = i8 < 0, neg_q = q8 < 0; symbol order of is_qpsk_grid;
+    phases: four float32 0-d or [C] tensors)."""
+    return torch.where(neg_q, torch.where(neg_i, phases[3], phases[1]),
+                       torch.where(neg_i, phases[2], phases[0]))
+
+
+def pe16_ref(i8, q8, ph_sym):
+    """The phase error of the decision at (i8, q8) against the symbol
+    phase ph_sym: atan2_poly less ph_sym in u16 angle units, truncated,
+    sign-folded to int16 (int32 tensor)."""
+    ph_err = atan2_poly(q8, i8) - ph_sym
+    pe_i = torch.trunc(ph_err * K16).to(torch.int32)
+    return ((pe_i & 0xFFFF) ^ 0x8000) - 0x8000
+
+
+PE_GRID = 256                        # i8, q8 in [-128, 127]
+
+
+def pe16_table_ref(phases) -> torch.Tensor:
+    """The QPSK phase-error table the kernel looks pe16 up in: int16
+    [65536], entry (i8 + 128) * 256 + (q8 + 128) = pe16_ref at every grid
+    point against the phase its signs choose (phases: the four QPSK
+    symbol phases, float32 values)."""
+    g = torch.arange(-128, 128, dtype=torch.float32)
+    i8, q8 = g.repeat_interleave(PE_GRID), g.repeat(PE_GRID)
+    ph = [torch.tensor(v, dtype=torch.float32) for v in phases[:4]]
+    return pe16_ref(i8, q8, qpsk_phase(i8 < 0, q8 < 0, ph)).to(torch.int16)
+
+
+def pe16_lookup_ref(table, i8, q8, ph_sym):
+    """pe16 as the kernel's table instance takes it: from `table`
+    (pe16_table_ref) where (i8, q8) lies on the grid, from pe16_ref off
+    it (the halving cap binds, or NaN)."""
+    on = (i8 >= -128) & (i8 <= 127) & (q8 >= -128) & (q8 <= 127)
+    idx = torch.where(on, (i8 + 128) * PE_GRID + (q8 + 128), 0.0)
+    return torch.where(on, table[idx.to(torch.int64)].to(torch.int32),
+                       pe16_ref(i8, q8, ph_sym))
+
+
 def demod_ref(params: ReceiverParams, sym_consts, planes: torch.Tensor,
               x: torch.Tensor):
     """Plain PyTorch demod: the kernel's arithmetic, one float32
@@ -170,15 +228,7 @@ def demod_ref(params: ReceiverParams, sym_consts, planes: torch.Tensor,
             s_re = sg_re * agc_gain
             s_im = sg_im * agc_gain
 
-            k_half = torch.maximum(
-                torch.maximum(_kceil(s_re, B_HI, 127.0),
-                              _kceil(-s_re, B_LO, 128.0)),
-                torch.maximum(_kceil(s_im, B_HI, 127.0),
-                              _kceil(-s_im, B_LO, 128.0)))
-            k_half = torch.clamp(k_half, max=12)
-            scale = ((127 - k_half) << 23).view(torch.float32)
-            i8 = torch.trunc(s_re * scale)
-            q8 = torch.trunc(s_im * scale)
+            i8, q8 = quantize_s8(s_re, s_im)
             if qpsk:
                 ai = torch.abs(i8)
                 aq = torch.abs(q8)
@@ -191,8 +241,7 @@ def demod_ref(params: ReceiverParams, sym_consts, planes: torch.Tensor,
                 near = neg_i.to(torch.int32) * 2 + neg_q.to(torch.int32)
                 cpt_re = torch.where(neg_i, na, pa)
                 cpt_im = torch.where(neg_q, na, pa)
-                ph_sym = torch.where(neg_q, torch.where(neg_i, phs[3], phs[1]),
-                                     torch.where(neg_i, phs[2], phs[0]))
+                ph_sym = qpsk_phase(neg_i, neg_q, phs)
             else:
                 d1 = full(3.4e38)
                 d2 = full(3.4e38)
@@ -212,10 +261,7 @@ def demod_ref(params: ReceiverParams, sym_consts, planes: torch.Tensor,
             cost = (torch.clamp(d1, max=32767.0)
                     - torch.clamp(d2, max=32767.0))
 
-            ph_err = atan2_poly(q8, i8) - ph_sym
-            pe_i = torch.trunc(ph_err * K16).to(torch.int32)
-            pe16 = ((pe_i & 0xFFFF) ^ 0x8000) - 0x8000
-            perr_f = pe16.to(torch.float32)
+            perr_f = pe16_ref(i8, q8, ph_sym).to(torch.float32)
 
             # PLL (sdr.h:813-815)
             phase_u = phase + perr_f * K["freq_alpha"]
@@ -327,6 +373,39 @@ def _launch_consts(params: ReceiverParams, sym_consts, device):
     return _demod_args(params, sym_consts), sym
 
 
+LANES = 32                           # channels per block of the kernel
+
+
+def use_pe_table(qpsk: bool, C: int, sms: int) -> bool:
+    """Whether a launch takes the kernel's phase-error table: QPSK, and
+    its blocks of LANES channels fit on the card's `sms` SMs in one wave
+    (the table leaves room for one block per SM, the layout without it
+    for two)."""
+    return qpsk and -(-C // LANES) <= sms
+
+
+@lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@lru_cache(maxsize=16)
+def _pe_table(phases, device) -> torch.Tensor:
+    """The QPSK phase-error table (int16 [65536] on device) for one
+    constellation's four symbol phases, filled once on the card by the
+    kernel's own arithmetic (pe16_table_ref is its plain version)."""
+    args = _DemodArgs()
+    args.atan_c[:] = ATAN_COEFFS_F32
+    ph = torch.tensor(phases[:4], dtype=torch.float32, device=device)
+    table = torch.empty(PE_GRID * PE_GRID, dtype=torch.int16, device=device)
+    stream = torch.cuda.current_stream(device)
+    err = _kernel().demod_pe_table_launch(ctypes.byref(args), ph.data_ptr(),
+                                          table.data_ptr(), stream.cuda_stream)
+    _dev.check_launch("demod_pe_table", err)
+    stream.synchronize()        # ready for a launch on any stream
+    return table
+
+
 _lib = None
 
 
@@ -338,7 +417,11 @@ def _kernel():
         lib.demod_launch.argtypes = [
             ctypes.POINTER(_DemodArgs), ctypes.c_void_p, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.demod_pe_table_launch.restype = ctypes.c_int
+        lib.demod_pe_table_launch.argtypes = [
+            ctypes.POINTER(_DemodArgs), ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p]
         _lib = lib
     return _lib
 
@@ -361,14 +444,20 @@ def demod(params: ReceiverParams, sym_consts, planes: torch.Tensor,
                       x.device)
     lib = _kernel()
     args, sym = _launch_consts(params, sym_consts, x.device)
+    table = (_pe_table(sym_consts[2], x.device)
+             if use_pe_table(bool(args.qpsk), C, _sm_count(x.device))
+             else None)
     xt = x.transpose(0, 1).contiguous()      # [nsamp+1, C, 2]: coalesced
     st_out = torch.empty_like(planes)
     packed = torch.empty((nsamp, C), dtype=torch.int32, device=x.device)
     with trace.span("kernel.demod"):
         err = lib.demod_launch(ctypes.byref(args), sym.data_ptr(),
+                               None if table is None else table.data_ptr(),
                                xt.data_ptr(), planes.data_ptr(),
                                st_out.data_ptr(), packed.data_ptr(), C,
                                nsamp, _dev.stream_handle(x))
     _dev.check_launch("demod", err)
     trace.count("launch.demod")
+    if table is not None:
+        trace.count("launch.demod.pe_table")
     return st_out, packed

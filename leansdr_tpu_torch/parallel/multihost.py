@@ -136,7 +136,7 @@ def _counts() -> dict:
     """The kernels' launch counts in this process."""
     c = trace.counters()
     return {k: c.get(f"launch.{k}", 0)
-            for k in ("demod", "acs", "scan_demod", "fir")}
+            for k in ("demod", "demod.pe_table", "acs", "scan_demod", "fir")}
 
 
 def _sync(dev):

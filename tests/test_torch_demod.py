@@ -190,6 +190,81 @@ def test_demod_constellation_switch_matches_jax(jax_side):
     assert seen[2] is seen[0] and seen[1] is not seen[0]
 
 
+def _pe16_direct(i8, q8, phases):
+    """pe16 as demod_ref computes it inline: atan2_poly less the QPSK
+    symbol's phase, truncated to u16 angle units, sign-folded."""
+    from leansdr_tpu_torch.dsp.math_utils import atan2_poly
+    neg_i, neg_q = i8 < 0, q8 < 0
+    ph = torch.where(neg_q, torch.where(neg_i, phases[3], phases[1]),
+                     torch.where(neg_i, phases[2], phases[0]))
+    pe_i = torch.trunc((atan2_poly(q8, i8) - ph) * rk.K16).to(torch.int32)
+    return ((pe_i & 0xFFFF) ^ 0x8000) - 0x8000
+
+
+@pytest.mark.parametrize("predef,cr", [(Predef.QPSK, "1/2"),
+                                       (Predef.PSK8, "2/3")])
+def test_pe16_table_ref_matches_direct(predef, cr):
+    """The QPSK phase-error table on all 65536 (i8, q8) grid points
+    equals the direct pe16, for QPSK's phases and for four other phases
+    (8PSK's first four: a constellation switched to)."""
+    phases = rk.sym_constants(make_dvbs2_constellation(predef, cr))[2]
+    table = rk.pe16_table_ref(phases)
+    assert table.dtype == torch.int16 and table.shape == (65536,)
+    k = torch.arange(65536)
+    i8 = (k // 256 - 128).to(torch.float32)
+    q8 = (k % 256 - 128).to(torch.float32)
+    ph = torch.tensor(phases[:4], dtype=torch.float32)
+    direct = _pe16_direct(i8, q8, ph)
+    assert torch.equal(table.to(torch.int32), direct)
+    assert int(direct.min()) < -8000 and int(direct.max()) > 8000
+    # -0.0 (a truncated small negative sample) reads as the +0.0 entry.
+    z = torch.tensor([-0.0, 0.0, -0.0])
+    o = torch.tensor([5.0, -0.0, -7.0])
+    assert torch.equal(_pe16_direct(z, o, ph), _pe16_direct(z.abs(), o, ph))
+    assert torch.equal(_pe16_direct(o, z, ph), _pe16_direct(o, z.abs(), ph))
+
+
+def test_pe16_lookup_ref_falls_back_off_the_grid():
+    """The table lookup with its fallback equals the direct pe16 on the
+    huge-amplitudes stimulus quantized as the loop quantizes it: at the
+    AGC's gains the halving keeps it on the grid; at gains past the cap
+    of 12 halvings, and for NaN, it is off the grid and computed."""
+    phases = rk.sym_constants(make_dvbs2_constellation(Predef.QPSK,
+                                                       "1/2"))[2]
+    table = rk.pe16_table_ref(phases)
+    ph = torch.tensor(phases[:4], dtype=torch.float32)
+    x = torch.from_numpy(_cases()["huge"][3][0])
+    for gain, on_grid in ((1.0, True), (1.0 / 300, True),
+                          (2.0 ** 12, False)):
+        i8, q8 = rk.quantize_s8(x[:, 0] * gain, x[:, 1] * gain)
+        on = (i8 >= -128) & (i8 <= 127) & (q8 >= -128) & (q8 <= 127)
+        if on_grid:
+            assert bool(on.all())
+        else:
+            assert 0 < int(on.sum()) < on.numel() // 2
+        ph_sym = rk.qpsk_phase(i8 < 0, q8 < 0, ph)
+        assert torch.equal(rk.pe16_lookup_ref(table, i8, q8, ph_sym),
+                           _pe16_direct(i8, q8, ph))
+    nan = torch.tensor([float("nan"), 3.0, float("nan")])
+    other = torch.tensor([2.0, float("nan"), -128.0])
+    for i8, q8 in ((nan, other), (other, nan)):
+        got = rk.pe16_lookup_ref(table, i8, q8,
+                                 rk.qpsk_phase(i8 < 0, q8 < 0, ph))
+        assert torch.equal(got, _pe16_direct(i8, q8, ph))
+
+
+@pytest.mark.parametrize("qpsk,C,sms,table", [
+    (True, 1, 132, True), (True, 14, 132, True), (True, 64, 132, True),
+    (True, 448, 132, True), (True, 512, 132, True),
+    (True, 132 * 32, 132, True), (True, 132 * 32 + 1, 132, False),
+    (True, 8192, 132, False), (False, 14, 132, False)])
+def test_pe_table_taken_while_the_blocks_fit(qpsk, C, sms, table):
+    """The QPSK launches of every main path (C <= 512) take the table; a
+    launch whose 32-channel blocks outnumber the SMs keeps the layout
+    without it, and so does every other constellation."""
+    assert rk.use_pe_table(qpsk, C, sms) is table
+
+
 def test_state_pack_roundtrip():
     params = t_receiver.ReceiverParams(omega=1.5, nsymbols=4)
     st = t_receiver.init_state(params, 7, "cpu")

@@ -14,9 +14,11 @@ The two outputs are compared:
 the demod's packed words and state planes must be equal (both equal
 `demod_ref`), fft4096's within 2e-5 of each other (max|dy| / max|y|).
 The demod runs on noisy 2x-oversampled QPSK at the AGC setpoint, at the
-main paths' shapes: 64 carriers x 2^18 (the S=1 fleet chunk), 512 x
-(2^15 + 128) and 448 x 2048 (the S=8 passes), 8192 x 2^15 (every SM),
-one carrier x 2^17 (a leandvb read, omega 1.2). fft4096 runs at B=1024
+main paths' shapes: 14 and 64 carriers x 2^18 (the S=1 fleet chunk of
+the benchmark's fleet and of chip_smoke's), 512 x 2^15 and 448 x 2048
+(the S=8 passes), 8192 x 2^15 (every SM: the layout without the
+phase-error table, whose blocks would not fit in one wave), one carrier
+x 2^17 (a leandvb read, omega 1.2). fft4096 runs at B=1024
 over six inputs in turn (192 MB, more than the L2), with torch.fft.fft
 timed after each pair. acs runs at the main paths' shapes: the fleet's
 ACQUIRE decode (N=256 lanes, T=2^17 blocks), its TRACK decode (N=64,
@@ -66,9 +68,9 @@ sys.path.insert(0, str(REPO))
 import chip_smoke  # noqa: E402  (its latency and SASS helpers)
 
 SEED = 20261017
-DEMOD_SHAPES = ((64, 1 << 18, 2.0, 2), (512, (1 << 15) + 128, 2.0, 3),
-                (448, 2048, 2.0, 10), (8192, 1 << 15, 2.0, 3),
-                (1, 1 << 17, 1.2, 2))
+DEMOD_SHAPES = ((14, 1 << 18, 2.0, 2), (64, 1 << 18, 2.0, 2),
+                (512, 1 << 15, 2.0, 3), (448, 2048, 2.0, 10),
+                (8192, 1 << 15, 2.0, 3), (1, 1 << 17, 1.2, 2))
 # (lanes, blocks, cheap_q, calls per timing; GRAPH_CALLS: captured in a
 # CUDA graph and replayed)
 GRAPH_CALLS = 50
@@ -128,31 +130,6 @@ def qpsk(C: int, n: int, gen) -> torch.Tensor:
             ).contiguous()
 
 
-def qpsk_at(C: int, n: int, gen, sps: float) -> torch.Tensor:
-    """[C, n+1, 2]: random QPSK at `sps` samples per symbol (linear
-    interpolation), amplitude ~75, per-carrier fractional delays, carrier
-    offsets ((c % 64) - 32) * 5e-6 cycles per sample (the fleet
-    stimulus's; they move the trig16 index as a real carrier does),
-    noise."""
-    dev = gen.device
-    sym = (torch.randint(0, 2, (C, int(n / sps) + 3, 2), device=dev,
-                         generator=gen) * 2 - 1).float() * 53.0
-    d = torch.rand((C, 1), device=dev, generator=gen)
-    t = torch.arange(n + 1, device=dev)[None, :] / sps + d
-    i = t.long()
-    f = (t - i)[..., None]
-    x = (1 - f) * torch.gather(sym, 1, i[..., None].expand(-1, -1, 2)) \
-        + f * torch.gather(sym, 1, (i + 1)[..., None].expand(-1, -1, 2))
-    off = ((torch.arange(C, device=dev) % 64) - 32).double() * 5e-6
-    ang = (2 * np.pi * off[:, None] * torch.arange(
-        n + 1, device=dev).double()).float()
-    z = torch.complex(x[..., 0], x[..., 1]) * torch.polar(
-        torch.ones_like(ang), ang)
-    x = torch.stack([z.real, z.imag], -1)
-    return (x + 6.0 * torch.randn(x.shape, device=dev, generator=gen)
-            ).contiguous()
-
-
 def _clone(st: dict) -> dict:
     return {k: v.clone() for k, v in st.items()}
 
@@ -180,7 +157,7 @@ def scan_case(ports, C, n, sampler, fs, reps, gen, pairs):
     fields = dict(omega=fs / 2e6, sampler=sampler, exact_lut=True,
                   rrc_coeffs=co, rrc_steps=steps)
     ra = change["dsp.receiver"].ReceiverParams(**fields).readahead
-    x = qpsk_at(C, n + ra - 1, gen, fs / 2e6) * float(steps)
+    x = chip_smoke.qpsk_at(C, n + ra - 1, gen, fs / 2e6) * float(steps)
     fns, outs = {}, {}
     st0 = None
     for tag in ("change", "parent"):
@@ -204,8 +181,9 @@ def scan_case(ports, C, n, sampler, fs, reps, gen, pairs):
 
 
 def hs_case(ports, C, n, omega, reps, gen, pairs):
-    x = torch.clamp(torch.round(qpsk_at(C, n, gen, omega) * (40 / 75.0)
-                                + 128), 0, 255).to(torch.int32)
+    x = torch.clamp(torch.round(
+        chip_smoke.qpsk_at(C, n, gen, omega) * (40 / 75.0) + 128),
+        0, 255).to(torch.int32)
     fns, outs = {}, {}
     st0 = None
     for tag in ("change", "parent"):

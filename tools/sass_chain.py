@@ -43,7 +43,16 @@ skips and that holds a barrier is a step taken in some passes only (the
 banked ACS's once-per-64-blocks reduction) and is left out. Latencies come from a table keyed by opcode
 family, or family and first modifier ("MUFU.RCP"); chip_smoke.py measures one on the card
 with tools/latency_probe.cu. A family missing from the table is priced
-at the table's `fixed` entry and reported.
+at the table's `fixed` entry and reported. A load from a table in
+shared memory (the QPSK demod's phase error, `LDS.S16`) is priced at
+its own key where the table has one, else at LDS (the probe's
+conflict-free chase: the least it can take).
+
+Beside the count, `path_mix` names where the chain's time goes: each
+opcode (with its first modifier) on the dependency path that reaches
+the latest finish, its count and cycles per step (the demod's table
+instance shows its table load there, and its off-grid computation,
+called out of line, nowhere).
 """
 
 import json
@@ -284,30 +293,58 @@ def latency_of(ins: Instr, latency: dict) -> float:
     return latency["fixed"]
 
 
+def _schedule(body, latency: dict, passes: int, exchange: bool) -> list:
+    """The latest finish after each pass of `body` with unlimited issue,
+    as (time, instructions on the path to it, the path's last node); a
+    node is (pass, index in body, the node it waited for)."""
+    deps = [dests_sources(i, exchange) + (latency_of(i, latency),)
+            for i in body]
+    ready, finish, end = {}, [], (0.0, 0, None)
+    for p in range(passes):
+        for k, (dsts, srcs, lat) in enumerate(deps):
+            t, n, prev = max((ready.get(r, (0.0, 0, None)) for r in srcs),
+                             default=(0.0, 0, None), key=lambda v: v[:2])
+            done = (t + lat, n + 1, (p, k, prev))
+            for r in dsts:
+                if r == _STORED:       # a barrier waits for every store
+                    ready[r] = max(ready.get(r, done), done,
+                                   key=lambda v: v[:2])
+                elif r not in _CONST:
+                    ready[r] = done
+            end = max(end, done, key=lambda v: v[:2])
+        finish.append(end)
+    return finish
+
+
 def chain_cycles(body, latency: dict, passes: int = 24,
                  exchange: bool = False) -> tuple:
     """(cycles, instructions) per pass of the loop-carried chain of
     `body`: the growth per pass of the latest finish and of the number of
     instructions on the dependency path that reaches it."""
-    deps = [dests_sources(i, exchange) + (latency_of(i, latency),)
-            for i in body]
-    ready, finish, end = {}, [], (0.0, 0)
-    for _ in range(passes):
-        for dsts, srcs, lat in deps:
-            t, n = max((ready.get(r, (0.0, 0)) for r in srcs),
-                       default=(0.0, 0))
-            done = (t + lat, n + 1)
-            for r in dsts:
-                if r == _STORED:       # a barrier waits for every store
-                    ready[r] = max(ready.get(r, done), done)
-                elif r not in _CONST:
-                    ready[r] = done
-            end = max(end, done)
-        finish.append(end)
+    finish = _schedule(body, latency, passes, exchange)
     half = passes // 2
     span = passes - half
     return ((finish[-1][0] - finish[half - 1][0]) / span,
             (finish[-1][1] - finish[half - 1][1]) / span)
+
+
+def chain_path(body, latency: dict, passes: int = 24,
+               exchange: bool = False) -> dict:
+    """{opcode: (count, cycles)} per pass of the instructions on the
+    dependency path that reaches the latest finish, over the second half
+    of the passes (opcodes with their first modifier, as the latency
+    table keys them: where the loop-carried time goes)."""
+    node = _schedule(body, latency, passes, exchange)[-1][2]
+    half = passes // 2
+    span = passes - half
+    out = {}
+    while node is not None and node[0] >= half:
+        ins = body[node[1]]
+        key = ".".join(ins.op.split(".")[:2])
+        n, c = out.get(key, (0, 0.0))
+        out[key] = (n + 1, c + latency_of(ins, latency))
+        node = node[2]
+    return {k: (n / span, c / span) for k, (n, c) in sorted(out.items())}
 
 
 def issue_cycles(body, latency: dict, passes: int = 24,
@@ -356,6 +393,7 @@ def analyse(text: str, function: str, latency: dict, marker="STS",
         mix[i.family] = mix.get(i.family, 0) + 1
     known = {k.split(".")[0] for k in latency}
     cycles, on_path = chain_cycles(body, latency, exchange=exchange)
+    path = chain_path(body, latency, exchange=exchange)
     return dict(function=names[0],
                 loop=[f"{instrs[first].addr:#x}", f"{instrs[last].addr:#x}"],
                 hot_instructions=len(body), unroll=unroll,
@@ -363,6 +401,8 @@ def analyse(text: str, function: str, latency: dict, marker="STS",
                 issue_cycles_per_step=issue_cycles(
                     body, latency, exchange=exchange) / unroll,
                 path_instructions_per_step=on_path / unroll,
+                path_mix={k: (n / unroll, c / unroll)
+                          for k, (n, c) in path.items()},
                 instructions_per_step=len(body) / unroll, mix=mix,
                 priced_as_fixed=sorted(set(mix) - known))
 
