@@ -552,7 +552,7 @@ class DvbsReceiver(TsStages):
                     self._seg_state = init_seg_state(self.dem_state, 1, S,
                                                      nseg)
                     self._seg_nseg = nseg
-                with trace.span("rx.demod"):
+                with trace.span("rx.demod"), trace.deferred() as tallies:
                     (self.dem_state, self._seg_state, sym, valid,
                      cost) = _demod_segmented(
                         self.params, getattr(self, "_sym_consts", None),
@@ -564,6 +564,7 @@ class DvbsReceiver(TsStages):
                     syms = _host_copy(sym[:, 0])[valid]
                     costs = (_host_copy(cost[:, 0])[valid]
                              if self.cfg.viterbi else None)
+                    trace.settle(tallies)
                 with trace.span("rx.meas"):
                     self._meas_snapshot(n)
             else:

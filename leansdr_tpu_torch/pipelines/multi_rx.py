@@ -182,22 +182,38 @@ def init_seg_state(dem_state, nchan: int, S: int, nseg: int,
     return _with_phase(rep, _wrap_u16(_phase(rep) + adv))
 
 
-def _rot_label(sb: torch.Tensor, r):
-    """The QPSK label permutation for a lock offset of r*90 degrees, as
-    branchless bit algebra on labels b1b0 = (i_neg, q_neg). r is an int
-    or a [C] row of ints."""
+def _rot_forms(sb: torch.Tensor) -> tuple:
+    """The four QPSK label permutations of sb (int32), for lock offsets of
+    0, 90, 180 and -90 degrees, as branchless bit algebra on labels b1b0
+    = (i_neg, q_neg)."""
     s_ = sb.to(torch.int32)
-    forms = (s_,
-             2 + (s_ >> 1) - 2 * (s_ & 1),      # [2,0,3,1]  +90
-             3 - s_,                            # [3,2,1,0]  180
-             1 - (s_ >> 1) + 2 * (s_ & 1))      # [1,3,0,2]  -90
-    if isinstance(r, int):
-        return forms[r].to(torch.uint8)
+    return (s_,
+            2 + (s_ >> 1) - 2 * (s_ & 1),       # [2,0,3,1]  +90
+            3 - s_,                             # [3,2,1,0]  180
+            1 - (s_ >> 1) + 2 * (s_ & 1))       # [1,3,0,2]  -90
+
+
+def _rot_label(sb: torch.Tensor, r: torch.Tensor):
+    """The QPSK label permutation for a lock offset of r*90 degrees
+    (_rot_forms), r a row of ints, one per column."""
+    forms = _rot_forms(sb)
     rh = r[None, :]
     out = forms[0]
     for k in (1, 2, 3):
         out = torch.where(rh == k, forms[k], out)
     return out.to(torch.uint8)
+
+
+_CONSTS = {}
+
+
+def _const(dev, values) -> torch.Tensor:
+    """A float32 row of constants on `dev`, uploaded once: an upload from
+    pageable memory waits for the device's queue."""
+    key = (str(dev), tuple(values))
+    if key not in _CONSTS:
+        _CONSTS[key] = torch.tensor(values, dtype=torch.float32, device=dev)
+    return _CONSTS[key]
 
 
 def _demod_segmented(params, sym_consts, mf_taps, nchan, S, W, want_cost,
@@ -217,12 +233,21 @@ def _demod_segmented(params, sym_consts, mf_taps, nchan, S, W, want_cost,
       `dem_state`; segment s>=1 starts from pass-1 lane s-1's end state.
       Each lane's matched filter tracks its own freqw.
 
-    Each boundary is cut inside a T-row overlap window at the first row
-    where both trajectories emit the same symbol (rows offset by at most
-    one), falling back to the blind cut. A segment whose PLL locked a
-    QPSK quadrant away is relabelled (the rotation estimated from
-    decision agreement in the overlap window) and its persisted phase
-    derotated. Every float step is in the JAX version's order.
+    Each boundary is cut inside a T-row overlap window after the first
+    symbol that both trajectories emit at rows at most one apart, paired
+    as their emission sequences align (`_cut`), falling back to the blind
+    cut. A segment whose PLL
+    locked a QPSK quadrant away is relabelled (the rotation estimated
+    from decision agreement in the overlap window; `_rotations`) and its
+    persisted phase derotated. Every float step is in the JAX version's
+    order.
+
+    Traced: spans `fleet.seg.pass1`, `fleet.seg.pass2` and
+    `fleet.seg.handover`; counters `seg.boundaries` and, deferred to the
+    caller's fetch (trace.defer), `seg.blind` (boundaries cut blind),
+    `seg.relabel` (segments relabelled) and `seg.realigned` (boundaries
+    whose first anchor paired two neighbouring symbols and was passed
+    over).
 
     The demod is the demod kernel on planes (dem_state [NSTATE, C],
     seg_state [NSTATE, S*C]) or the scan demod on its dicts of C and S*C
@@ -248,13 +273,7 @@ def _demod_segmented(params, sym_consts, mf_taps, nchan, S, W, want_cost,
     # wrap below is exact in float32.
     pos = seg_positions(S, nseg, T)
     b = [(j + 1) * nseg - T - W for j in range(S - 1)]
-    gapv = torch.tensor([b[j] - pos[j] for j in range(S - 1)],
-                        dtype=torch.float32, device=dev).repeat_interleave(C)
-    xs1 = torch.stack([x[:, bj:bj + W + ra] for bj in b]).reshape(
-        J, W + ra, 2)
     offs2 = [0] + [s * nseg - T for s in range(1, S)]
-    xs2 = torch.stack([x[:, o:o + L2 + ra] for o in offs2]).reshape(
-        S * C, L2 + ra, 2)
 
     def mf(freqw, xs):
         if mf_taps is None:
@@ -262,15 +281,23 @@ def _demod_segmented(params, sym_consts, mf_taps, nchan, S, W, want_cost,
         return mf_prefilter.mf_prefilter(mf_taps, freqw, xs)
 
     # -- pass 1: precursor windows from the persisted per-segment states
-    p1 = _lanes(seg_state, 0, J)
-    adv = _wrap_u16(_wrap_u16(_freqw(p1) * 128.0) * (gapv / 128.0))
-    p1 = _with_phase(p1, _wrap_u16(_phase(p1) + adv))
-    st1 = demod(params, sym_consts, tables, p1, mf(_freqw(p1), xs1))[0]
+    with trace.span("fleet.seg.pass1"):
+        gapv = _const(dev, [b[j] - pos[j] for j in range(S - 1)
+                            for _ in range(C)])
+        xs1 = torch.stack([x[:, bj:bj + W + ra] for bj in b]).reshape(
+            J, W + ra, 2)
+        p1 = _lanes(seg_state, 0, J)
+        adv = _wrap_u16(_wrap_u16(_freqw(p1) * 128.0) * (gapv / 128.0))
+        p1 = _with_phase(p1, _wrap_u16(_phase(p1) + adv))
+        st1 = demod(params, sym_consts, tables, p1, mf(_freqw(p1), xs1))[0]
     # -- pass 2: emit windows; lane 0 = the carried chunk-head state, lane
     # s>=1 = pass-1 lane s-1's exactly positioned end state.
-    p2 = _cat(dem_state, st1)
-    seg_out, sym, valid, cost = demod(params, sym_consts, tables, p2,
-                                      mf(_freqw(p2), xs2))  # [L2, S*C]
+    with trace.span("fleet.seg.pass2"):
+        xs2 = torch.stack([x[:, o:o + L2 + ra] for o in offs2]).reshape(
+            S * C, L2 + ra, 2)
+        p2 = _cat(dem_state, st1)
+        seg_out, sym, valid, cost = demod(params, sym_consts, tables, p2,
+                                          mf(_freqw(p2), xs2))  # [L2, S*C]
 
     # Local rows per segment: segment 0 owns [0, nseg) ([nseg, L2) is
     # padding for window uniformity); segment s>=1 has its boundary
@@ -286,81 +313,172 @@ def _demod_segmented(params, sym_consts, mf_taps, nchan, S, W, want_cost,
     def tail_rows(s):
         return (nseg - T, nseg) if s == 0 else (nseg, L2)
 
-    # Rotation: perms[r] maps the incoming trajectory's labels into the
-    # outgoing frame for a lock offset of r*90 degrees; rhat per carrier
-    # is the r under which the overlap window's decisions agree most
-    # (argmax takes the first maximum), kept at 0 without T//8 agreeing
-    # emissions. Handover: the cut is the row after both copies of the
-    # first anchor symbol emitted by both trajectories at rows at most
-    # one apart:
-    #   case0  a and b emit at w        -> cut w+1
-    #   case1  a at w, b at w+1         -> cut w+2, a silent at w+1
-    #   case2  a at w+1, b at w         -> cut w+2, b silent at w+1
-    # Rows < cut come from the outgoing trajectory; no anchor -> cut T.
     qpsk = params.nsymbols == 4
-    dphase = torch.tensor([0.0, 16384.0, 32768.0, -16384.0],
-                          dtype=torch.float32, device=dev)
-    sym_corr = [seg_of(sym, 0)]
-    masks = []
-    seg_rot = [torch.zeros(C, dtype=torch.float32, device=dev)]
-    rows = torch.arange(T, device=dev)[:, None]
-    for s in range(1, S):
-        ta, tb = tail_rows(s - 1)
-        va = seg_of(valid, s - 1)[ta:tb]
-        sa = sym_corr[s - 1][ta:tb]
-        vb = seg_of(valid, s)[:T]
-        sb_raw = seg_of(sym, s)
+    with trace.span("fleet.seg.handover"):
+        # The S-1 overlap windows side by side ([T, (S-1)*C], column
+        # (s-1)*C + c for boundary s of carrier c): the outgoing
+        # trajectory's owned tail and the incoming one's prefix.
+        tails = [tail_rows(s) for s in range(S - 1)]
+
+        def outgoing(a):
+            return torch.cat([seg_of(a, s)[lo:hi]
+                              for s, (lo, hi) in enumerate(tails)], dim=1)
+
+        va, vb = outgoing(valid), valid[:T, C:]
         if qpsk:
-            cnt = []
-            for r in range(4):
-                sbr = _rot_label(sb_raw[:T], r)
-                m = (va[:-1] & vb[:-1] & (sa[:-1] == sbr[:-1])) \
-                    | (va[:-1] & vb[1:] & (sa[:-1] == sbr[1:])) \
-                    | (va[1:] & vb[:-1] & (sa[1:] == sbr[:-1]))
-                cnt.append(m.sum(dim=0))
-            cnt = torch.stack(cnt)                     # [4, C]
-            rhat = torch.argmax(cnt, dim=0)
-            rhat = torch.where(cnt.amax(dim=0) >= T // 8, rhat,
-                               torch.zeros_like(rhat))
-            sseg = _rot_label(sb_raw, rhat)
-            # rhat maps segment s's raw labels into the base frame, so it
-            # is also the segment's lock-phase offset against the stream.
-            seg_rot.append(dphase[rhat])
+            # rot[l] maps lane l's raw labels into the base frame, so it is
+            # also the segment's lock-phase offset against the stream.
+            rot = _rotations(va, outgoing(sym), vb, sym[:T, C:], C)
+            sym_corr = _rot_label(sym, rot)
         else:
-            sseg = sb_raw
-            seg_rot.append(seg_rot[0])
-        sym_corr.append(sseg)
-        sb = sseg[:T]
-        c0 = va[:-1] & vb[:-1] & (sa[:-1] == sb[:-1])        # [T-1, C]
-        c1 = va[:-1] & vb[1:] & (sa[:-1] == sb[1:]) & ~va[1:]
-        c2 = va[1:] & vb[:-1] & (sa[1:] == sb[:-1]) & ~vb[1:]
-        anyc = c0 | c1 | c2
-        first = torch.argmax(anyc.to(torch.int32), dim=0)    # first True
-        same_row = torch.gather(c0, 0, first[None])[0]
-        cut = torch.where(same_row, first + 1, first + 2)
-        cut = torch.where(anyc.any(dim=0), cut, torch.full_like(cut, T))
-        masks.append(rows >= cut[None, :])
+            sym_corr = sym
+        cut, found, moved = _cut(va, outgoing(sym_corr), vb,
+                                 sym_corr[:T, C:])
+        masks = torch.arange(T, device=dev)[:, None] >= cut[None, :]
+        # The handover's tallies, brought to the host with the chunk's
+        # results (trace.defer).
+        trace.defer(("seg.boundaries",), ((S - 1) * C,))
+        relabel = (rot[C:] != 0).sum() if qpsk else \
+            torch.zeros((), dtype=torch.int64, device=dev)
+        trace.defer(("seg.blind", "seg.relabel", "seg.realigned"),
+                    torch.stack([(~found).sum(), relabel, moved.sum()]))
 
-    # Derotate every persisted segment's lock phase into the stream frame
-    # (segment S-1's state is also the next chunk's exact segment-0 seed).
-    if qpsk:
-        seg_out = _with_phase(seg_out,
-                              _wrap_u16(_phase(seg_out) - torch.cat(seg_rot)))
-    dem_state = _lanes(seg_out, (S - 1) * C, S * C)
-    if not isinstance(dem_state, dict):
-        dem_state = dem_state.contiguous()
+        # Derotate every persisted segment's lock phase into the stream
+        # frame (segment S-1's state is also the next chunk's exact
+        # segment-0 seed).
+        if qpsk:
+            dphase = _const(dev, (0.0, 16384.0, 32768.0, -16384.0))
+            seg_out = _with_phase(
+                seg_out, _wrap_u16(_phase(seg_out) - dphase[rot]))
+        dem_state = _lanes(seg_out, (S - 1) * C, S * C)
+        if not isinstance(dem_state, dict):
+            dem_state = dem_state.contiguous()
 
-    def splice(a, segs=None):
-        get = segs.__getitem__ if segs else (lambda s: seg_of(a, s))
-        out = torch.cat([get(s)[slice(*owned_rows(s))] for s in range(S)])
-        for s in range(1, S):
-            ta, tb = tail_rows(s - 1)
-            out[s * nseg - T:s * nseg] = torch.where(
-                masks[s - 1], get(s)[:T], get(s - 1)[ta:tb])
-        return out
+        def splice(a):
+            # Each segment's owned rows, then every boundary's overlap
+            # rows (the last T of each segment but the last) at once.
+            out = torch.cat([seg_of(a, s)[slice(*owned_rows(s))]
+                             for s in range(S)])
+            out.view(S, nseg, C)[:S - 1, nseg - T:] = torch.where(
+                masks, a[:T, C:], outgoing(a)).view(T, S - 1, C) \
+                .transpose(0, 1)
+            return out
 
-    return (dem_state, seg_out, splice(sym, sym_corr), splice(valid),
-            splice(cost) if want_cost else None)
+        return (dem_state, seg_out, splice(sym_corr), splice(valid),
+                splice(cost) if want_cost else None)
+
+
+def _rotations(va, sa, vb, sb, C):
+    """The QPSK lock offsets of segments 1..S-1 from their boundaries'
+    overlap windows ([T, (S-1)*C] side by side: validity and raw labels
+    of the outgoing and the incoming trajectory). Segment s's offset is
+    the r under which _rot_label(sb, r) agrees most with segment s-1's
+    labels in the base frame at rows at most one apart (argmax takes the
+    first maximum), kept at 0 without T//8 agreeing emissions. Rotations
+    compose (r after r' is r + r' mod 4), so the agreement under r in
+    segment s-1's base frame is the raw labels' under r - rot[s-1]: the
+    counts of every boundary come at once, and only the choice walks the
+    boundaries. Returns rot [S*C] per lane (segment 0's 0)."""
+    T, J = va.shape
+    sbr = torch.stack(_rot_forms(sb)).to(torch.uint8)    # [4, T, J]
+    m = (va[:-1] & vb[:-1] & (sa[:-1] == sbr[:, :-1])) \
+        | (va[:-1] & vb[1:] & (sa[:-1] == sbr[:, 1:])) \
+        | (va[1:] & vb[:-1] & (sa[1:] == sbr[:, :-1]))
+    cnt = m.sum(dim=1).view(4, J // C, C)
+    r4 = torch.arange(4, device=va.device)
+    # best[r', s, c]: boundary s+1's choice where segment s's offset is r'
+    best = torch.argmax(cnt[(r4[None, :] - r4[:, None]) % 4], dim=1)
+    best = torch.where(cnt.amax(dim=0) >= T // 8, best,
+                       torch.zeros_like(best))
+    rot = [torch.zeros(C, dtype=best.dtype, device=va.device)]
+    for s in range(J // C):
+        rot.append(torch.gather(best[:, s], 0, rot[-1][None])[0])
+    return torch.cat(rot)
+
+
+def _emissions(v, s):
+    """One trajectory's emissions over an overlap window ([T, C] validity
+    and labels), in order: their labels and rows [T + 1, C] (row T past
+    the last: label 0, row T), their count [C] and each row's emission
+    index [T, C] (-1 before the first)."""
+    T, C = v.shape
+    k = torch.cumsum(v.to(torch.int64), 0) - 1
+    at = torch.where(v, k, torch.full_like(k, T))
+    # Rows without an emission write row T's own label 0 and row T there.
+    lab = torch.zeros((T + 1, C), dtype=s.dtype, device=s.device)
+    lab.scatter_(0, at, torch.where(v, s, torch.zeros_like(s)))
+    rows = torch.full((T + 1, C), T, dtype=torch.int64, device=s.device)
+    rows.scatter_(0, at, torch.where(
+        v, torch.arange(T, device=s.device)[:, None], T))
+    return lab, rows, v.sum(0), k
+
+
+_SEG_ALIGN = 2      # emission offsets tried between the two trajectories
+
+
+def _cut(va, sa, vb, sb):
+    """The handover row of a boundary's overlap window ([T, C], the
+    incoming labels relabelled): the row after both copies of the first
+    anchor symbol emitted by both trajectories at rows at most one
+    apart:
+      case0  a and b emit at w        -> cut w+1
+      case1  a at w, b at w+1         -> cut w+2, a silent at w+1
+      case2  a at w+1, b at w         -> cut w+2, b silent at w+1
+    Rows < cut come from the outgoing trajectory (a).
+
+    An anchor pairs a's emission p with b's emission p + d. The
+    trajectories' alignment d (|d| <= _SEG_ALIGN) is the one under which
+    their emission sequences agree most over the window; an anchor of
+    another alignment pairs two neighbouring symbols whose labels
+    coincide, and a cut there duplicates or drops a symbol (at rows one
+    apart, a window that opens on one trajectory's unpaired emission
+    offers such a pair first a quarter of the time). So the anchor is the
+    first of the alignment d; where no alignment has T//4 agreeing
+    emissions (about half the window's: unrelated labels agree on a
+    quarter), the first of any. Returns (cut [C], anchored [C] bool,
+    realigned [C] bool: the first anchor of any alignment was passed
+    over); with no anchor the cut is blind, at T."""
+    T, C = va.shape
+    c0 = va[:-1] & vb[:-1] & (sa[:-1] == sb[:-1])        # [T-1, C]
+    c1 = va[:-1] & vb[1:] & (sa[:-1] == sb[1:]) & ~va[1:]
+    c2 = va[1:] & vb[:-1] & (sa[1:] == sb[:-1]) & ~vb[1:]
+    anyc = c0 | c1 | c2
+    first = torch.argmax(anyc.to(torch.int32), dim=0)    # first True
+    same_row = torch.gather(c0, 0, first[None])[0]
+    any_cut = torch.where(same_row, first + 1, first + 2)
+    # The alignment: agreement of a's emission k with b's k + d.
+    la, ra, na, ka = _emissions(va, sa)
+    lb, rb, nb, _ = _emissions(vb, sb)
+    k = torch.arange(T, device=va.device)[:, None]
+    A = 2 * _SEG_ALIGN + 1
+    q = k + torch.arange(-_SEG_ALIGN, _SEG_ALIGN + 1,
+                         device=va.device)[:, None, None]   # [A, T, 1]
+    both = (k < na) & (q >= 0) & (q < nb)                   # [A, T, C]
+    agree = (both & (la[:T] == torch.gather(
+        lb.expand(A, T + 1, C), 1, q.clamp(0, T).expand(A, T, C)))).sum(
+            dim=1)                                          # [A, C]
+    d = torch.argmax(agree, dim=0) - _SEG_ALIGN
+    # Its anchors: a's emission at row w (index p) and b's p + d at row
+    # w' with |w - w'| <= 1, the same label, and the cut max(w, w') + 1
+    # before either one's next emission.
+    p = ka.clamp(min=0)
+    q = p + d[None, :]
+    qc = q.clamp(0, T)
+    w2 = torch.gather(rb, 0, qc)
+    cut = torch.maximum(k, w2) + 1
+    ok = (va & (q >= 0) & (q < nb) & ((k - w2).abs() <= 1)
+          & (sa == torch.gather(lb, 0, qc))
+          & (cut <= torch.minimum(torch.gather(ra, 0, p + 1),
+                                  torch.gather(rb, 0, (qc + 1).clamp(
+                                      max=T)))))
+    aligned = torch.gather(cut, 0, torch.argmax(ok.to(torch.int32),
+                                                dim=0)[None])[0]
+    strong = agree.amax(dim=0) >= T // 4
+    found = torch.where(strong, ok.any(dim=0), anyc.any(dim=0))
+    cut = torch.where(strong, aligned, any_cut)
+    cut = torch.where(found, cut, torch.full_like(cut, T))
+    realigned = found & anyc.any(dim=0) & (cut != any_cut)
+    return cut, found, realigned
 
 
 def _fused_chunk(params, sym_consts, mf_taps, kind, plan, plan_dec, maps,
@@ -714,7 +832,7 @@ class MultiDvbsReceiver:
 
     def dispatch(self, iq):
         """Enqueue the device work of one chunk; returns a pending handle
-        or None if not enough samples are buffered."""
+        (a Pending) or None if not enough samples are buffered."""
         with trace.span("fleet.dispatch"):
             ra = self.readahead
             preproc = (self.notch is not None or self.cnr_est is not None
@@ -760,19 +878,21 @@ class MultiDvbsReceiver:
                 self._seg_state = init_seg_state(self.dem_state, self.nchan, S,
                                                  n // S)
                 self._seg_nseg = n // S
-            (self.dem_state, seg_state, self.deconv.state,
-             packed_out) = _fused_chunk(
-                self.params, self._sym_consts, self.mf_taps, self.deconv.kind,
-                self.deconv.plan, plan_dec, self.deconv.maps, schedule,
-                self.dem_state, self._seg_state, self.deconv.state, x,
-                segments=S, seg_warmup=self.seg_warmup, tables=self.tables)
+            with trace.deferred() as tallies:
+                (self.dem_state, seg_state, self.deconv.state,
+                 packed_out) = _fused_chunk(
+                    self.params, self._sym_consts, self.mf_taps,
+                    self.deconv.kind, self.deconv.plan, plan_dec,
+                    self.deconv.maps, schedule, self.dem_state,
+                    self._seg_state, self.deconv.state, x, segments=S,
+                    seg_warmup=self.seg_warmup, tables=self.tables)
             if S > 1:
                 self._seg_state = seg_state
             self._chunk_count += 1
             ecols = plan_dec.E + (1 if self.deconv.kind.startswith("viterbi")
                                   else 0)
             shapes = [(plan_dec.nbytes, ecols)] * sum(schedule)
-            return packed_out, shapes
+            return Pending(packed_out, shapes, tallies)
 
     def _ingest(self, iq, ra: int):
         """The host path's ingest: scale, preprocessing, the sample
@@ -815,7 +935,8 @@ class MultiDvbsReceiver:
         if self._pool is None:
             from concurrent.futures import ThreadPoolExecutor
             self._pool = ThreadPoolExecutor(1)
-        return self._pool.submit(_to_host, packed_out), shapes
+        return self._pool.submit(_to_host, packed_out,
+                                 pending.tallies), shapes
 
     def collect(self, pending) -> list:
         """Fetch one dispatch()'s results (ONE device->host copy) and run
@@ -826,7 +947,8 @@ class MultiDvbsReceiver:
                 if hasattr(packed_out, "result"):
                     buf = packed_out.result()        # prefetched
                 else:
-                    buf = _to_host(packed_out)       # [C, total]
+                    buf = _to_host(packed_out,       # [C, total]
+                                   pending.tallies)
             with trace.span("fleet.unpack"):
                 bytes_by_chan = self._unpack(buf, shapes)
             with trace.span("fleet.backend_feed"):
@@ -898,7 +1020,8 @@ class MultiDvbsReceiver:
             pend = self.dispatch(iq)
             if pend is not None:
                 packed_out, shapes = pend
-                fut = self._fetch_pool.submit(_fetch_job, inp, packed_out)
+                fut = self._fetch_pool.submit(_fetch_job, inp, packed_out,
+                                              pend.tallies)
                 self._jobs.append(self._backend_pool.submit(
                     self._collect_job, inp, trace.stamp(), fut, shapes))
             trace.count("fleet.inflight", len(self._jobs))
@@ -1035,13 +1158,29 @@ class MultiDvbsReceiver:
         return self.backend.verrcount
 
 
-def _to_host(t: torch.Tensor) -> np.ndarray:
+class Pending(tuple):
+    """dispatch()'s handle: the pair (packed_out, shapes), and `tallies`,
+    the chunk's deferred device counters (trace.deferred), which its
+    fetch adds once the packed buffer is on the host."""
+
+    def __new__(cls, packed_out, shapes, tallies=()):
+        self = super().__new__(cls, (packed_out, shapes))
+        self.tallies = tallies
+        return self
+
+
+def _to_host(t: torch.Tensor, tallies=()) -> np.ndarray:
+    """The packed buffer's copy to the host, then the chunk's deferred
+    counters (trace.defer copied them behind the chunk's work, so this
+    copy's return covers theirs)."""
     trace.count("fleet.d2h_bytes", t.numel() * t.element_size())
-    return t.cpu().numpy()
+    buf = t.cpu().numpy()
+    trace.settle(tallies)
+    return buf
 
 
-def _fetch_job(inp: trace.Input, t: torch.Tensor) -> np.ndarray:
+def _fetch_job(inp: trace.Input, t: torch.Tensor, tallies=()) -> np.ndarray:
     """_to_host on the fetch thread, traced as its input was (the wait for
     the chunk's device work included)."""
     with inp, trace.span("fleet.fetch"):
-        return _to_host(t)
+        return _to_host(t, tallies)

@@ -3,7 +3,11 @@
 Counters are always on: `count(name, n)` is an integer add
 (`launch.<kernel>` for every kernel launch, the fleet's chunks, decodes,
 bytes and lock events, the single carrier's reads). `counters()` reads
-them all.
+them all. A count that lives on the device (the segmented demod's
+handover tallies) is handed over with `defer(names, values)`: inside a
+`deferred()` collection it waits there until the caller's own copy of
+its results to the host, after which `settle()` adds it, so that no
+device work is waited for where the work is enqueued.
 
 Spans time the layers of one input (a fleet chunk, a single-carrier
 read) where the work happens:
@@ -37,6 +41,7 @@ stretch's spans and how much each counter rose over it;
 `write_chrome()` writes a record as Chrome-trace JSON.
 """
 
+import contextlib
 import itertools
 import json
 import os
@@ -82,12 +87,53 @@ def counters() -> dict:
     return dict(_counters)
 
 
+def defer(names: tuple, values) -> None:
+    """Add `values` (a 1-D tensor, or a sequence of ints) to the counters
+    `names`, in order: held by this thread's innermost open `deferred()`
+    collection, a device tensor as its copy to the host, enqueued behind
+    the work that computes it (`to("cpu", non_blocking=True)`: pinned,
+    nothing waits); outside one, added at once (a device tensor's copy
+    waits for its work)."""
+    pend = _tls.deferred
+    if pend:
+        if hasattr(values, "to"):
+            values = values.to("cpu", non_blocking=True)
+        pend[-1].append((names, values))
+    else:
+        settle([(names, values)])
+
+
+@contextlib.contextmanager
+def deferred():
+    """Collect this thread's defer() calls: yields the list of (names,
+    values) pairs, which `settle()` adds later, on any thread, once a
+    copy to the host enqueued after them on their stream has returned
+    (the caller's own copy of its results)."""
+    pend = []
+    _tls.deferred.append(pend)
+    try:
+        yield pend
+    finally:
+        _tls.deferred.pop()
+
+
+def settle(pending) -> None:
+    """Add each (names, values) pair of a deferred() collection to its
+    counters (the values' copy to the host waits for their work)."""
+    for names, values in pending:
+        if hasattr(values, "tolist"):
+            values = values.tolist()
+        for name, v in zip(names, values):
+            count(name, int(v))
+
+
 class _Local(threading.local):
     on = None               # the input's decision; None outside any input
     seq = -1
 
     def __init__(self):
         self.stack = []     # open span ids
+        self.deferred = []  # open deferred() collections
         self.saved = []     # (on, seq) of the inputs entered around this one
 
 

@@ -190,6 +190,117 @@ def test_fleet_submit_span_tree(monkeypatch):
     assert c["fleet.inflight"] >= 4
 
 
+SEG_TREE = {"fleet.segmented": "fleet.dispatch",
+            "fleet.seg.pass1": "fleet.segmented",
+            "fleet.seg.pass2": "fleet.segmented",
+            "fleet.seg.handover": "fleet.segmented"}
+
+
+def _segmented_fleet(monkeypatch, S=4, nseg=1024):
+    """A 2-carrier fleet at `segments=S` (from its second chunk) on the
+    stand-in demod, whose emit windows leave carrier 1's segments s >= 1
+    silent over their overlap rows (every boundary of carrier 1 cut
+    blind); and the engine's own rotations and cuts, as it computes
+    them."""
+    from leansdr_tpu_torch.dsp.cstln import Predef
+    from leansdr_tpu_torch.pipelines import multi_rx
+    from leansdr_tpu_torch.pipelines.dvbs_rx import RxConfig
+    C, T = 2, multi_rx._SEG_T
+
+    def demod(params, sym_consts, tables, st, x):
+        st, sym, valid, cost = _stand_in_demod(params, sym_consts, tables,
+                                               st, x)
+        if x.shape[1] - params.readahead == nseg + T:      # pass 2
+            valid = valid.clone()
+            valid[:T, [s * C + 1 for s in range(1, S)]] = False
+        return st, sym, valid, cost
+
+    seen = dict(rot=[], found=[])
+    rotations, cut = multi_rx._rotations, multi_rx._cut
+
+    def rotations_seen(*a):
+        out = rotations(*a)
+        seen["rot"].append(out)
+        return out
+
+    def cut_seen(*a):
+        out = cut(*a)
+        seen["found"].append(out[1])
+        return out
+
+    monkeypatch.setattr(multi_rx, "demod", demod)
+    monkeypatch.setattr(multi_rx, "_rotations", rotations_seen)
+    monkeypatch.setattr(multi_rx, "_cut", cut_seen)
+    cfg = RxConfig(Fs=4e6, Fm=2e6, rate="1/2", constellation=Predef.QPSK,
+                   sampler="linear", fastlock=True, viterbi=False,
+                   exact_lut=False, float_scale=1.0)
+    rx = multi_rx.MultiDvbsReceiver(cfg, C, chunk_samples=S * nseg,
+                                    segments=S, seg_warmup=256,
+                                    seg_holdoff=1, device="cpu")
+    x = np.random.default_rng(4).standard_normal(
+        (C, 4 * S * nseg + rx.readahead, 2)).astype(np.float32)
+    return rx, x, seen
+
+
+def test_segmented_spans_and_tallies(monkeypatch):
+    """The segmented engine's spans nest under `fleet.segmented`; per
+    segmented chunk `seg.boundaries` rises by (S-1)*C, and `seg.blind`
+    and `seg.relabel` by the engine's own anchorless cuts and nonzero
+    rotations, added on the fetch thread once the chunk's packed buffer
+    is on the host."""
+    S, C, nseg = 4, 2, 1024
+    rx, x, seen = _segmented_fleet(monkeypatch, S, nseg)
+    chunk, ra = S * nseg, rx.readahead
+    settled = []
+    settle = trace.settle
+
+    def settle_seen(pending):
+        if pending:
+            settled.append(threading.get_ident())
+        settle(pending)
+
+    monkeypatch.setattr(trace, "settle", settle_seen)
+    trace.enable()
+    for k in range(4):
+        rx.submit(x[:, :chunk + ra] if k == 0
+                  else x[:, k * chunk + ra:(k + 1) * chunk + ra])
+    rx.flush()
+    rx.close()
+    trace.disable()
+    rec = trace.record()
+    by_id = {s.id: s for s in rec.spans}
+    for name, parent in SEG_TREE.items():
+        spans = rec.named(name)
+        assert len(spans) == 3, (name, len(spans))   # chunks 1-3 segmented
+        assert all(by_id[s.parent].name == parent for s in spans), name
+    assert not rec.named("fleet.demod")[1:]          # chunk 0 sequential
+    rhat = torch.stack(seen["rot"])[:, C:]           # segments 1..S-1
+    found = torch.stack(seen["found"]).reshape(3 * (S - 1), C)
+    assert rhat.shape == (3, (S - 1) * C)
+    assert not found[:, 1].any() and found[:, 0].all()
+    assert rec.counters["seg.boundaries"] == 3 * (S - 1) * C
+    assert rec.counters["seg.blind"] == int((~found).sum()) == 3 * (S - 1)
+    assert rec.counters.get("seg.relabel", 0) == int((rhat != 0).sum())
+    assert settled and threading.get_ident() not in settled
+
+
+def test_segmented_tallies_wait_for_the_fetch(monkeypatch):
+    """dispatch() only holds the handover's tallies (no copy to the host
+    where the chunk is enqueued); collect() adds them after the packed
+    buffer's copy."""
+    S, nseg = 2, 1024
+    rx, x, seen = _segmented_fleet(monkeypatch, S, nseg)
+    chunk, ra = S * nseg, rx.readahead
+    rx.collect(rx.dispatch(x[:, :chunk + ra]))       # sequential
+    before = trace.counters()
+    pend = rx.dispatch(x[:, chunk + ra:2 * chunk + ra])
+    assert seen["found"] and pend.tallies
+    assert not {k for k in trace.counters() if k.startswith("seg.")}
+    rx.collect(pend)
+    c = {k: v - before.get(k, 0) for k, v in trace.counters().items()}
+    assert c["seg.boundaries"] == 2 and c["seg.blind"] == 1
+
+
 def test_single_carrier_process_spans(monkeypatch):
     from leansdr_tpu_torch.dsp import receiver_kernel as rk
     from leansdr_tpu_torch.dsp.cstln import Predef
@@ -268,15 +379,20 @@ SYNTHETIC = types.SimpleNamespace(
            _span("fleet.fetch", 0.5), _span("fleet.backend_queue", 4),
            _span("fleet.backend_queue", 2)]
     + [_span("rx.process", 50)] * 4 + [_span("rx.preprocess", 2)] * 4
-    + [_span("rx.fetch", 9)] * 4,
-    counters={"fleet.decodes.track": 3, "fleet.decodes.acquire": 1})
+    + [_span("rx.fetch", 9)] * 4
+    + [_span("fleet.seg.pass1", 2), _span("fleet.seg.pass2", 10),
+       _span("fleet.seg.pass1", 4), _span("fleet.seg.pass2", 12),
+       _span("fleet.seg.handover", 30), _span("fleet.seg.handover", 20)],
+    counters={"fleet.decodes.track": 3, "fleet.decodes.acquire": 1,
+              "seg.boundaries": 196, "seg.blind": 7})
 
 
 @pytest.mark.parametrize("metric,want", [
     ("fleet.submit_wait_ms", 2.0), ("fleet.decode_enqueue_ms", 15.0),
     ("fleet.track_pct", 75.0), ("fleet.fetch_ms", 0.25),
     ("fleet.backend_wait_ms", 3.0), ("sc.preprocess_ms", 2.0),
-    ("sc.fetch_ms", 9.0)])
+    ("sc.fetch_ms", 9.0), ("fleet.seg_pass_ms", 14.0),
+    ("fleet.seg_handover_ms", 25.0), ("fleet.seg_blind_pct", 3.5714285714)])
 def test_metric_reader(metric, want, monkeypatch):
     from sdrbench.harness import load_module
     mod = load_module(REPO / "sdrbench" / "metrics" / f"{metric}.py",
@@ -284,6 +400,24 @@ def test_metric_reader(metric, want, monkeypatch):
     monkeypatch.setattr(mod, "record", lambda: SYNTHETIC)
     assert mod.read({}) == pytest.approx(want)
     monkeypatch.setattr(mod, "record", lambda: None)   # no tracing layer
+    assert mod.read({}) is None
+
+
+@pytest.mark.parametrize("metric", ["fleet.seg_pass_ms",
+                                    "fleet.seg_handover_ms",
+                                    "fleet.seg_blind_pct"])
+def test_segmented_readers_without_the_spans(metric, monkeypatch):
+    """A program whose record lacks the segmented engine's spans and
+    counters (the sequential fleet, or a program without them) gives no
+    reading."""
+    from sdrbench.harness import load_module
+    mod = load_module(REPO / "sdrbench" / "metrics" / f"{metric}.py",
+                      "trace_reader_none_" + metric.replace(".", "_"))
+    bare = types.SimpleNamespace(
+        spans=[s for s in SYNTHETIC.spans
+               if not s.name.startswith("fleet.seg.")],
+        counters={"fleet.decodes.track": 3})
+    monkeypatch.setattr(mod, "record", lambda: bare)
     assert mod.read({}) is None
 
 
